@@ -1,0 +1,548 @@
+"""Graph executor (paper §6) — runs a Ripple Graph on one GPU, eagerly.
+
+The single-process counterpart of the JAX package's ``Executor``:
+
+* graph nodes are scheduled from their real data dependencies
+  (``core/schedule.py``): with ``schedule="dag"`` (default) antichains of
+  independent device nodes share a wave and consecutive waves one segment;
+  ``schedule="sequential"`` is the program-order lowering.  Both give the
+  same state;
+* a **layout solver** assigns each record tensor a storage layout per
+  segment (user pin > node preference > halo clamp > declared layout) and
+  the executor converts state at segment boundaries where producer and
+  consumer disagree (``plan.relayouts``).  Outside a call every state dict
+  is in the plan's *initial* layouts;
+* padded (halo) accesses get their halo cells from the tensor's boundary
+  policy (``core/halo.py``) before the node runs;
+* host (Cpu) nodes and ``sync()`` wait for the device, then run their
+  callback.
+
+Every segment runs eagerly: node functions are called in wave order, each
+wave against a snapshot of the state, so the result is the reference's
+per-segment dispatch semantics (its ``regions=False`` path, which its
+README states is bitwise-identical to region dispatch).  Node functions
+return new tensors and never write a state buffer in place, so a caller's
+state dict is never modified and there is nothing to donate: the
+reference's ``donate=`` has no counterpart here.
+
+Not in this executor yet, each raising ``NotImplementedError`` that names
+its ROADMAP item: ``mesh=`` and partitioned tensors (item 8), ``tune=``
+(item 9), region compile (``regions=True``, item 7(b)), async region
+dispatch (``async_regions=True``, item 7(c)), and ``conditional`` graphs
+(the conditional-loop executor slice that comes with the eikonal kernel).
+
+Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
+when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
+PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass, field as dfield
+from typing import Any, Optional
+
+import torch
+
+from ..tuning.tiles import tile_scope
+from . import halo as halo_lib
+from . import schedule as schedule_lib
+from .device import resolve_device
+from .graph import AccessMode, Graph, Node, TensorArg
+from .layout import (Layout, RecordArray, _as_tensor, relayout,
+                     storage_candidates)
+from .schedule import ScheduleDag
+from .tensor import DistTensor, ReductionResult
+
+__all__ = ["Executor", "execute", "LayoutPlan", "RelayoutStep",
+           "solve_layouts"]
+
+_ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
+              "executor)")
+_ITEM_TUNE = "ROADMAP item 9 (tuning)"
+_ITEM_REGIONS = "ROADMAP item 7(b) (region compile)"
+_ITEM_ASYNC = "ROADMAP item 7(c) (async regions)"
+_ITEM_LOOP = ("the conditional-loop executor slice that comes with the "
+              "eikonal kernel K5 (first ROADMAP queue item)")
+
+
+def _apply_halo(data: torch.Tensor, t: DistTensor) -> torch.Tensor:
+    """Extend ``data`` by all of ``t``'s halos, filled from its boundary
+    policy, corners included."""
+    axes = [halo_lib.HaloAxis(t.storage_axis(d), w)
+            for d, w in enumerate(t.halo) if w]
+    if not axes:
+        return data
+    return halo_lib.exchange_multi(data, axes, boundary=t.boundary,
+                                   constant=t.boundary_constant)
+
+
+@dataclass(frozen=True)
+class RelayoutStep:
+    """An explicit layout conversion the executor inserts at a segment
+    boundary: ``tensor`` is converted ``src -> dst`` before ``segment``."""
+
+    segment: int
+    tensor: str
+    src: Layout
+    dst: Layout
+
+
+@dataclass
+class LayoutPlan:
+    """Solver output: ``initial`` is what :meth:`Executor.init_state`
+    materializes (the first consuming segment's choice), ``per_segment``
+    the layout of every record tensor each segment touches, ``relayouts``
+    the boundary conversions of one pass, and ``dag`` the dependency DAG
+    with its segment placement."""
+
+    per_segment: list[dict[str, Layout]] = dfield(default_factory=list)
+    initial: dict[str, Layout] = dfield(default_factory=dict)
+    relayouts: list[RelayoutStep] = dfield(default_factory=list)
+    dag: Optional[ScheduleDag] = None
+
+    def describe_dag(self) -> str:
+        """Render the dependency DAG with its segment/wave placement and
+        the relayout steps at each segment entry."""
+        if self.dag is None:
+            return "(no dependency DAG recorded)"
+        return self.dag.describe(plan=self)
+
+
+def _segment_nodes(kind: str, payload):
+    """All nodes a segment executes."""
+    if kind == "device":
+        for level in payload:
+            yield from level
+    elif kind == "host":
+        yield payload
+
+
+def _clamp_layout(t: DistTensor, lay: Layout) -> Layout:
+    """AoSoA cannot carry halo/partition on the tiled (last) dim; fall back
+    to SoA when it would."""
+    if lay is not Layout.AOSOA or not t.is_record:
+        return lay
+    if lay not in storage_candidates(t.space, t.halo, t.partition):
+        return Layout.SOA
+    return lay
+
+
+def solve_layouts(
+    segments,
+    tensors: dict[str, DistTensor],
+    overrides: Optional[dict[str, Layout]] = None,
+    segment_overrides: Optional[dict[int, dict[str, Layout]]] = None,
+) -> LayoutPlan:
+    """Choose a storage layout per record tensor per segment.
+
+    Decision order per tensor (first match wins): ``segment_overrides``
+    (segment index -> key -> layout), ``overrides`` (plan-uniform), the
+    user's ``pin_layout``, the first node-level preference in node order
+    (clamped by halo/partition feasibility), the declared layout (clamped
+    the same way).
+    """
+    overrides = overrides or {}
+    segment_overrides = segment_overrides or {}
+
+    def choose(seg_idx, nodes) -> dict[str, Layout]:
+        seg_over = segment_overrides.get(seg_idx, {})
+        hints: dict[str, Layout] = {}
+        seen: set[str] = set()
+        no_aosoa: set[str] = set()
+        for node in nodes:
+            for a in node.args:
+                if isinstance(a, TensorArg):
+                    t, hint = a.tensor, a.layout
+                elif isinstance(a, DistTensor):
+                    t, hint = a, None
+                else:
+                    continue
+                if not t.is_record:
+                    continue
+                seen.add(t.name)
+                # feasibility is per ACCESS handle: any haloed access
+                # vetoes AoSoA for the shared storage
+                if _clamp_layout(t, Layout.AOSOA) is not Layout.AOSOA:
+                    no_aosoa.add(t.name)
+                if hint is not None and t.name not in hints:
+                    hints[t.name] = hint
+        out: dict[str, Layout] = {}
+        for name in seen:
+            t = tensors[name]
+            if name in seg_over:
+                out[name] = seg_over[name]
+            elif name in overrides:
+                out[name] = overrides[name]
+            elif t.pin_layout:
+                if t.layout is Layout.AOSOA and (
+                        name in no_aosoa
+                        or _clamp_layout(t, Layout.AOSOA)
+                        is not Layout.AOSOA):
+                    raise ValueError(
+                        f"{name}: pinned AOSOA layout is infeasible — the "
+                        f"tensor carries a halo or partition on the tiled "
+                        f"(last) space dim")
+                out[name] = t.layout
+            else:
+                lay = _clamp_layout(t, hints.get(name, t.layout))
+                if lay is Layout.AOSOA and name in no_aosoa:
+                    lay = Layout.SOA
+                out[name] = lay
+        return out
+
+    per_segment = [choose(i, list(_segment_nodes(k, p)))
+                   for i, (k, p) in enumerate(segments)]
+
+    plan = LayoutPlan(per_segment=per_segment)
+    current: dict[str, Layout] = {}
+    for i, seg in enumerate(per_segment):
+        for name, lay in seg.items():
+            cur = current.get(name)
+            if cur is None:
+                plan.initial[name] = lay
+            elif cur is not lay:
+                plan.relayouts.append(RelayoutStep(i, name, cur, lay))
+            current[name] = lay
+    for name, t in tensors.items():
+        if t.is_record and name not in plan.initial:
+            plan.initial[name] = t.layout
+    return plan
+
+
+class Executor:
+    """Run a Graph on one device.
+
+    ``schedule`` is ``"dag"`` (dependency-DAG waves, default) or
+    ``"sequential"`` (program order); both give the same state.
+    ``layout_overrides`` forces a layout per record tensor for the whole
+    plan, ``segment_layout_overrides`` per segment (segment index -> key ->
+    layout), and ``tile_overrides`` forces kernel tiles (kernel name ->
+    tile) while the nodes run.
+
+    Example::
+
+        ex = Executor(graph)                  # on the GPU
+        state = ex.run(ex.init_state(), steps=100)
+        ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
+    """
+
+    def __init__(self, graph: Graph, device: Any = None, *,
+                 layout_overrides: Optional[dict[str, Layout]] = None,
+                 schedule: str = "dag",
+                 segment_layout_overrides: Optional[
+                     dict[int, dict[str, Layout]]] = None,
+                 tile_overrides: Optional[dict[str, Any]] = None,
+                 mesh: Any = None, tune: str = "off",
+                 regions: bool = False, async_regions: bool = False):
+        if schedule not in ("dag", "sequential"):
+            raise ValueError(
+                f"schedule must be 'dag' or 'sequential', got {schedule!r}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh= is {_ITEM_MESH}")
+        if tune != "off":
+            raise NotImplementedError(f"tune={tune!r} is {_ITEM_TUNE}")
+        if regions:
+            raise NotImplementedError(f"regions=True is {_ITEM_REGIONS}")
+        if async_regions:
+            raise NotImplementedError(
+                f"async_regions=True is {_ITEM_ASYNC}")
+        if graph.has_conditional():
+            raise NotImplementedError(
+                f"conditional graphs are {_ITEM_LOOP}")
+        self.graph = graph
+        self.device = resolve_device(device)
+        self.schedule = schedule
+        self.tensors = graph.all_tensors()
+        self.results = graph.all_results()
+        for t in self.tensors.values():
+            if t.is_partitioned:
+                raise NotImplementedError(
+                    f"{t.name}: partitioned axis {t.partition} on a "
+                    f"single-process executor — {_ITEM_MESH}")
+        self.dag = schedule_lib.build_dag(graph)
+        if schedule == "dag":
+            self._segments = schedule_lib.dag_segments(self.dag)
+        else:
+            self._segments = schedule_lib.sequential_segments(graph)
+            schedule_lib.place_units(self.dag, self._segments)
+        self._layout_overrides = dict(layout_overrides or {})
+        self._segment_overrides = {
+            int(i): dict(v)
+            for i, v in (segment_layout_overrides or {}).items()}
+        self._tile_config = dict(tile_overrides or {})
+        self.plan = solve_layouts(self._segments, self.tensors,
+                                  overrides=self._layout_overrides,
+                                  segment_overrides=self._segment_overrides)
+        self.plan.dag = self.dag
+        # physical layout of each record tensor's state entry right now
+        self._state_layouts: dict[str, Layout] = dict(self.plan.initial)
+        self.eager_relayouts = 0   # conversions made at segment boundaries
+
+    # -- layout plumbing ---------------------------------------------------
+    def _eff_in(self, t: DistTensor, layouts: dict[str, Layout]) -> DistTensor:
+        """The tensor handle under an explicit layout assignment."""
+        if not t.is_record:
+            return t
+        lay = layouts.get(t.name, t.layout)
+        return t if lay is t.layout else t.with_(layout=lay)
+
+    def _eff(self, t: DistTensor) -> DistTensor:
+        """The tensor handle in its *current physical* layout."""
+        return self._eff_in(t, self._state_layouts)
+
+    def _apply_segment_layouts(self, state: dict, seg: int) -> dict:
+        """Convert every tensor whose physical layout disagrees with the
+        layout segment ``seg`` was solved for."""
+        return self._convert_layouts(state, self.plan.per_segment[seg])
+
+    def _restore_initial_layouts(self, state: dict) -> dict:
+        """Undo trailing conversions so that outside a call every state
+        dict is in the plan's initial layouts."""
+        return self._convert_layouts(state, self.plan.initial)
+
+    def _convert_layouts(self, state: dict,
+                         targets: dict[str, Layout]) -> dict:
+        for name, lay in targets.items():
+            t = self.tensors[name]
+            cur = self._state_layouts.get(name, t.layout)
+            if cur is lay:
+                continue
+            state[name] = relayout(RecordArray(state[name], t.spec, cur),
+                                   lay).data
+            self._state_layouts[name] = lay
+            self.eager_relayouts += 1
+        return state
+
+    # -- state management ------------------------------------------------
+    def init_state(self, **overrides) -> dict[str, Any]:
+        """Allocate all tensors/results on the executor's device (zeros
+        unless overridden).  Record tensors are materialized in the layout
+        the solver chose for their first consuming segment; an override in
+        another layout is relayouted on the way in."""
+        self._state_layouts = dict(self.plan.initial)
+        state: dict[str, Any] = {}
+        for name, t in self.tensors.items():
+            eff = self._eff(t)
+            if name in overrides:
+                v = overrides[name]
+                if isinstance(v, RecordArray):
+                    data = relayout(v, eff.layout).data
+                elif t.is_record:
+                    v = _as_tensor(v)
+                    src = self._infer_override_layout(t, v.shape)
+                    data = relayout(RecordArray(v, t.spec, src),
+                                    eff.layout).data
+                else:
+                    data = _as_tensor(v)
+                state[name] = data.to(self.device)
+            else:
+                v = eff.init(self.device)
+                state[name] = v.data if isinstance(v, RecordArray) else v
+        for name, r in self.results.items():
+            state[name] = torch.tensor(r.init, dtype=r.dtype,
+                                       device=self.device)
+        return state
+
+    def _infer_override_layout(self, t: DistTensor, shape) -> Layout:
+        """Which layout a raw (non-RecordArray) record override is stored
+        in, by matching its shape against each layout's storage shape; an
+        ambiguous match raises instead of guessing."""
+        def fits(lay):
+            return tuple(shape) == RecordArray.storage_shape(
+                t.spec, t.space, lay)
+
+        preferred = list(dict.fromkeys(
+            [self.plan.initial.get(t.name, t.layout), t.layout]))
+        matches = [lay for lay in preferred if fits(lay)]
+        if len(matches) == 1:
+            return matches[0]
+        if len(matches) > 1:
+            raise ValueError(
+                f"{t.name}: override shape {tuple(shape)} is ambiguous "
+                f"between layouts {[m.name for m in matches]} for space "
+                f"{t.space} — pass a RecordArray to make it explicit")
+        others = [lay for lay in Layout
+                  if lay not in preferred and fits(lay)]
+        if len(others) == 1:
+            return others[0]
+        if others:
+            raise ValueError(
+                f"{t.name}: override shape {tuple(shape)} is ambiguous "
+                f"between layouts {[m.name for m in others]} for space "
+                f"{t.space} — pass a RecordArray to make it explicit")
+        raise ValueError(
+            f"{t.name}: override shape {tuple(shape)} matches no layout's "
+            f"storage shape for space {t.space} "
+            f"(pass a RecordArray to make the layout explicit)")
+
+    def read(self, state: dict, t: DistTensor):
+        """Wrap a state entry back into its RecordArray view (in the
+        tensor's current physical layout)."""
+        return self._eff(t).wrap(state[t.name])
+
+    def describe_dag(self) -> str:
+        """Render the dependency DAG, its segment/wave placement under the
+        active schedule and the relayouts at each segment entry."""
+        return self.plan.describe_dag()
+
+    # -- node lowering -----------------------------------------------------
+    def _resolve_args(self, node: Node, state: dict,
+                      layouts: dict[str, Layout]):
+        """The Python args passed to a node fn; haloed where needed."""
+        vals = []
+        for a in node.args:
+            if isinstance(a, ReductionResult):
+                vals.append(state[a.name])
+                continue
+            t = None
+            mode = AccessMode.DEFAULT
+            if isinstance(a, TensorArg):
+                t, mode = a.tensor, a.mode
+            elif isinstance(a, DistTensor):
+                t = a
+            if t is None:
+                vals.append(a)
+                continue
+            t = self._eff_in(t, layouts)
+            data = state[t.name]
+            if mode.padded:
+                data = _apply_halo(data, t)
+            vals.append(t.wrap(data) if t.is_record else data)
+        return vals
+
+    @staticmethod
+    def _write_tensors(node: Node) -> list[DistTensor]:
+        return [node.args[i].tensor if isinstance(node.args[i], TensorArg)
+                else node.args[i] for i in node.default_writes()]
+
+    def _lower_split(self, node: Node, state: dict,
+                     layouts: dict[str, Layout]) -> None:
+        vals = self._resolve_args(node, state, layouts)
+        out = node.fn(*vals)
+        self._store_writes(node, state, self._write_tensors(node), out,
+                           layouts)
+
+    def _store_writes(self, node, state, write_tensors, out, layouts) -> None:
+        if not write_tensors:
+            return
+        if len(write_tensors) == 1:
+            out = (out,)
+        if len(out) != len(write_tensors):
+            raise ValueError(
+                f"{node.name}: fn returned {len(out)} values for "
+                f"{len(write_tensors)} writes")
+        for t, v in zip(write_tensors, out):
+            state[t.name] = self._coerce_write(t, v, layouts)
+
+    def _coerce_write(self, t, v, layouts: dict[str, Layout]):
+        """Raw storage for one written value: a RecordArray output in
+        another layout than the segment's layout for ``t`` is converted."""
+        if isinstance(v, RecordArray):
+            if t.is_record:
+                want = layouts.get(t.name, t.layout)
+                if v.layout is not want:
+                    v = relayout(v, want)
+            return v.data
+        return torch.as_tensor(v)
+
+    def _lower_reduce(self, node: Node, state: dict,
+                      layouts: dict[str, Layout]) -> None:
+        t, field = node.args
+        data = state[t.name]
+        if t.is_record and field is not None:
+            data = self._eff_in(t, layouts).wrap(data).field(field)
+        local = torch.as_tensor(node.reducer.local(data))
+        state[node.result.name] = local.to(device=self.device,
+                                           dtype=node.result.dtype)
+
+    def _lower_levels(self, levels, state: dict,
+                      layouts: dict[str, Layout]) -> dict:
+        state = dict(state)
+        for level in levels:
+            # paper: nodes on a level are independent -> run all against
+            # the same input snapshot, then merge
+            snapshot = dict(state)
+            for node in level:
+                if node.kind == "split":
+                    tmp = dict(snapshot)
+                    self._lower_split(node, tmp, layouts)
+                    for k, v in tmp.items():
+                        if k not in snapshot or v is not snapshot[k]:
+                            state[k] = v
+                elif node.kind == "reduce":
+                    tmp = dict(snapshot)
+                    self._lower_reduce(node, tmp, layouts)
+                    state[node.result.name] = tmp[node.result.name]
+                elif node.kind == "op":
+                    tmp = dict(snapshot)
+                    vals = self._resolve_args(node, tmp, layouts)
+                    wt = self._write_tensors(node)
+                    out = node.fn(*vals) if node.fn is not None else None
+                    if wt:
+                        self._store_writes(node, tmp, wt, out, layouts)
+                        for t in wt:
+                            state[t.name] = tmp[t.name]
+                else:
+                    raise ValueError(f"unexpected node kind {node.kind}")
+        return state
+
+    # -- execution -----------------------------------------------------------
+    def _call_segments(self, state: dict) -> dict:
+        """One pass: per segment, the boundary relayouts, then its waves
+        (device) or its callback after the device is idle (host)."""
+        for i, (kind, payload) in enumerate(self._segments):
+            state = self._apply_segment_layouts(state, i)
+            if kind == "device":
+                with tile_scope(self._tile_config):
+                    state = self._lower_levels(payload, state,
+                                               dict(self._state_layouts))
+            elif kind == "host":
+                node: Node = payload
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                if node.fn is not None:
+                    vals = self._resolve_args(
+                        node, state, self._state_layouts) \
+                        if node.args else []
+                    node.fn(*vals)
+            else:
+                raise NotImplementedError(
+                    f"{kind} segments are {_ITEM_LOOP}")
+        return state
+
+    @contextmanager
+    def _layout_epoch(self):
+        """Incoming states are in the plan's initial layouts, and whatever
+        happens inside (an exception included), the bookkeeping ends at
+        initial again."""
+        self._state_layouts = dict(self.plan.initial)
+        try:
+            yield
+        finally:
+            self._state_layouts = dict(self.plan.initial)
+
+    def __call__(self, state: dict) -> dict:
+        """Execute the graph once; returns the new state dict."""
+        with self._layout_epoch():
+            state = self._call_segments(dict(state))
+            return self._restore_initial_layouts(dict(state))
+
+    def run(self, state: dict, steps: int) -> dict:
+        """Execute the whole graph ``steps`` times (graphs are built once,
+        executed many — paper §5.3)."""
+        if steps <= 0:
+            return state
+        with self._layout_epoch():
+            state = dict(state)
+            for _ in range(steps):
+                state = self._call_segments(state)
+            return self._restore_initial_layouts(dict(state))
+
+
+def execute(graph: Graph, device: Any = None, steps: int = 1,
+            **state_overrides) -> dict:
+    """One-shot convenience: init state, run ``steps`` times, return the
+    final state."""
+    ex = Executor(graph, device)
+    return ex.run(ex.init_state(**state_overrides), steps)

@@ -1,0 +1,1 @@
+"""particle kernel: CUDA wrapper (kernel.py), plain version (ref.py), ops."""

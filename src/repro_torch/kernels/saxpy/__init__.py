@@ -1,0 +1,1 @@
+"""saxpy kernel: CUDA wrapper (kernel.py), plain version (ref.py), ops."""

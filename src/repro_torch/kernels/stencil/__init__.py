@@ -1,0 +1,1 @@
+"""stencil kernel: CUDA wrapper (kernel.py), plain version (ref.py), ops."""

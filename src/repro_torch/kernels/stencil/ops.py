@@ -1,0 +1,69 @@
+"""Public FORCE flux-difference stencil + its graph builder.
+
+The CUDA kernel walks halo-inclusive tiles, which needs per-axis storage
+(AoS or SoA).  An AoSoA input is relayouted to the kernel's preferred
+layout on the way in and back on the way out — the same boundary
+conversion the executor's layout solver emits.  A CUDA record goes to the
+kernel (or the wrapper raises), a CPU record to the plain version.
+"""
+
+from typing import Optional
+
+from ...core.graph import Graph, concurrent_padded_access
+from ...core.layout import dispatch_with_relayout
+from ...core.tensor import DistTensor
+from ...tuning.tiles import resolve_tile
+from .._common import on_cuda
+from .kernel import (DEFAULT_BLOCK, PREFERRED_LAYOUT, SUPPORTED_LAYOUTS,
+                     TILE_KERNEL, check_block, flux_difference_cuda)
+from .ref import flux_difference_ref
+
+__all__ = ["flux_difference", "flux_difference_ref",
+           "make_flux_difference_graph"]
+
+
+def flux_difference(state_haloed, lam_x, lam_y, *, block=None,
+                    use_kernel: bool = True):
+    """Sum of FORCE flux differences over both dims of a haloed 2-D Euler
+    record (paper Table 4): ``(nx+2, ny+2)`` space in, ``(nx, ny)`` out,
+    layout polymorphic.  ``block=None`` resolves the reference's
+    ``(bx, by)`` tile through the ambient tile scope; the kernel path
+    requires it to divide the interior, on both devices;
+    ``use_kernel=False`` asks for the plain version on either device."""
+    interior = tuple(s - 2 for s in state_haloed.space)
+    block = resolve_tile(TILE_KERNEL, block, DEFAULT_BLOCK, shape=interior)
+    if not use_kernel:
+        return flux_difference_ref(state_haloed, lam_x, lam_y)
+    check_block(interior, block)
+    fn = flux_difference_cuda if on_cuda(state_haloed.data) \
+        else flux_difference_ref
+    return dispatch_with_relayout(fn, state_haloed, lam_x, lam_y,
+                                  supported=SUPPORTED_LAYOUTS,
+                                  preferred=PREFERRED_LAYOUT)
+
+
+def make_flux_difference_graph(
+    u: DistTensor,
+    out: DistTensor,
+    lam_x,
+    lam_y,
+    *,
+    overlap: bool = True,
+    use_kernel: bool = True,
+    block=None,
+    graph: Optional[Graph] = None,
+) -> Graph:
+    """One-node Ripple graph: FORCE flux difference over an Euler record
+    ``u`` with halo ``(1, 1)`` into ``out``.  ``graph=`` appends the node
+    to an existing builder.  The node follows its record's device (the
+    kernel on the GPU, the plain version on the CPU), and the interior
+    must divide ``block``; ``use_kernel=False`` asks for the plain version
+    on either device."""
+
+    def flux_node(rec, _out):
+        return flux_difference(rec, lam_x, lam_y, block=block,
+                               use_kernel=use_kernel)
+
+    g = graph if graph is not None else Graph(name="flux_difference")
+    g.split(flux_node, concurrent_padded_access(u), out, overlap=overlap)
+    return g

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels have no CPU
+mode) and skips without one.  The module imports neither JAX nor the JAX
+package, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 1e-5 (flux 1e-4: ~90-operation face fluxes summed in
+another order), bfloat16 2e-2 (the kernels compute in float32 and round
+once, the plain versions round after every operation)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (Boundary, Executor, Layout, RecordArray,
+                              pad_boundary_only)
+from repro_torch import workloads
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = ["float32", "bfloat16"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _tol(dtype, f32=1e-5):
+    return f32 if dtype == "float32" else 2e-2
+
+
+def _close(got, want, tol):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def _randn(dev, dtype, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=dev).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("n", [4096, 5000])
+@pytest.mark.parametrize("bounds_check", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_saxpy_kernel(dev, n, bounds_check, dtype):
+    from repro_torch.kernels.saxpy.kernel import saxpy_cuda
+    from repro_torch.kernels.saxpy.ops import saxpy, saxpy_ref
+
+    x, y = _randn(dev, dtype, n, seed=1), _randn(dev, dtype, n, seed=2)
+    before = saxpy_cuda.launches
+    got = saxpy(1.75, x, y, block=1024, bounds_check=bounds_check)
+    assert saxpy_cuda.launches == before + 1
+    _close(got, saxpy_ref(1.75, x, y), _tol(dtype))
+
+
+@pytest.mark.parametrize("layout", list(Layout))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_record_kernels(dev, layout, dtype):
+    from repro_torch.kernels.particle.ops import (PARTICLE_SPEC,
+                                                  particle_update,
+                                                  particle_update_ref)
+    from repro_torch.kernels.saxpy.ops import (SAXPY_SPEC, saxpy_record,
+                                               saxpy_record_ref)
+
+    rec = RecordArray(_randn(dev, dtype, 2, 8192), SAXPY_SPEC,
+                      Layout.SOA).with_layout(layout)
+    got = saxpy_record(rec, 0.5)
+    assert got.layout is layout
+    _close(got.data, saxpy_record_ref(rec, 0.5).data, _tol(dtype))
+    rec = RecordArray(_randn(dev, dtype, 6, 8192), PARTICLE_SPEC,
+                      Layout.SOA).with_layout(layout)
+    got = particle_update(rec, 0.25)
+    assert got.layout is layout
+    _close(got.data, particle_update_ref(rec, 0.25).data, _tol(dtype))
+
+
+@pytest.mark.parametrize("layout", list(Layout))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(64, 128), (40, 50)])
+def test_flux_kernel(dev, layout, dtype, shape):
+    """Whole tiles and a ragged edge (40 x 50 is no multiple of 16 x 32)."""
+    from repro_torch.kernels.stencil.ops import (flux_difference,
+                                                 flux_difference_ref)
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    u = shock_bubble_init(*shape, device=dev).to(getattr(torch, dtype))
+    for ax in (1, 2):
+        u = pad_boundary_only(u, axis=ax, width=1,
+                              boundary=Boundary.TRANSMISSIVE)
+    rec = RecordArray(u, EULER_SPEC, Layout.SOA).with_layout(layout)
+    got = flux_difference(rec, 0.1, 0.2, block=(8, 2))
+    assert got.layout is layout and got.space == shape
+    _close(got.data, flux_difference_ref(rec, 0.1, 0.2).data,
+           _tol(dtype, f32=1e-4))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels.saxpy.kernel import saxpy_cuda
+
+    x = torch.ones(256, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        saxpy_cuda(1.0, x.double(), x.double())
+    with pytest.raises(ValueError, match="not contiguous"):
+        saxpy_cuda(1.0, torch.ones(512, device=dev)[::2], x)
+    with pytest.raises(ValueError, match="equal 1-d"):
+        saxpy_cuda(1.0, x, torch.ones(128, device=dev))
+
+
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_particle_graph_on_the_card_matches_the_cpu(dev, schedule):
+    n, steps = 4096, 5
+    g, _, _ = workloads.build_particle_graph(n)
+    gpu = Executor(g, schedule=schedule)
+    cpu = Executor(g, device="cpu", schedule=schedule)
+    assert gpu.device.type == "cuda"
+    f = workloads.particle_fields(n)
+    init = {k: RecordArray.from_fields(
+        spec, {name: torch.from_numpy(v) for name, v in f[k].items()}, lay)
+        for k, spec, lay in (
+            ("ions", gpu.tensors["ions"].spec, Layout.AOS),
+            ("electrons", gpu.tensors["electrons"].spec, Layout.AOSOA),
+            ("field", gpu.tensors["field"].spec, Layout.SOA))}
+    got = gpu.run(gpu.init_state(**init), steps)
+    want = cpu.run(cpu.init_state(**init), steps)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        _close(got[k], want[k], 1e-5)
+    np.testing.assert_allclose(
+        gpu.read(got, gpu.tensors["ions"]).field("x").cpu().numpy(),
+        f["ions"]["x"] + steps * workloads.DT * f["ions"]["v"],
+        rtol=1e-4, atol=1e-4)
+
+
+def test_flux_graph_on_the_card_matches_the_cpu(dev):
+    from repro_torch.physics.euler import shock_bubble_init
+
+    g, _ = workloads.build_flux_graph(64, 128)
+    gpu, cpu = Executor(g), Executor(g, device="cpu")
+    u0 = shock_bubble_init(64, 128)
+    got = gpu(gpu.init_state(u=u0))
+    want = cpu(cpu.init_state(u=u0))
+    _close(got["flux"], want["flux"], 1e-4)

@@ -1,0 +1,378 @@
+"""The port's graph, DAG schedule, layout plan and executor against the
+JAX package, on the CPU.
+
+The slice end to end: the particle step graph (the JAX package's
+``examples/particles.py``) and the FORCE flux graph run under the JAX
+``Executor`` and under ``repro_torch``'s ``Executor(device="cpu")`` from
+the same initial state, carried across by ``repro_torch.interop``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref
+import repro_torch.core as port
+from repro_torch import workloads
+from repro_torch.interop import state_from_reference, state_to_reference
+
+F32_TOL = 1e-5
+
+
+def _np_state(state):
+    return {k: np.asarray(v) for k, v in state.items()}
+
+
+# -- the two graphs of the slice, built in both packages ----------------------
+
+def _ref_particle_graph(n, block=512, dt=workloads.DT):
+    from repro.kernels.particle.ops import PARTICLE_SPEC, particle_update
+    from repro.kernels.saxpy.kernel import SAXPY_SPEC
+    from repro.kernels.saxpy.ops import saxpy_record
+
+    # as examples/particles.py:29-46 builds it
+    ions = ref.DistTensor("ions", (n,), spec=PARTICLE_SPEC,
+                          layout=ref.Layout.AOS)
+    electrons = ref.DistTensor("electrons", (n,), spec=PARTICLE_SPEC,
+                               layout=ref.Layout.AOSOA)
+    field = ref.DistTensor("field", (n,), spec=SAXPY_SPEC,
+                           layout=ref.Layout.SOA)
+    vmax = ref.make_reduction_result("vmax")
+    g = ref.Graph(name="particle_step")
+    g.split(lambda r: particle_update(r, dt, block=block), ions, writes=(0,))
+    g.then_split(lambda r: particle_update(r, dt, block=block), electrons,
+                 writes=(0,))
+    g.then_split(lambda r: saxpy_record(r, dt, block=block), field,
+                 writes=(0,))
+    g.then_reduce(ions, vmax, ref.MaxReducer(), field="v")
+    return g
+
+
+def _ref_particle_state(ex, n):
+    from repro.kernels.particle.ops import PARTICLE_SPEC
+    from repro.kernels.saxpy.kernel import SAXPY_SPEC
+
+    f = workloads.particle_fields(n)
+    specs = {"ions": PARTICLE_SPEC, "electrons": PARTICLE_SPEC,
+             "field": SAXPY_SPEC}
+    lays = {"ions": ref.Layout.AOS, "electrons": ref.Layout.AOSOA,
+            "field": ref.Layout.SOA}
+    return ex.init_state(**{
+        k: ref.RecordArray.from_fields(
+            specs[k], {fn: jnp.asarray(v) for fn, v in f[k].items()},
+            lays[k])
+        for k in specs})
+
+
+def _ref_flux_graph(nx, ny, layout="SOA"):
+    from repro.kernels.stencil.ops import make_flux_difference_graph
+    from repro.physics.euler import EULER_SPEC
+
+    u = ref.DistTensor("u", (nx, ny), spec=EULER_SPEC,
+                       layout=ref.Layout[layout], halo=(1, 1),
+                       boundary=ref.Boundary.TRANSMISSIVE)
+    out = ref.DistTensor("flux", (nx, ny), spec=EULER_SPEC,
+                         layout=ref.Layout[layout])
+    return make_flux_difference_graph(u, out, 0.1, 0.1, overlap=False,
+                                      use_pallas=True)
+
+
+def _dag_signature(dag):
+    units = [(u.kind, u.level, sorted(u.reads), sorted(u.writes), u.barrier,
+              u.segment, u.wave) for u in dag.units]
+    edges = [(e.src, e.dst, e.reason, e.key) for e in dag.edges]
+    return units, edges, list(dag.segment_kinds)
+
+
+def _segment_signature(segments):
+    """Segment kinds and, per device segment, the wave sizes."""
+    return [(k, [len(w) for w in p] if k == "device" else None)
+            for k, p in segments]
+
+
+# -- schedule and plan parity ---------------------------------------------------
+
+@pytest.mark.parametrize("graph", ["particles", "flux", "two_flux",
+                                   "host_mid"])
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_schedule_and_plan_match_reference(graph, schedule):
+    """Same units, edges, waves, segments, initial/per-segment layouts and
+    relayout steps as the reference for the same graph."""
+    from repro.kernels.stencil.ops import make_flux_difference_graph as rmk
+    from repro_torch.kernels.stencil.ops import \
+        make_flux_difference_graph as pmk
+
+    def build(pkg, mk):
+        from repro.physics.euler import EULER_SPEC as RE
+        from repro_torch.physics.euler import EULER_SPEC as PE
+        spec = RE if pkg is ref else PE
+        if graph == "particles":
+            return (_ref_particle_graph(1024) if pkg is ref else
+                    workloads.build_particle_graph(1024)[0])
+        if graph == "flux":
+            return (_ref_flux_graph(32, 128) if pkg is ref else
+                    workloads.build_flux_graph(32, 128)[0])
+        if graph == "two_flux":   # two kernels on separate levels
+            g = pkg.Graph(name="two_flux")
+            for i in range(2):
+                u = pkg.DistTensor(f"u{i}", (16, 8), spec=spec,
+                                   layout=pkg.Layout.SOA, halo=(1, 1))
+                f = pkg.DistTensor(f"f{i}", (16, 8), spec=spec,
+                                   layout=pkg.Layout.SOA)
+                mk(u, f, 0.1, 0.1, overlap=False, graph=g)
+                g.then()
+            return g
+        # a record preferred in different layouts on both sides of a host
+        # node: two device segments and relayout steps between them
+        r = pkg.DistTensor("r", (256,), spec=spec, layout=pkg.Layout.AOS)
+        g = pkg.Graph(name="host_mid")
+        g.split(lambda x: x, pkg.preferred_layout(r, pkg.Layout.AOSOA),
+                writes=(0,))
+        g.then(lambda x: None, exec_kind=pkg.ExecutionKind.Cpu, args=(r,))
+        g.then_split(lambda x: x, pkg.preferred_layout(r, pkg.Layout.SOA),
+                     writes=(0,))
+        return g
+
+    rex = ref.Executor(build(ref, rmk), schedule=schedule)
+    pex = port.Executor(build(port, pmk), device="cpu", schedule=schedule)
+    assert _dag_signature(pex.dag) == _dag_signature(rex.dag)
+    assert _segment_signature(pex._segments) == \
+        _segment_signature(rex._segments)
+    name = lambda d: {k: v.name for k, v in d.items()}  # noqa: E731
+    assert name(pex.plan.initial) == name(rex.plan.initial)
+    assert [name(s) for s in pex.plan.per_segment] == \
+        [name(s) for s in rex.plan.per_segment]
+    assert [(s.segment, s.tensor, s.src.name, s.dst.name)
+            for s in pex.plan.relayouts] == \
+        [(s.segment, s.tensor, s.src.name, s.dst.name)
+         for s in rex.plan.relayouts]
+    regions_r = ref.group_regions(rex.dag.segment_kinds)
+    regions_p = port.group_regions(pex.dag.segment_kinds)
+    assert [(r.kind, r.start, r.stop) for r in regions_p] == \
+        [(r.kind, r.start, r.stop) for r in regions_r]
+    assert [(e.src, e.dst, e.reason, e.key)
+            for e in port.region_dag(pex.dag, regions_p)] == \
+        [(e.src, e.dst, e.reason, e.key)
+         for e in ref.region_dag(rex.dag, regions_r)]
+    assert port.region_waves(regions_p, port.region_dag(pex.dag, regions_p)) \
+        == ref.region_waves(regions_r, ref.region_dag(rex.dag, regions_r))
+
+
+def test_particle_dag_fuses_the_three_pushers():
+    g, _, _ = workloads.build_particle_graph(1024)
+    ex = port.Executor(g, device="cpu")
+    fused = ex.dag.fused_antichains()
+    assert len(fused) == 1 and len(fused[0]) == 3
+    assert "antichain x3" in ex.describe_dag()
+
+
+# -- the slice end to end --------------------------------------------------------
+
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_particle_graph_end_to_end_matches_reference(schedule):
+    n, steps = 1024, 5
+    rex = ref.Executor(_ref_particle_graph(n), schedule=schedule)
+    init = _np_state(_ref_particle_state(rex, n))
+    want = _np_state(rex.run(rex.init_state(**init), steps))
+
+    g, (ions, electrons, field), _ = workloads.build_particle_graph(n)
+    pex = port.Executor(g, device="cpu", schedule=schedule)
+    state = state_from_reference(init, "cpu")
+    got = pex.run(state, steps)
+    assert set(got) == set(want) == {"ions", "electrons", "field", "vmax"}
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=F32_TOL,
+                                   atol=F32_TOL)
+    # the closed form x_T = x_0 + T dt v, as examples/particles.py checks
+    f = workloads.particle_fields(n)
+    for t, key in ((ions, "ions"), (electrons, "electrons")):
+        np.testing.assert_allclose(
+            pex.read(got, t).field("x").numpy(),
+            f[key]["x"] + steps * workloads.DT * f[key]["v"],
+            rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(pex.read(got, field).field("y").numpy(),
+                               steps * workloads.DT * f["field"]["x"],
+                               rtol=1e-4, atol=1e-4)
+    # the caller's state is never written in place
+    for k, v in state_from_reference(init, "cpu").items():
+        assert torch.equal(state[k], v)
+
+
+@pytest.mark.parametrize("layout", ["AOS", "SOA"])
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_flux_graph_end_to_end_matches_reference(layout, schedule):
+    from repro.physics.euler import shock_bubble_init
+
+    rex = ref.Executor(_ref_flux_graph(32, 128, layout), schedule=schedule)
+    init = _np_state(rex.init_state(u=shock_bubble_init(32, 128)))
+    want = _np_state(rex(rex.init_state(**init)))
+    g, _ = workloads.build_flux_graph(32, 128, layout=port.Layout[layout])
+    pex = port.Executor(g, device="cpu", schedule=schedule)
+    got = pex(state_from_reference(init, "cpu"))
+    assert tuple(got["flux"].shape) == want["flux"].shape
+    np.testing.assert_allclose(got["flux"].numpy(), want["flux"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_saxpy_probe_graph_runs_both_variants():
+    g, (x, y_bc, y_nbc) = workloads.build_saxpy_graph(1000, 2.0, block=256)
+    ex = port.Executor(g, device="cpu")
+    assert [len(w) for w in ex.dag.antichains()] == [2]
+    xv = torch.arange(1000, dtype=torch.float32)
+    st = ex.run(ex.init_state(x=xv), 3)
+    for t in (y_bc, y_nbc):
+        assert torch.equal(st[t.name], 3 * 2.0 * xv)
+
+
+def test_interop_roundtrip_keeps_bits():
+    rng = np.random.default_rng(0)
+    state = {"a": np.asarray(jnp.asarray(rng.standard_normal((4, 8)),
+                                         jnp.bfloat16)),
+             "b": rng.standard_normal(5).astype(np.float32),
+             "c": np.asarray(3.0, np.float32)}
+    t = state_from_reference(state, "cpu")
+    assert t["a"].dtype == torch.bfloat16 and tuple(t["a"].shape) == (4, 8)
+    back = state_to_reference(t)
+    for k in state:
+        assert back[k].dtype == state[k].dtype
+        assert back[k].shape == state[k].shape
+        assert back[k].tobytes() == state[k].tobytes()
+
+
+# -- executor behaviour ---------------------------------------------------------
+
+def test_host_node_sees_updated_state_and_overrides_convert_layouts():
+    seen = []
+    r = port.DistTensor("r", (256,), spec=port.RecordSpec.create("a", "b"),
+                        layout=port.Layout.AOS)
+    g = port.Graph(name="host")
+    g.split(lambda x: x.map_data(lambda d: d + 1.0), r, writes=(0,))
+    g.then(lambda x: seen.append(x.field("a").clone()),
+           exec_kind=port.ExecutionKind.Cpu, args=(r,))
+    ex = port.Executor(g, device="cpu",
+                       layout_overrides={"r": port.Layout.AOSOA})
+    assert ex.plan.initial["r"] is port.Layout.AOSOA
+    soa = port.RecordArray(torch.zeros(2, 256), r.spec, port.Layout.SOA)
+    st = ex(ex.init_state(r=soa))
+    assert torch.equal(seen[0], torch.ones(256))
+    assert tuple(st["r"].shape) == (2, 2, 128)   # AoSoA storage
+    ex2 = port.Executor(g, device="cpu",
+                        segment_layout_overrides={0: {"r": port.Layout.SOA}})
+    assert ex2.plan.per_segment[0]["r"] is port.Layout.SOA
+
+
+def test_tile_overrides_reach_the_kernel_contract():
+    g, _, _ = workloads.build_particle_graph(1024, block=None)
+    ex = port.Executor(g, device="cpu", tile_overrides={"particle": 384})
+    with pytest.raises(ValueError, match="tile by block=384"):
+        ex(ex.init_state())
+    ex = port.Executor(g, device="cpu", tile_overrides={"particle": 256})
+    ex(ex.init_state())
+
+
+_REDUCER_CASES = [
+    (r, d) for r in ("Sum", "Max", "Min", "Mul", "Minimum", "Maximum", "And",
+                     "Or", "Xor")
+    for d in ("float_nan", "all_nan", "int", "bool")
+    # the bitwise reducers take integer or boolean tensors only
+    if not (r in ("And", "Or", "Xor") and d.endswith("nan"))]
+
+
+@pytest.mark.parametrize("reducer,data", _REDUCER_CASES)
+def test_reducers_match_reference(reducer, data):
+    rng = np.random.default_rng(1)
+    x = {"float_nan": np.where(rng.random(37) < 0.2, np.nan,
+                               rng.standard_normal(37)).astype(np.float32),
+         "all_nan": np.full(9, np.nan, np.float32),
+         "int": rng.integers(-50, 50, 37).astype(np.int32),
+         "bool": rng.random(37) < 0.7}[data]
+    if reducer == "Mul" and data == "int":   # keep the product in int32
+        x = np.where(x > 0, 1, -1).astype(np.int32)
+    want = np.asarray(getattr(ref, f"{reducer}Reducer")().local(
+        jnp.asarray(x)))
+    got = getattr(port, f"{reducer}Reducer")().local(torch.from_numpy(x))
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=1e-5, equal_nan=True)
+
+
+def test_default_device_is_the_gpu():
+    g, _, _ = workloads.build_particle_graph(1024)
+    if torch.cuda.is_available():
+        assert port.Executor(g).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.Executor(g)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.execute(g)
+
+
+@pytest.mark.parametrize("builder", ["DistTensor.init", "RecordArray.create",
+                                     "shock_bubble_init"])
+def test_state_builders_default_to_the_gpu(builder):
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    build = {
+        "DistTensor.init": lambda **kw: port.DistTensor(
+            "u", (8, 4), spec=EULER_SPEC).init(**kw).data,
+        "RecordArray.create": lambda **kw: port.RecordArray.create(
+            EULER_SPEC, (8, 4), **kw).data,
+        "shock_bubble_init": lambda **kw: shock_bubble_init(8, 4, **kw),
+    }[builder]
+    assert build(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+@pytest.mark.parametrize("use_kernel,launches", [(None, 1), (False, 0)])
+def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
+                                                  launches):
+    """A flux graph built with the defaults sends a GPU record to the CUDA
+    wrapper; only ``use_kernel=False`` asks for the plain version."""
+    from repro_torch.kernels.stencil import ops
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    calls = []
+
+    def fake_cuda(rec, lam_x, lam_y):
+        calls.append(rec.layout)
+        return ops.flux_difference_ref(rec, lam_x, lam_y)
+
+    monkeypatch.setattr(ops, "on_cuda", lambda t: True)
+    monkeypatch.setattr(ops, "flux_difference_cuda", fake_cuda)
+    u = port.DistTensor("u", (16, 8), spec=EULER_SPEC, halo=(1, 1))
+    out = port.DistTensor("flux", (16, 8), spec=EULER_SPEC)
+    kw = {} if use_kernel is None else {"use_kernel": use_kernel}
+    g = ops.make_flux_difference_graph(u, out, 0.1, 0.1, **kw)
+    ex = port.Executor(g, device="cpu")
+    ex(ex.init_state(u=shock_bubble_init(16, 8, device="cpu")))
+    assert len(calls) == launches
+
+
+@pytest.mark.parametrize("option", ["mesh", "tune", "regions",
+                                    "async_regions", "conditional",
+                                    "partition"])
+def test_unported_options_raise_with_their_roadmap_item(option):
+    g, _, _ = workloads.build_particle_graph(1024)
+    kw, item = {}, {"mesh": "item 8", "tune": "item 9",
+                    "regions": "item 7\\(b\\)", "async_regions":
+                    "item 7\\(c\\)", "conditional": "K5",
+                    "partition": "item 8"}[option]
+    if option == "mesh":
+        kw["mesh"] = object()
+    elif option == "tune":
+        kw["tune"] = "auto"
+    elif option in ("regions", "async_regions"):
+        kw[option] = True
+    elif option == "conditional":
+        sub, _, _ = workloads.build_particle_graph(1024)
+        sub.conditional(lambda s: s["vmax"] < 0)
+        g = port.Graph(name="outer").emplace(sub)
+    else:
+        t = port.DistTensor("p", (64,), partition=("d",))
+        g = port.Graph(name="part").split(lambda x: x, t)
+    with pytest.raises(NotImplementedError, match=item):
+        port.Executor(g, device="cpu", **kw)
