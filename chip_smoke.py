@@ -10,13 +10,18 @@ result line):
    CUDA kernel built from ``src/repro_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (all sources compiled at once);
 2. kernel parity — each kernel against its plain PyTorch version on the
-   card, at the main path's shapes, float32 and bfloat16, every layout;
+   card, at the main path's shapes, float32 and bfloat16, every layout
+   (the eikonal kernel: inner 1 and 4, tiles (8, 128) and (64, 256), on a
+   mid-solve state);
 3. the main path through the port's ``Graph``/``Executor`` on the GPU:
    the Table 2 SAXPY probe (n = 2^24), the particle step graph (2^24
-   particles per species, 100 steps, closed-form check) and the FORCE flux
+   particles per species, 100 steps, closed-form check), the FORCE flux
    graph on a 4096 x 4096 shock-bubble interior (checked against the
-   plain version on the card), with every kernel's launch count read
-   from the run;
+   plain version on the card) and the Table 5 eikonal solve on a 4096 x
+   4096 grid, a conditional loop run until no cell changes (checked
+   against the plain loop on the card and the exact distance); every
+   kernel's launch count is read from each graph's run, the counts set to
+   0 just before it;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s of
@@ -48,7 +53,13 @@ F32_OPS_PER_S = 67e12
 SAXPY_N, SAXPY_A, SAXPY_STEPS = 1 << 24, 1.75, 20
 PARTICLE_N, PARTICLE_STEPS = 1 << 24, 100
 FLUX_N, FLUX_STEPS, FLUX_LAM = 4096, 20, 0.1
+EIK_N, EIK_INNER, EIK_BLOCK, EIK_WARM = 4096, 4, (8, 128), 50
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# eikonal, as (atol, rtol): float32 uncontracted, so equal to the plain
+# version; bfloat16 a few bfloat16 steps at the fronts' magnitude (the
+# kernel rounds its tile once per sweep, the plain version after every
+# operation: one step apart at 4096^2 on the H100)
+EIK_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
 # flux: float32 sums of ~90-op face fluxes in another order than the plain
 # version; bfloat16: the kernel computes in float32 and rounds once, the
 # plain version rounds after every operation
@@ -59,6 +70,9 @@ FLUX_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 OPS_PER_FACE = 3 * 13 + 2 + 4 * 10 + 4 * 2
 # per cell: lam * (F+ - F-) per dim and component, and the sum of the dims
 OPS_PER_CELL = 2 * 4 * 2 + 4
+# operations of one Godunov update with its source select in
+# csrc/eikonal.cu, per cell and sweep
+EIK_OPS_PER_CELL_SWEEP = 17
 
 
 def log(msg: str) -> None:
@@ -112,25 +126,45 @@ def run_steps(ex, state: dict, steps: int) -> tuple[dict, float]:
     return state, statistics.median(times)
 
 
-def max_err(got, want, tol: float, what: str) -> float:
-    """Max absolute difference; fails unless |got - want| <= tol + tol*|want|
-    everywhere and every value is finite."""
+def outside(got, want, tol: float, rtol: float) -> tuple[float, int]:
+    """The max absolute difference and the number of values where
+    |got - want| > tol + rtol*|want| or got is not finite."""
     import torch
 
     g, w = got.float(), want.float()
     if g.shape != w.shape:
-        raise AssertionError(f"{what}: shape {tuple(g.shape)} != "
-                             f"{tuple(w.shape)}")
-    if not bool(torch.isfinite(g).all()):
-        raise AssertionError(f"{what}: non-finite values")
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
     diff = (g - w).abs()
-    bad = int((diff > tol + tol * w.abs()).sum())
-    err = float(diff.max())
-    log(f"parity {what}: max_abs_err={err:.3e} (tolerance {tol:g}, "
-        f"{bad} outside)")
+    bad = int((~(diff <= tol + rtol * w.abs())).sum())
+    return float(diff.max()), bad
+
+
+def max_err(got, want, tol: float, what: str, rtol=None) -> float:
+    """Max absolute difference; fails unless |got - want| <= tol + rtol*|want|
+    (``rtol`` defaults to ``tol``) everywhere and every value is finite."""
+    rtol = tol if rtol is None else rtol
+    err, bad = outside(got, want, tol, rtol)
+    log(f"parity {what}: max_abs_err={err:.3e} (atol {tol:g}, rtol "
+        f"{rtol:g}, {bad} outside)")
     if bad:
         raise AssertionError(f"{what}: {bad} values outside tolerance")
     return err
+
+
+def device_time_by_kernel(fn) -> dict[str, tuple[float, int]]:
+    """Run ``fn`` once under ``torch.profiler``; returns the device time in
+    microseconds and the launch count of every kernel it ran, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -158,6 +192,8 @@ def main() -> int:
                                                   saxpy_record_cuda)
     from repro_torch.kernels.saxpy.ops import (SAXPY_SPEC, saxpy_record_ref,
                                                saxpy_ref)
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.eikonal.ops import eikonal_fim_ref
     from repro_torch.kernels.stencil.kernel import flux_difference_cuda
     from repro_torch.kernels.stencil.ops import (flux_difference,
                                                  flux_difference_ref)
@@ -195,10 +231,14 @@ def main() -> int:
         "flux_difference": {
             "source": "src/repro_torch/csrc/stencil.cu",
             "replaces": "src/repro/kernels/stencil/kernel.py:67"},
+        "eikonal_fim": {
+            "source": "src/repro_torch/csrc/eikonal.cu",
+            "replaces": "src/repro/kernels/eikonal/kernel.py:84"},
     }
     wrappers = {"saxpy": saxpy_cuda, "saxpy_record": saxpy_record_cuda,
                 "particle_update": particle_update_cuda,
-                "flux_difference": flux_difference_cuda}
+                "flux_difference": flux_difference_cuda,
+                "eikonal_fim": eikonal_fim_cuda}
     errs = {k: 0.0 for k in kernels}
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -213,6 +253,23 @@ def main() -> int:
             u = pad_boundary_only(u, axis=ax, width=1,
                                   boundary=Boundary.TRANSMISSIVE)
         return u
+
+    def halo(p):
+        """A one-cell transmissive halo around a 2-d field."""
+        for ax in (0, 1):
+            p = pad_boundary_only(p, axis=ax, width=1,
+                                  boundary=Boundary.TRANSMISSIVE)
+        return p
+
+    eik = workloads.eikonal_inputs(EIK_N)
+    eik = {k: torch.from_numpy(v).to(dev) for k, v in eik.items()}
+    # the eikonal kernel's input: the solve's state after EIK_WARM float32
+    # iterations of the plain sweep (fronts in flight across tile edges)
+    eik_mid = eik["phi"]
+    for _ in range(EIK_WARM):
+        eik_mid = eikonal_fim_ref(halo(eik_mid), eik["mask"], 1 / EIK_N,
+                                  inner=EIK_INNER, block=EIK_BLOCK)
+    eik_mid = halo(eik_mid)
 
     # -- 2. kernel parity on the card ----------------------------------------
     for dname in ("float32", "bfloat16"):
@@ -252,19 +309,59 @@ def main() -> int:
                 errs["flux_difference"] = max(errs["flux_difference"], e)
             del rec
         del u
+        phi = eik_mid.to(dt)
+        for inner in (1, EIK_INNER):
+            for tile in (EIK_BLOCK, (64, 256)):
+                want = eikonal_fim_ref(phi, eik["mask"], 1 / EIK_N,
+                                       inner=inner, block=tile)
+                e = max_err(eikonal_fim_cuda(phi, eik["mask"], 1 / EIK_N,
+                                             inner=inner, block=tile),
+                            want, EIK_TOL[dname][0],
+                            f"eikonal_fim {dname} inner={inner} tile={tile}",
+                            rtol=EIK_TOL[dname][1])
+                if dname == "float32":
+                    errs["eikonal_fim"] = max(errs["eikonal_fim"], e)
+        # what the bfloat16 limit can see: two deliberately wrong variants
+        # against the same plain result (inner 4, the main path's tile)
+        if dname == "bfloat16":
+            want = eikonal_fim_ref(phi, eik["mask"], 1 / EIK_N,
+                                   inner=EIK_INNER, block=EIK_BLOCK)
+            wrong = {
+                "one sweep short": eikonal_fim_cuda(
+                    phi, eik["mask"], 1 / EIK_N, inner=EIK_INNER - 1,
+                    block=EIK_BLOCK),
+                "float32 tile, rounded once at the end": eikonal_fim_cuda(
+                    phi.float(), eik["mask"], 1 / EIK_N, inner=EIK_INNER,
+                    block=EIK_BLOCK).to(dt)}
+            for what, got in wrong.items():
+                err, bad = outside(got, want, *EIK_TOL[dname])
+                log(f"eikonal_fim bfloat16 wrong variant ({what}): "
+                    f"max_abs_err={err:.3e}, {bad} values outside the limit")
+                if what == "one sweep short" and not bad:
+                    raise AssertionError("eikonal bfloat16 limit does not "
+                                         "see a missing sweep")
+        del phi
         torch.cuda.empty_cache()
 
     # -- 3. the main path through Graph/Executor on the GPU ------------------
-    for w in wrappers.values():
-        w.launches = 0
     wall = {}
+    path_launches = {}   # graph -> kernel -> launches in that graph's run
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(path):
+        path_launches[path] = {k: w.launches for k, w in wrappers.items()}
 
     g, (x_t, y_bc, y_nbc) = workloads.build_saxpy_graph(SAXPY_N, SAXPY_A)
     ex = Executor(g)
     rng = np.random.default_rng(0)
     x0 = rng.standard_normal(SAXPY_N, dtype=np.float32)
     state = ex.init_state(x=x0)
+    zero_counts()
     state, wall["saxpy_probe"] = run_steps(ex, state, SAXPY_STEPS)
+    read_counts("saxpy_probe")
     want = torch.from_numpy(x0).to(dev)
     acc = torch.zeros_like(want)
     for _ in range(SAXPY_STEPS):
@@ -285,7 +382,9 @@ def main() -> int:
                                           for f, v in fields[k].items()},
                                    lay)
         for k, (spec, lay) in specs.items()})
+    zero_counts()
     state, wall["particle_step"] = run_steps(ex, state, PARTICLE_STEPS)
+    read_counts("particle_step")
     span = PARTICLE_STEPS * workloads.DT
     for t, key in ((ions, "ions"), (electrons, "electrons")):
         x_t0 = torch.from_numpy(fields[key]["x"]).to(dev)
@@ -305,8 +404,9 @@ def main() -> int:
     ex = Executor(g)
     u0 = shock_bubble_init(FLUX_N, FLUX_N, device=dev)
     state = ex.init_state(u=u0)
+    zero_counts()
     state, wall["flux"] = run_steps(ex, state, FLUX_STEPS)
-    launches = {k: w.launches for k, w in wrappers.items()}
+    read_counts("flux")
     plain_g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
                                             lam_y=FLUX_LAM, use_kernel=False)
     plain_ex = Executor(plain_g)
@@ -315,16 +415,99 @@ def main() -> int:
             "main path flux graph vs plain graph")
     del state, plain, plain_ex, ex
 
-    log(f"main path launches: {json.dumps(launches)}")
-    expect = {"saxpy": 2 * SAXPY_STEPS, "saxpy_record": PARTICLE_STEPS,
-              "particle_update": 2 * PARTICLE_STEPS,
-              "flux_difference": FLUX_STEPS}
-    for k, n in expect.items():
-        if launches[k] != n:
-            raise AssertionError(f"{k}: {launches[k]} launches on the main "
-                                 f"path, expected {n}")
+    def solve_eikonal(use_kernel: bool):
+        """One eikonal solve through ``Executor(g)``; returns the final
+        state, the iteration count, the solve's wall time and the median
+        wall time of one iteration (each ended by the predicate's
+        device-to-host read)."""
+        g, _, converging = workloads.build_eikonal_graph(
+            EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
+            use_kernel=use_kernel)
+        body = g.levels[0][0].subgraph
+        stamps = []
+
+        def timed(state):
+            go = converging(state)
+            stamps.append(time.perf_counter())
+            return go
+
+        body.conditional(timed)
+        ex = Executor(g)
+        state = ex.init_state(**eik)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ex(state)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        per_iter = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        return state, converging.iterations, solve_s, \
+            statistics.median(per_iter)
+
+    zero_counts()
+    state, iters, solve_s, iter_ms = solve_eikonal(True)
+    read_counts("eikonal_solve")
+    wall["eikonal_solve"] = iter_ms
+    plain, plain_iters, plain_s, plain_iter_ms = solve_eikonal(False)
+    log(f"main path eikonal_solve: {iters} iterations, solve {solve_s:.3f} "
+        f"s, {iter_ms:.3f} ms per iteration (median); plain loop "
+        f"{plain_iters} iterations, {plain_s:.3f} s, {plain_iter_ms:.3f} ms "
+        f"per iteration ({card})")
+    if not 0 < iters == plain_iters:
+        raise AssertionError(f"eikonal solve: {iters} iterations with the "
+                             f"kernel, {plain_iters} with the plain version")
+    if float(state["res"]) != 0.0:
+        raise AssertionError("eikonal solve ended with res != 0")
+    max_err(state["phi"], plain["phi"], EIK_TOL["float32"][0],
+            "main path eikonal solve vs plain loop",
+            rtol=EIK_TOL["float32"][1])
+    dist = torch.from_numpy(workloads.eikonal_distance(EIK_N)).to(dev)
+    band = dist < 0.1
+    band_err = float((state["phi"].double() - dist)[band].abs().max())
+    log(f"main path eikonal closed form: max |phi - h|r - R|| in the band "
+        f"= {band_err:.3e} = {band_err * EIK_N:.3f} h (limit 3 h)")
+    if not band_err <= 3.0 / EIK_N:
+        raise AssertionError("eikonal solve: more than 3h from the exact "
+                             "distance in the band")
+    del state, plain, dist, band
+
+    expect = {"saxpy_probe": {"saxpy": 2 * SAXPY_STEPS},
+              "particle_step": {"saxpy_record": PARTICLE_STEPS,
+                                "particle_update": 2 * PARTICLE_STEPS},
+              "flux": {"flux_difference": FLUX_STEPS},
+              "eikonal_solve": {"eikonal_fim": iters}}
+    launches = {k: 0 for k in wrappers}
+    for path, counts in path_launches.items():
+        log(f"main path launches {path}: {json.dumps(counts)}")
+        for k, n in counts.items():
+            if n != expect[path].get(k, 0):
+                raise AssertionError(f"{k}: {n} launches in {path}, "
+                                     f"expected {expect[path].get(k, 0)}")
+            launches[k] += n
     for k, ms in wall.items():
         log(f"wall per step {k} (median): {ms:.3f} ms ({card})")
+
+    # where the solve's time goes: device time by kernel over one more
+    # whole solve under torch.profiler, against the unprofiled wall time
+    g, _, _ = workloads.build_eikonal_graph(
+        EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N)
+    ex = Executor(g)
+    state = ex.init_state(**eik)
+    torch.cuda.synchronize()
+    kernel_us = device_time_by_kernel(lambda: ex(state))
+    busy_ms = sum(us for us, _ in kernel_us.values()) / 1e3
+    if busy_ms == 0.0:
+        log("eikonal_solve device time: not measured (the profiler saw no "
+            "device activity)")
+    else:
+        log(f"eikonal_solve device time: {busy_ms:.3f} ms in all, "
+            f"{busy_ms / iters:.4f} ms per iteration; busy "
+            f"{100 * busy_ms / (1e3 * solve_s):.1f} % of the unprofiled "
+            f"solve's wall time ({card})")
+        top = sorted(kernel_us.items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (us, count) in top:
+            log(f"  {us / 1e3 / iters:.4f} ms per iteration, {count} "
+                f"launches: {name[:100]}")
+    del state, ex
 
     # -- 4. times -----------------------------------------------------------
     results = {}
@@ -374,6 +557,25 @@ def main() -> int:
         nbytes=4 * 4 * ((nx + 2) * (ny + 2) + nx * ny),
         ops=faces * OPS_PER_FACE + nx * ny * OPS_PER_CELL)
     del rec, u
+
+    nx = ny = EIK_N
+    phi = eik_mid
+    results["eikonal_fim"] = dict(
+        ms=time_ms(lambda: eikonal_fim_cuda(phi, eik["mask"], 1 / EIK_N,
+                                            inner=EIK_INNER,
+                                            block=EIK_BLOCK)),
+        plain_ms=time_ms(lambda: eikonal_fim_ref(phi, eik["mask"],
+                                                 1 / EIK_N, inner=EIK_INNER,
+                                                 block=EIK_BLOCK), iters=10),
+        library_ms=None,
+        nbytes=4 * (nx + 2) * (ny + 2) + nx * ny + 4 * nx * ny,
+        ops=EIK_OPS_PER_CELL_SWEEP * EIK_INNER * nx * ny)
+    for inner, tile in ((1, EIK_BLOCK), (EIK_INNER, (64, 256))):
+        ms = time_ms(lambda: eikonal_fim_cuda(phi, eik["mask"], 1 / EIK_N,
+                                              inner=inner, block=tile))
+        log(f"time eikonal_fim inner={inner} tile={tile}: {ms:.4f} ms "
+            f"({card})")
+    del phi, eik, eik_mid
 
     entries = []
     for name, meta in kernels.items():

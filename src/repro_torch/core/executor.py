@@ -25,11 +25,15 @@ return new tensors and never write a state buffer in place, so a caller's
 state dict is never modified and there is nothing to donate: the
 reference's ``donate=`` has no counterpart here.
 
+A conditional subgraph (paper §5.3.6) is a ``loop`` segment, or a
+``host_loop`` when its body holds a host node; both run with while
+semantics through a sub-executor built once per segment.  On the GPU each
+check of the predicate is one device-to-host read.
+
 Not in this executor yet, each raising ``NotImplementedError`` that names
 its ROADMAP item: ``mesh=`` and partitioned tensors (item 8), ``tune=``
-(item 9), region compile (``regions=True``, item 7(b)), async region
-dispatch (``async_regions=True``, item 7(c)), and ``conditional`` graphs
-(the conditional-loop executor slice that comes with the eikonal kernel).
+(item 9), region compile (``regions=True``, item 7(b)) and async region
+dispatch (``async_regions=True``, item 7(c)).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -62,8 +66,6 @@ _ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
 _ITEM_TUNE = "ROADMAP item 9 (tuning)"
 _ITEM_REGIONS = "ROADMAP item 7(b) (region compile)"
 _ITEM_ASYNC = "ROADMAP item 7(c) (async regions)"
-_ITEM_LOOP = ("the conditional-loop executor slice that comes with the "
-              "eikonal kernel K5 (first ROADMAP queue item)")
 
 
 def _apply_halo(data: torch.Tensor, t: DistTensor) -> torch.Tensor:
@@ -110,12 +112,22 @@ class LayoutPlan:
 
 
 def _segment_nodes(kind: str, payload):
-    """All nodes a segment executes."""
+    """All nodes a segment executes (loop bodies recursively)."""
     if kind == "device":
         for level in payload:
             yield from level
+    elif kind in ("loop", "host_loop"):
+        yield from _graph_nodes(payload)
     elif kind == "host":
         yield payload
+
+
+def _graph_nodes(g: Graph):
+    for node in g.nodes():
+        if node.subgraph is not None:
+            yield from _graph_nodes(node.subgraph)
+        else:
+            yield node
 
 
 def _clamp_layout(t: DistTensor, lay: Layout) -> Layout:
@@ -247,9 +259,6 @@ class Executor:
         if async_regions:
             raise NotImplementedError(
                 f"async_regions=True is {_ITEM_ASYNC}")
-        if graph.has_conditional():
-            raise NotImplementedError(
-                f"conditional graphs are {_ITEM_LOOP}")
         self.graph = graph
         self.device = resolve_device(device)
         self.schedule = schedule
@@ -277,7 +286,9 @@ class Executor:
         self.plan.dag = self.dag
         # physical layout of each record tensor's state entry right now
         self._state_layouts: dict[str, Layout] = dict(self.plan.initial)
-        self.eager_relayouts = 0   # conversions made at segment boundaries
+        # conversions made at segment boundaries, loop bodies' included
+        self.eager_relayouts = 0
+        self._sub_execs: dict[int, Executor] = {}   # loop segment -> body
 
     # -- layout plumbing ---------------------------------------------------
     def _eff_in(self, t: DistTensor, layouts: dict[str, Layout]) -> DistTensor:
@@ -487,10 +498,23 @@ class Executor:
                     raise ValueError(f"unexpected node kind {node.kind}")
         return state
 
+    # -- conditional loops -------------------------------------------------
+    def _sub_executor(self, i: int) -> "Executor":
+        """The executor of loop segment ``i``'s body, built once per
+        segment with the layouts the enclosing plan solved for it."""
+        sub = self._sub_execs.get(i)
+        if sub is None:
+            sub = self._sub_execs[i] = Executor(
+                self._segments[i][1], self.device,
+                layout_overrides=self.plan.per_segment[i],
+                schedule=self.schedule, tile_overrides=self._tile_config)
+        return sub
+
     # -- execution -----------------------------------------------------------
     def _call_segments(self, state: dict) -> dict:
         """One pass: per segment, the boundary relayouts, then its waves
-        (device) or its callback after the device is idle (host)."""
+        (device), its callback after the device is idle (host), or its
+        body while the predicate holds (loop, host_loop)."""
         for i, (kind, payload) in enumerate(self._segments):
             state = self._apply_segment_layouts(state, i)
             if kind == "device":
@@ -506,9 +530,14 @@ class Executor:
                         node, state, self._state_layouts) \
                         if node.args else []
                     node.fn(*vals)
-            else:
-                raise NotImplementedError(
-                    f"{kind} segments are {_ITEM_LOOP}")
+            else:   # loop / host_loop: while semantics, the predicate
+                # gates the first iteration too; bool() of a CUDA tensor
+                # is one device-to-host read per check
+                sub = self._sub_executor(i)
+                before = sub.eager_relayouts
+                while bool(payload.condition(state)):
+                    state = sub(state)
+                self.eager_relayouts += sub.eager_relayouts - before
         return state
 
     @contextmanager

@@ -466,13 +466,6 @@ class Graph:
                 return False
         return True
 
-    def has_conditional(self) -> bool:
-        """True when this graph or a subgraph carries a ``conditional``."""
-        if self.condition is not None:
-            return True
-        return any(n.subgraph is not None and n.subgraph.has_conditional()
-                   for n in self.nodes())
-
     def summary(self) -> str:
         """One line per node: level, kind, and the tensors it touches."""
         lines = [f"Graph {self.name!r} ({len(self.levels)} levels)"]

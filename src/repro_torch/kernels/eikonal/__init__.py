@@ -1,0 +1,1 @@
+"""eikonal kernel: CUDA wrapper (kernel.py), plain version (ref.py), ops."""

@@ -9,6 +9,9 @@
   schedule runs them as one antichain.
 * :func:`build_flux_graph` — the Table 4 FORCE flux difference on a
   haloed 2-D Euler record (transmissive boundary).
+* :func:`build_eikonal_graph` — the Table 5 eikonal solve: the paper's
+  conditional MapReduce around the FIM sweep, repeated until no cell
+  changes, reinitialising the distance to a circle of sources.
 
 Inputs come from NumPy's ``default_rng(seed)``, so the JAX package and the
 port can be fed the same values.
@@ -17,16 +20,19 @@ port can be fed the same values.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core import (Boundary, DistTensor, Graph, Layout, MaxReducer,
-                   make_reduction_result)
+                   ReductionResult, make_reduction_result)
+from .kernels.eikonal.ops import make_eikonal_graph
 from .kernels.particle.ops import PARTICLE_SPEC, particle_update
 from .kernels.saxpy.ops import SAXPY_SPEC, saxpy, saxpy_record
 from .kernels.stencil.ops import make_flux_difference_graph
 from .physics.euler import EULER_SPEC
 
 __all__ = ["DT", "build_saxpy_graph", "build_particle_graph",
-           "particle_fields", "build_flux_graph"]
+           "particle_fields", "build_flux_graph", "Converging",
+           "build_eikonal_graph", "eikonal_inputs", "eikonal_distance"]
 
 DT = 0.01
 
@@ -96,3 +102,79 @@ def build_flux_graph(nx: int, ny: int, *, lam_x: float = 0.1,
     g = make_flux_difference_graph(u, out, lam_x, lam_y, overlap=False,
                                    use_kernel=use_kernel, block=block)
     return g, (u, out)
+
+
+class Converging:
+    """Predicate of the eikonal loop: ``res > 0``, i.e. some cell changed
+    in the last iteration.  ``iterations`` holds the number of iterations
+    of the last solve that ended; past ``max_iters`` iterations of one
+    solve the predicate raises instead of letting the loop run on."""
+
+    def __init__(self, result: ReductionResult, max_iters=None):
+        self.result = result.name
+        self.max_iters = max_iters
+        self.iterations = 0
+        self._running = 0
+
+    def __call__(self, state: dict) -> bool:
+        if not bool(state[self.result] > 0):
+            self.iterations, self._running = self._running, 0
+            return False
+        if self.max_iters is not None and self._running >= self.max_iters:
+            self._running = 0
+            raise RuntimeError(f"eikonal solve: still changing after "
+                               f"{self.max_iters} iterations")
+        self._running += 1
+        return True
+
+
+def build_eikonal_graph(n: int, *, inner: int = 4, block=(8, 128),
+                        max_iters=None, use_kernel: bool = True):
+    """The Table 5 solve on an ``n x n`` grid (h = 1/n) as the paper's
+    conditional MapReduce: per iteration ``phi_prev <- phi``, one FIM
+    sweep (``inner`` sweeps per ``block`` tile, K5 on the GPU), the
+    change ``|phi - phi_prev|`` and its max into ``res``, while
+    ``res > 0``.  Every sweep is non-increasing, so the loop ends.
+    Returns ``(graph, (phi, mask), predicate)``, the predicate a
+    :class:`Converging`."""
+    phi = DistTensor("phi", (n, n), halo=(1, 1),
+                     boundary=Boundary.TRANSMISSIVE)
+    mask = DistTensor("mask", (n, n), dtype=torch.bool)
+    phi_prev = DistTensor("phi_prev", (n, n))
+    change = DistTensor("change", (n, n))
+    res = make_reduction_result("res", init=float("inf"))
+    body = Graph(name="fim_iteration")
+    # nodes never write state in place, so phi_prev may alias phi; an
+    # executor that updates state in place needs a clone here
+    body.split(lambda p, _prev: p, phi, phi_prev)
+    body.then(make_eikonal_graph(phi, mask, 1.0 / n, inner=inner,
+                                 block=block, overlap=False,
+                                 use_kernel=use_kernel))
+    body.then_split(lambda p, q, _d: torch.abs(p - q), phi, phi_prev, change)
+    body.then_reduce(change, res, MaxReducer())
+    converging = Converging(res, max_iters)
+    body.conditional(converging)
+    return Graph(name="eikonal_solve").emplace(body), (phi, mask), converging
+
+
+def _radius_offset(n: int) -> np.ndarray:
+    """``r - R`` in cells per cell centre: ``r`` the distance to the
+    grid's centre, ``R = n/4``."""
+    c = np.arange(n) + 0.5 - n / 2
+    return np.hypot(c[:, None], c[None, :]) - n / 4
+
+
+def eikonal_inputs(n: int) -> dict[str, np.ndarray]:
+    """Level-set reinitialisation input: the sources are the cells whose
+    centre lies within half a cell of the circle of radius ``n/4`` about
+    the grid's centre; ``phi`` is 0 there and 1e3 elsewhere (float32),
+    ``mask`` marks them."""
+    mask = np.abs(_radius_offset(n)) <= 0.5
+    phi = np.where(mask, 0.0, 1e3).astype(np.float32)
+    return {"phi": phi, "mask": mask}
+
+
+def eikonal_distance(n: int) -> np.ndarray:
+    """The exact solution ``h |r - R|``: each cell centre's distance to the
+    circle (float64)."""
+    return np.abs(_radius_offset(n)) / n

@@ -8,7 +8,9 @@ package, so it runs where only PyTorch is installed:
 
 Tolerances: float32 1e-5 (flux 1e-4: ~90-operation face fluxes summed in
 another order), bfloat16 2e-2 (the kernels compute in float32 and round
-once, the plain versions round after every operation)."""
+once, the plain versions round after every operation).  The eikonal
+kernel in bfloat16, which rounds its tile once per sweep, is held to atol
+2e-3 with rtol 1.6e-2: a few bfloat16 steps at the fronts' magnitude."""
 
 import numpy as np
 import pytest
@@ -34,10 +36,11 @@ def _tol(dtype, f32=1e-5):
     return f32 if dtype == "float32" else 2e-2
 
 
-def _close(got, want, tol):
+def _close(got, want, tol, rtol=None):
     got, want = got.float().cpu(), want.float().cpu()
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, want, atol=tol,
+                               rtol=tol if rtol is None else rtol)
 
 
 def _randn(dev, dtype, *shape, seed=0):
@@ -147,3 +150,76 @@ def test_flux_graph_on_the_card_matches_the_cpu(dev):
     got = gpu(gpu.init_state(u=u0))
     want = cpu(cpu.init_state(u=u0))
     _close(got["flux"], want["flux"], 1e-4)
+
+
+def _eikonal_state(dev, n, dtype, iters=8):
+    """A mid-solve eikonal state: the workload's circle of sources after
+    ``iters`` float32 iterations of the plain sweep (both Godunov
+    branches and the tile edges are in play), haloed, in ``dtype``."""
+    from repro_torch.kernels.eikonal.ops import eikonal_fim_ref
+
+    inp = workloads.eikonal_inputs(n)
+    phi = torch.from_numpy(inp["phi"]).to(dev)
+    mask = torch.from_numpy(inp["mask"]).to(dev)
+
+    def halo(p):
+        for ax in (0, 1):
+            p = pad_boundary_only(p, axis=ax, width=1,
+                                  boundary=Boundary.TRANSMISSIVE)
+        return p
+
+    for _ in range(iters):
+        phi = eikonal_fim_ref(halo(phi), mask, 1 / n, inner=4, block=(8, 64))
+    return halo(phi).to(getattr(torch, dtype)), mask
+
+
+@pytest.mark.parametrize("inner", [1, 4])
+@pytest.mark.parametrize("tile", [(8, 128), (16, 64), (64, 256)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eikonal_kernel(dev, dtype, tile, inner):
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.eikonal.ops import (eikonal_fim_ref,
+                                                 eikonal_fim_sweep)
+
+    phi, mask = _eikonal_state(dev, 256, dtype)
+    before = eikonal_fim_cuda.launches
+    got = eikonal_fim_sweep(phi, mask, 1 / 256, inner=inner, block=tile)
+    assert eikonal_fim_cuda.launches == before + 1
+    assert got.dtype == phi.dtype and tuple(got.shape) == (256, 256)
+    atol, rtol = (1e-5, 1e-5) if dtype == "float32" else (2e-3, 1.6e-2)
+    _close(got, eikonal_fim_ref(phi, mask, 1 / 256, inner=inner, block=tile),
+           atol, rtol)
+
+
+def test_eikonal_graph_on_the_card_matches_the_cpu(dev):
+    n = 256
+    inp = {k: torch.from_numpy(v) for k, v in
+           workloads.eikonal_inputs(n).items()}
+    g, _, converging = workloads.build_eikonal_graph(n, max_iters=4 * n)
+    gpu, cpu = Executor(g), Executor(g, device="cpu")
+    got = gpu(gpu.init_state(**inp))
+    gpu_iters = converging.iterations
+    want = cpu(cpu.init_state(**inp))
+    assert gpu_iters == converging.iterations > 0
+    assert got["phi"].device.type == "cuda"
+    _close(got["phi"], want["phi"], 1e-5)
+
+
+def test_eikonal_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+
+    phi = torch.ones(66, 130, device=dev)
+    mask = torch.zeros(64, 128, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        eikonal_fim_cuda(phi.double(), mask, 0.1)
+    with pytest.raises(TypeError, match="not bool"):
+        eikonal_fim_cuda(phi, mask.float(), 0.1)
+    with pytest.raises(ValueError, match="not contiguous"):
+        eikonal_fim_cuda(torch.ones(130, 66, device=dev).t(), mask, 0.1)
+    with pytest.raises(ValueError, match="must tile"):
+        eikonal_fim_cuda(phi, mask, 0.1, block=(8, 96))
+    # more than 64 cells a thread: the launch refuses it
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        eikonal_fim_cuda(torch.ones(130, 514, device=dev),
+                         torch.zeros(128, 512, dtype=torch.bool, device=dev),
+                         0.1, block=(128, 512))

@@ -77,6 +77,24 @@ def _ref_flux_graph(nx, ny, layout="SOA"):
                                       use_pallas=True)
 
 
+def _listing9(pkg, size=16):
+    """Paper Listing 9 in either package: init to 4, subtract 1 until the
+    sum hits 0.  ``r`` starts nonzero so the while loop enters."""
+    full = jnp.full_like if pkg is ref else torch.full_like
+    x = pkg.DistTensor("x", (size,))
+    res = pkg.make_reduction_result("r", init=1.0)
+    init = pkg.Graph(name="init")
+    init.split(lambda xs: full(xs, 4.0), x, writes=(0,))
+    map_reduce = pkg.Graph(name="map_reduce")
+    map_reduce.split(lambda xs: xs - 1.0, x, writes=(0,))
+    map_reduce.then_reduce(x, res, pkg.SumReducer())
+    map_reduce.conditional(lambda state: state["r"] != 0.0)
+    g = pkg.Graph()
+    g.emplace(init)
+    g.then(map_reduce)
+    return g
+
+
 def _dag_signature(dag):
     units = [(u.kind, u.level, sorted(u.reads), sorted(u.writes), u.barrier,
               u.segment, u.wave) for u in dag.units]
@@ -93,7 +111,7 @@ def _segment_signature(segments):
 # -- schedule and plan parity ---------------------------------------------------
 
 @pytest.mark.parametrize("graph", ["particles", "flux", "two_flux",
-                                   "host_mid"])
+                                   "host_mid", "listing9", "eikonal_solve"])
 @pytest.mark.parametrize("schedule", ["dag", "sequential"])
 def test_schedule_and_plan_match_reference(graph, schedule):
     """Same units, edges, waves, segments, initial/per-segment layouts and
@@ -112,6 +130,13 @@ def test_schedule_and_plan_match_reference(graph, schedule):
         if graph == "flux":
             return (_ref_flux_graph(32, 128) if pkg is ref else
                     workloads.build_flux_graph(32, 128)[0])
+        if graph == "listing9":
+            return _listing9(pkg)
+        if graph == "eikonal_solve":
+            from test_torch_eikonal import _ref_eikonal_graph
+            return (_ref_eikonal_graph(64, 4, (8, 64), loop=True)
+                    if pkg is ref else
+                    workloads.build_eikonal_graph(64, block=(8, 64))[0])
         if graph == "two_flux":   # two kernels on separate levels
             g = pkg.Graph(name="two_flux")
             for i in range(2):
@@ -353,26 +378,167 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
 
 
 @pytest.mark.parametrize("option", ["mesh", "tune", "regions",
-                                    "async_regions", "conditional",
-                                    "partition"])
+                                    "async_regions", "partition"])
 def test_unported_options_raise_with_their_roadmap_item(option):
     g, _, _ = workloads.build_particle_graph(1024)
     kw, item = {}, {"mesh": "item 8", "tune": "item 9",
                     "regions": "item 7\\(b\\)", "async_regions":
-                    "item 7\\(c\\)", "conditional": "K5",
-                    "partition": "item 8"}[option]
+                    "item 7\\(c\\)", "partition": "item 8"}[option]
     if option == "mesh":
         kw["mesh"] = object()
     elif option == "tune":
         kw["tune"] = "auto"
     elif option in ("regions", "async_regions"):
         kw[option] = True
-    elif option == "conditional":
-        sub, _, _ = workloads.build_particle_graph(1024)
-        sub.conditional(lambda s: s["vmax"] < 0)
-        g = port.Graph(name="outer").emplace(sub)
     else:
         t = port.DistTensor("p", (64,), partition=("d",))
         g = port.Graph(name="part").split(lambda x: x, t)
     with pytest.raises(NotImplementedError, match=item):
         port.Executor(g, device="cpu", **kw)
+
+
+# -- conditional loops (paper §5.3.6) ----------------------------------------
+
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_graph_conditional_map_reduce_paper_listing9(schedule):
+    ex = port.Executor(_listing9(port), device="cpu", schedule=schedule)
+    assert [k for k, _ in ex._segments] == ["device", "loop"]
+    state = ex(ex.init_state())
+    assert torch.equal(state["x"], torch.zeros(16))
+    assert float(state["r"]) == 0.0
+
+
+def test_graph_conditional_false_on_entry_runs_zero_times():
+    """While semantics: a predicate false on entry runs the body no time;
+    a satisfiable one iterates until it fails."""
+    x = port.DistTensor("x", (8,))
+    loop = port.Graph(name="never")
+    loop.split(lambda xs: xs + 1.0, x, writes=(0,))
+    loop.conditional(lambda state: state["go"] != 0.0)
+    ex = port.Executor(port.Graph().emplace(loop), device="cpu")
+    state = ex.init_state(x=torch.full((8,), 3.0))
+    state["go"] = torch.tensor(0.0)
+    assert torch.equal(ex(state)["x"], torch.full((8,), 3.0))
+
+    count = port.Graph(name="until_five")
+    count.split(lambda xs: xs + 1.0, x, writes=(0,))
+    count.conditional(lambda s: s["x"][0] < 5.0)
+    ex2 = port.Executor(port.Graph().emplace(count), device="cpu")
+    st = ex2(ex2.init_state(x=torch.full((8,), 3.0)))
+    assert torch.equal(st["x"], torch.full((8,), 5.0))
+
+
+def test_graph_conditional_false_on_entry_host_loop():
+    """The same guarantee for a loop whose body holds a host node."""
+    x = port.DistTensor("x", (4,))
+    seen = []
+    loop = port.Graph(name="host_never")
+    loop.split(lambda xs: xs + 1.0, x, writes=(0,))
+    loop.sync(lambda: seen.append("ran"))
+    loop.conditional(lambda state: state["go"] != 0.0)
+    ex = port.Executor(port.Graph().emplace(loop), device="cpu")
+    assert [k for k, _ in ex._segments] == ["host_loop"]
+    state = ex.init_state()
+    state["go"] = torch.tensor(0.0)
+    state = ex(state)
+    assert seen == [] and torch.equal(state["x"], torch.zeros(4))
+    state["go"] = torch.tensor(1.0)
+    loop.conditional(lambda s: s["x"][0] < 3.0)
+    assert torch.equal(ex(state)["x"], torch.full((4,), 3.0))
+    assert seen == ["ran"] * 3
+
+
+@pytest.mark.parametrize("schedule", ["dag", "sequential"])
+def test_loop_vertex_orders_conservatively(schedule):
+    """A conditional subgraph reads the whole state (opaque predicate): it
+    waits for every earlier writer and holds back later writers."""
+    x = port.DistTensor("x", (8,))
+    loop = port.Graph(name="dec")
+    loop.split(lambda v: v - 1.0, x, writes=(0,))
+    loop.conditional(lambda s: s["x"][0] > 0.0)
+    g = port.Graph()
+    g.split(lambda v: torch.full_like(v, 3.0), x, writes=(0,))
+    g.then(loop)
+    g.then_split(lambda v: v + 10.0, x, writes=(0,))
+    ex = port.Executor(g, device="cpu", schedule=schedule)
+    assert [k for k, _ in ex._segments] == ["device", "loop", "device"]
+    st = ex(ex.init_state())
+    assert torch.equal(st["x"], torch.full((8,), 10.0))
+
+
+def test_loop_sub_executor_is_built_once_per_segment(monkeypatch):
+    built = []
+    real_init = port.Executor.__init__
+
+    def counting_init(self, graph, *a, **kw):
+        built.append(graph.name)
+        real_init(self, graph, *a, **kw)
+
+    g = _listing9(port)
+    ex = port.Executor(g, device="cpu", tile_overrides={"eikonal": (8, 8)})
+    monkeypatch.setattr(port.Executor, "__init__", counting_init)
+    for _ in range(3):
+        ex(ex.init_state())
+    ex.run(ex.init_state(), 2)
+    assert built == ["map_reduce"]
+    sub = ex._sub_execs[1]
+    assert sub.device == ex.device and sub.schedule == ex.schedule
+    assert sub._tile_config == {"eikonal": (8, 8)}
+    assert sub.graph.condition is not None and \
+        [k for k, _ in sub._segments] == ["device"]
+
+
+def test_loop_body_records_are_solved_with_the_enclosing_plan():
+    """A record touched only inside a loop gets its layout from the outer
+    plan (the solver walks loop bodies), and the body runs in it."""
+    spec = port.RecordSpec.create("a", "b")
+    r = port.DistTensor("r", (256,), spec=spec, layout=port.Layout.AOS)
+    body = port.Graph(name="inc")
+    body.split(lambda x: x.map_data(lambda d: d + 1.0),
+               port.preferred_layout(r, port.Layout.AOSOA), writes=(0,))
+    body.then_reduce(r, port.make_reduction_result("amax", init=-1.0),
+                     port.MaxReducer(), field="a")
+    body.conditional(lambda s: s["amax"] < 3.0)
+    ex = port.Executor(port.Graph().emplace(body), device="cpu")
+    assert ex.plan.per_segment == [{"r": port.Layout.AOSOA}]
+    assert ex._sub_executor(0).plan.initial["r"] is port.Layout.AOSOA
+    st = ex(ex.init_state())
+    assert torch.equal(ex.read(st, r).field("a"), torch.full((256,), 3.0))
+
+
+def test_loop_relayouts_count_on_the_enclosing_executor():
+    """A loop whose body wants another layout than the segment before it:
+    the conversion at the loop's entry counts once per pass on the
+    executor the caller holds, however often the body runs, and the
+    body's own count is folded into it."""
+    spec = port.RecordSpec.create("a", "b")
+    r = port.DistTensor("r", (256,), spec=spec, layout=port.Layout.AOS)
+    body = port.Graph(name="inc")
+    body.split(lambda x: x.map_data(lambda d: d + 1.0),
+               port.preferred_layout(r, port.Layout.AOSOA), writes=(0,))
+    body.then_reduce(r, port.make_reduction_result("amax", init=-1.0),
+                     port.MaxReducer(), field="a")
+    body.conditional(lambda s: s["amax"] < 3.0)
+    g = port.Graph()
+    g.split(lambda x: x.map_data(torch.zeros_like),
+            port.preferred_layout(r, port.Layout.SOA), writes=(0,))
+    g.then(body)
+    ex = port.Executor(g, device="cpu")
+    assert [k for k, _ in ex._segments] == ["device", "loop"]
+    assert ex.plan.relayouts == [port.RelayoutStep(1, "r", port.Layout.SOA,
+                                                   port.Layout.AOSOA)]
+    st = ex(ex.init_state())
+    assert torch.equal(ex.read(st, r).field("a"), torch.full((256,), 3.0))
+    # into the loop, and back to the initial layout at the end of the call
+    assert ex.eager_relayouts == 2
+    sub = ex._sub_execs[1]
+    assert sub.eager_relayouts == 0   # three iterations, no conversion
+    body_pass = sub._call_segments
+
+    def converting_body_pass(state):  # a body that converts once a pass
+        sub.eager_relayouts += 1
+        return body_pass(state)
+
+    sub._call_segments = converting_body_pass
+    ex(ex.init_state())
+    assert ex.eager_relayouts == 2 + 2 + 3

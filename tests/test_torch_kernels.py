@@ -211,6 +211,10 @@ def test_euler_matches_reference(fn):
 # -- device contract -----------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    from repro_torch import workloads
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.eikonal.ops import (eikonal_fim_ref,
+                                                 eikonal_fim_sweep)
     from repro_torch.kernels.particle.kernel import particle_update_cuda
     from repro_torch.kernels.particle.ops import (PARTICLE_SPEC,
                                                   particle_update,
@@ -224,6 +228,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(got.data, particle_update_ref(p, 0.5).data)
     assert particle_update_cuda.launches == before
 
+    phi, mask = torch.rand(18, 34), torch.rand(16, 32) < 0.1
+    before = eikonal_fim_cuda.launches
+    got = eikonal_fim_sweep(phi, mask, 1 / 16, block=(8, 32))
+    assert torch.equal(got, eikonal_fim_ref(phi, mask, 1 / 16,
+                                            block=(8, 32)))
+    g, _, _ = workloads.build_eikonal_graph(16, block=(8, 16))
+    ex = port.Executor(g, device="cpu")
+    inp = workloads.eikonal_inputs(16)
+    ex(ex.init_state(**{k: torch.from_numpy(v) for k, v in inp.items()}))
+    assert eikonal_fim_cuda.launches == before
+
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: no fallback."""
@@ -231,6 +246,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.particle.ops import PARTICLE_SPEC
     from repro_torch.kernels.saxpy.kernel import saxpy_cuda, saxpy_record_cuda
     from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
     from repro_torch.kernels.stencil.kernel import flux_difference_cuda
     from repro_torch.physics.euler import EULER_SPEC
 
@@ -243,6 +259,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.ones(6, 256), PARTICLE_SPEC, port.Layout.SOA), 1.0),
         lambda: flux_difference_cuda(port.RecordArray(
             torch.ones(4, 6, 6), EULER_SPEC, port.Layout.SOA), 0.1, 0.1),
+        lambda: eikonal_fim_cuda(torch.ones(10, 10),
+                                 torch.zeros(8, 8, dtype=torch.bool), 0.1,
+                                 inner=4, block=(8, 8)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -250,6 +269,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_tile_registry_resolves_like_reference():
+    import repro.kernels.stencil.kernel  # noqa: F401  registers "flux"
     from repro.tuning import tiles as rt
     from repro_torch.kernels.stencil import kernel as sk  # registers "flux"
     from repro_torch.tuning import tiles as pt
