@@ -12,7 +12,8 @@ result line):
 2. kernel parity — each kernel against its plain PyTorch version on the
    card, at the main path's shapes, float32 and bfloat16, every layout
    (the eikonal kernel: inner 1 and 4, tiles (8, 128) and (64, 256), on a
-   mid-solve state);
+   mid-solve state); the bfloat16 limits of the eikonal, attention and
+   SSD kernels each shown to see a deliberately wrong variant;
 3. the main path through the port's ``Graph``/``Executor`` on the GPU:
    the Table 2 SAXPY probe (n = 2^24), the particle step graph (2^24
    particles per species, 100 steps, closed-form check), the FORCE flux
@@ -22,11 +23,26 @@ result line):
    against the plain loop on the card and the exact distance); every
    kernel's launch count is read from each graph's run, the counts set to
    0 just before it;
+   then LM serving through ``Batcher`` -> ``Executor``: qwen3-8b at its
+   published width and depth (36 layers, bf16, random weights from a
+   seeded generator, made on the card) and mamba2-130m at its published
+   config, each answering 8 requests (prompts of 2048, 2048, 1536, 1536,
+   1000, 1000, 517 and 517 tokens, 32 new tokens each, 4 batch slots,
+   ``max_seq`` 2112), through the ``Batcher`` as ``launch/serve.py``
+   builds it (prefill-ahead on).  Checked: the flash-attention kernel
+   (K6) launched once per attention layer per prefill and the SSD kernel
+   (K7) once per Mamba layer per prefill; the batcher's token streams
+   equal the uniform loop's (``legacy_generate``) for each equal-length
+   pair; the kernel route's last-position prefill logits within
+   ``LOGIT_TOL`` of the plain route's on the same weights, and a
+   deliberately wrong variant outside it;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
-   its bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s of
-   float32), its plain version and, where one PyTorch call computes the
-   same function, that call.
+   its bound (bytes over 3.35 TB/s, or operations over the peak rate
+   for their type: 67 TFLOP/s of float32 outside the tensor cores, 989
+   TFLOP/s of bf16 on them for the bf16 inputs of K6 and K7), its plain
+   version and, where one PyTorch call computes the same function, that
+   call.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without
@@ -35,6 +51,7 @@ the rest of the repository beside it, the script fails before any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -49,6 +66,8 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 # the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# ... and the bf16 dense rate of its tensor cores
+BF16_TC_OPS_PER_S = 989e12
 
 SAXPY_N, SAXPY_A, SAXPY_STEPS = 1 << 24, 1.75, 20
 PARTICLE_N, PARTICLE_STEPS = 1 << 24, 100
@@ -73,6 +92,31 @@ OPS_PER_CELL = 2 * 4 * 2 + 4
 # operations of one Godunov update with its source select in
 # csrc/eikonal.cu, per cell and sweep
 EIK_OPS_PER_CELL_SWEEP = 17
+# LM serving: 8 requests, two of each prompt length, 4 batch slots
+LM_PROMPTS = (2048, 2048, 1536, 1536, 1000, 1000, 517, 517)
+LM_GEN, LM_SLOTS, LM_MAX_SEQ = 32, 4, 2112
+# K6 at the qwen3-8b prefill shape (B, Hq, Hkv, S, D), K7 at mamba2-130m's
+# (B, S, H, P, N, chunk)
+ATTN_SHAPE = (1, 32, 8, 2048, 128)
+SSD_SHAPE = (1, 2048, 24, 64, 128, 128)
+# K6/K7 against their plain versions, per output, as (atol, rtol).  Both
+# sides load the same values, compute in float32 and round once, so the
+# float32 limits cover sums in another order (H100 readings: K6 8.3e-7;
+# K7 y_intra 5.6e-5, 128 terms of magnitude up to ~10 per output; K7
+# chunk states 5.2e-6), and a bfloat16 output adds 2^-6 relative, two
+# bfloat16 steps at the least, to its float32 atol (H100 readings: one
+# step).  The chunk states are float32 in either dtype.
+LM_KERNEL_TOL = {
+    "flash_attention": {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2**-6)},
+    "ssd_intra_chunk y_intra": {"float32": (2e-4, 2e-4),
+                                "bfloat16": (2e-4, 2**-6)},
+    "ssd_intra_chunk chunk states": {"float32": (2e-5, 2e-5),
+                                     "bfloat16": (2e-5, 2e-5)}}
+# last-position prefill logits, kernel route against plain route (bf16
+# weights and activations; absolute, as max |difference|), set from the
+# H100 readings 5.66e-2 (qwen3-8b) and 1.05e-1 (mamba2-130m, both routes
+# rounding y_intra to bf16); the wrong variants read 5.8 and 2.9
+LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25}
 
 
 def log(msg: str) -> None:
@@ -151,6 +195,73 @@ def max_err(got, want, tol: float, what: str, rtol=None) -> float:
     return err
 
 
+def check_wrong(what: str, lim: tuple, want, variants: dict) -> None:
+    """Each deliberately wrong variant against the plain result: fails
+    unless every one has values outside the limit ``lim`` (atol, rtol)."""
+    for name, got in variants.items():
+        err, bad = outside(got, want, *lim)
+        log(f"{what} bfloat16 wrong variant ({name}): max_abs_err="
+            f"{err:.3e}, {bad} values outside the limit")
+        if not bad:
+            raise AssertionError(f"{what}: the bfloat16 limit does not see "
+                                 f"{name}")
+
+
+def attn_bf16_accumulator(q, k, v, block: int = 64):
+    """Causal attention with a wrong bfloat16 accumulator: the online
+    softmax's output sum rounded to q's dtype after each ``block`` keys,
+    everything else in float32."""
+    import torch
+
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    k = k.float().repeat_interleave(group, dim=1)
+    v = v.float().repeat_interleave(group, dim=1)
+    qs = q.float() / D ** 0.5
+    pos = torch.arange(S, device=q.device)
+    m = torch.full((B, Hq, S, 1), -1e30, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    acc = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    for j in range(0, S, block):
+        s = qs @ k[:, :, j:j + block].transpose(-1, -2)
+        seen = pos[:, None] >= pos[None, j:j + block]
+        m_new = torch.maximum(m, s.masked_fill(~seen, -1e30).amax(
+            -1, keepdim=True))
+        p = torch.where(seen, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        acc = (acc.float() * alpha + p @ v[:, :, j:j + block]).to(q.dtype)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc.float() / l).to(q.dtype)
+
+
+def ssd_bf16_sum(x, dt, A, Bm, C, chunk: int):
+    """K7's ``y_intra`` with a wrong bfloat16 sum: the running sum over a
+    chunk's positions rounded to x's dtype after each term, the terms in
+    float32 as the plain version forms them."""
+    import torch
+
+    B, S, H, P = x.shape
+    N, nc = Bm.shape[-1], S // chunk
+    dtc = dt.reshape(B, nc, chunk, H)
+    cs = torch.cumsum(dtc * A, dim=2).movedim(3, 2)        # (B, nc, H, L)
+    seg = cs[..., :, None] - cs[..., None, :]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    decay = torch.exp(torch.where(tri, seg, 0.0)) * tri
+    cb = torch.einsum("bcin,bcjn->bcij",
+                      C.float().reshape(B, nc, chunk, N),
+                      Bm.float().reshape(B, nc, chunk, N))
+    scores = cb[:, :, None] * decay                        # (B,nc,H,L,L)
+    dx = (dtc[..., None] * x.float().reshape(B, nc, chunk, H, P))
+    dx = dx.movedim(3, 2)                                  # (B,nc,H,L,P)
+    y = torch.zeros((B, nc, H, chunk, P), dtype=x.dtype, device=x.device)
+    for j in range(chunk):
+        y = (y.float() + scores[..., j, None] * dx[..., j, None, :]).to(
+            x.dtype)
+    return y.movedim(2, 3).reshape(B, S, H, P)
+
+
 def device_time_by_kernel(fn) -> dict[str, tuple[float, int]]:
     """Run ``fn`` once under ``torch.profiler``; returns the device time in
     microseconds and the launch count of every kernel it ran, by name."""
@@ -167,10 +278,216 @@ def device_time_by_kernel(fn) -> dict[str, tuple[float, int]]:
             and e.self_device_time_total > 0}
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_work(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+              itemsize: int, causal: bool = True, window=None,
+              q_offset: int = 0) -> tuple[int, int]:
+    """Bytes (q, k, v read once, the output written once) and operations
+    (two products of 2 D operations per visible (query, key) pair) of one
+    flash-attention call."""
+    pairs = 0
+    for i in range(Sq):
+        pos = q_offset + i
+        hi = min(pos + 1, Skv) if causal else Skv
+        lo = max(pos - window + 1, 0) if window else 0
+        pairs += max(hi - lo, 0)
+    nbytes = itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+    return nbytes, 4 * D * pairs * B * Hq
+
+
+def ssd_work(B: int, S: int, H: int, P: int, N: int, L: int,
+             itemsize: int) -> tuple[int, int]:
+    """Bytes and operations of one intra-chunk SSD call: x, B, C in the
+    storage type and dt in float32 read once, y written in the storage
+    type and the float32 chunk states; C B^T and its product with dt x
+    over the L (L + 1) / 2 pairs the causal decay keeps, and the chunk
+    state (2 L P N), per (batch, chunk, head)."""
+    nc = S // L
+    nbytes = (itemsize * (2 * B * S * H * P + 2 * B * S * N)
+              + 4 * B * S * H + 4 * H + 4 * B * nc * H * P * N)
+    tri = L * (L + 1) // 2
+    ops = B * nc * H * (2 * tri * N + 2 * tri * P + 2 * L * P * N)
+    return nbytes, ops
+
+
+def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
+    """Serve ``arch`` at its published config through ``Batcher`` ->
+    ``Executor`` on the card; check launches, token streams against
+    ``legacy_generate`` and the kernel route's prefill logits against the
+    plain route's.  Returns the launch counts of the batcher's run and
+    its measurements."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models.lm import decode_step, init_lm, prefill
+    from repro_torch.runtime.batcher import Batcher
+
+    dev = torch.device("cuda")
+    cfg = configs.get(arch)
+    kinds = [k for _ in range(cfg.layer_groups()[0])
+             for k in cfg.layer_groups()[1]] + list(cfg.layer_groups()[2])
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters in {cfg.param_dtype} made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LM_PROMPTS]
+
+    # the main path: the batcher as serve.py builds it (prefill-ahead on),
+    # timed from outside; one prefill per request
+    batcher = Batcher(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                      log=log)
+    reqs = [batcher.submit(p, max_new_tokens=LM_GEN) for p in prompts]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_tok = sum(len(r.generated) for r in reqs)
+    # decode ms per step: the gaps between the batcher's own harvest
+    # stamps (every token after a request's first), admissions included
+    harvests = sorted({t for r in reqs for t in r.token_times[1:]})
+    step_ms = statistics.median(
+        (b - a) * 1e3 for a, b in zip(harvests, harvests[1:]))
+    log(f"main path {arch}: {len(reqs)} requests, {batcher.steps} decode "
+        f"steps, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"tokens/s; decode {step_ms:.3f} ms per step (median gap between "
+        f"harvests, 4 slots); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+    if any(len(r.generated) != LM_GEN or r.status != "done" for r in reqs):
+        raise AssertionError(f"{arch}: the batcher did not serve every "
+                             f"request in full")
+    expect = {"flash_attention": kinds.count("A") * len(reqs),
+              "ssd_intra_chunk": kinds.count("M") * len(reqs)}
+    # prefill ms per request: a separate pass through the batcher's own
+    # prefill executors (built by the run), synchronised on both sides
+    prefill_ms = []
+    for prompt in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batcher._prefill_state(prompt)
+        torch.cuda.synchronize()
+        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
+        log(f"  prefill {arch} {len(prompt)} tokens: {prefill_ms[-1][1]:.3f}"
+            f" ms ({card})")
+    del batcher
+
+    # the uniform loop on each equal-length pair, repeated to the
+    # batcher's 4 slots so that both decode at one batch width
+    for i in range(0, len(prompts), 2):
+        rows = np.stack([prompts[i], prompts[i + 1]] * (LM_SLOTS // 2))
+        gen, t_pre, t_dec = legacy_generate(cfg, params,
+                                            torch.from_numpy(rows), LM_GEN,
+                                            LM_MAX_SEQ)
+        for j in (0, 1):
+            if reqs[i + j].generated != gen[j].tolist():
+                raise AssertionError(
+                    f"{arch}: request {i + j} ({len(prompts[i + j])} "
+                    f"tokens) streams {reqs[i + j].generated} from the "
+                    f"batcher, {gen[j].tolist()} from legacy_generate")
+        log(f"{arch} streams of the {len(prompts[i])}-token pair equal "
+            f"legacy_generate's ({LM_GEN} tokens each; its prefill "
+            f"{t_pre * 1e3:.1f} ms for 4 rows, decode "
+            f"{t_dec / (LM_GEN - 1) * 1e3:.3f} ms per step)")
+
+    # the kernel route's last-position logits against the plain route's
+    tokens = torch.from_numpy(prompts[0][None]).to(dev)
+
+    def run_prefill(use_kernel=True):
+        return prefill(params, {"tokens": tokens}, cfg,
+                       max_seq=tokens.shape[1] + 1, use_kernel=use_kernel)
+
+    def logits(use_kernel=True):
+        return run_prefill(use_kernel)[0].float()
+
+    got, want = logits(), logits(use_kernel=False)
+    if tuple(got.shape) != (1, cfg.padded_vocab()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch}: prefill logits of shape "
+                             f"{tuple(got.shape)}, or not finite")
+    err = float((got - want).abs().max())
+    same = int(got.argmax()) == int(want.argmax())
+    log(f"{arch} prefill logits ({len(prompts[0])} tokens), kernel route "
+        f"vs plain route: max |difference| {err:.4e} (limit "
+        f"{LOGIT_TOL[arch]:g}, plain logits max |x| "
+        f"{float(want.abs().max()):.3f}); argmax equal: {same}")
+    if not err <= LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch}: prefill logits outside the limit")
+    if expect["flash_attention"]:
+        what = "attention without its causal mask"
+        real = model_attention.flash_attention_cuda
+        model_attention.flash_attention_cuda = \
+            lambda *a, **kw: real(*a, **{**kw, "causal": False})
+        try:
+            wrong = logits()
+        finally:
+            model_attention.flash_attention_cuda = real
+    else:
+        what = "SSD without the chunk states"
+        real = ssd_ops.ssd_intra_chunk_cuda
+
+        def no_states(*a, **kw):
+            y, st = real(*a, **kw)
+            return y, torch.zeros_like(st)
+
+        ssd_ops.ssd_intra_chunk_cuda = no_states
+        try:
+            wrong = logits()
+        finally:
+            ssd_ops.ssd_intra_chunk_cuda = real
+    werr = float((wrong - want).abs().max())
+    log(f"{arch} wrong variant ({what}): max |difference| {werr:.4e} "
+        f"against the plain route (limit {LOGIT_TOL[arch]:g})")
+    if not werr > LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch}: the logits limit does not see "
+                             f"{what}")
+    # where the time goes: one prefill and one decode step (batch 1),
+    # host clock around each, then the device's kernels under the profiler
+    _, caches = run_prefill()
+    nxt = got.argmax(dim=-1).to(torch.int32)
+    busy = {}
+    for what, fn in (("prefill", run_prefill),
+                     ("decode step", lambda: decode_step(params, caches,
+                                                         nxt, cfg))):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        by_kernel = device_time_by_kernel(fn)
+        dev_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+        wall_ms = statistics.median(walls)
+        busy[what] = (wall_ms, dev_ms)
+        log(f"{arch} {what} (batch 1, {len(prompts[0])} tokens): wall "
+            f"{wall_ms:.3f} ms (median of 3), device busy {dev_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f} %), "
+            f"{sum(n for _, n in by_kernel.values())} kernel launches "
+            f"({card})")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        for name, (us, count) in top:
+            log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
+    return {"counts": counts, "expect": expect, "wall": wall,
+            "tok_s": n_tok / wall, "step_ms": step_ms,
+            "prefill_ms": prefill_ms, "logit_err": err, "busy": busy}
 
 
 def main() -> int:
@@ -199,6 +516,10 @@ def main() -> int:
                                                  flux_difference_ref)
     from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
     from repro_torch import workloads
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import mha_ref
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -234,11 +555,19 @@ def main() -> int:
         "eikonal_fim": {
             "source": "src/repro_torch/csrc/eikonal.cu",
             "replaces": "src/repro/kernels/eikonal/kernel.py:84"},
+        "flash_attention": {
+            "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention/kernel.py:132"},
+        "ssd_intra_chunk": {
+            "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:72"},
     }
     wrappers = {"saxpy": saxpy_cuda, "saxpy_record": saxpy_record_cuda,
                 "particle_update": particle_update_cuda,
                 "flux_difference": flux_difference_cuda,
-                "eikonal_fim": eikonal_fim_cuda}
+                "eikonal_fim": eikonal_fim_cuda,
+                "flash_attention": flash_attention_cuda,
+                "ssd_intra_chunk": ssd_intra_chunk_cuda}
     errs = {k: 0.0 for k in kernels}
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -253,6 +582,22 @@ def main() -> int:
             u = pad_boundary_only(u, axis=ax, width=1,
                                   boundary=Boundary.TRANSMISSIVE)
         return u
+
+    def attn_inputs(dtype):
+        """q, k, v at the qwen3-8b prefill shape."""
+        B, Hq, Hkv, S, D = ATTN_SHAPE
+        return (randn(B, Hq, S, D, dtype=dtype),
+                randn(B, Hkv, S, D, dtype=dtype),
+                randn(B, Hkv, S, D, dtype=dtype))
+
+    def ssd_inputs(dtype):
+        """x, dt, A, B, C at the mamba2-130m prefill shape (dt and A as
+        the model makes them: softplus range, -(1 .. 16))."""
+        B, S, H, P, N, _ = SSD_SHAPE
+        dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.099 + 1e-3
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        return (randn(B, S, H, P, dtype=dtype), dt, A,
+                randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype))
 
     def halo(p):
         """A one-cell transmissive halo around a 2-d field."""
@@ -341,6 +686,47 @@ def main() -> int:
                     raise AssertionError("eikonal bfloat16 limit does not "
                                          "see a missing sweep")
         del phi
+        # K6 at the qwen3-8b prefill shape: causal, a window, a query
+        # offset (the last 512 queries of 2048 keys), fused AoS KV
+        q, k, v = attn_inputs(dt)
+        S = ATTN_SHAPE[3]
+        cases = {
+            "causal": (flash_attention_cuda(q, k, v), mha_ref(q, k, v)),
+            "window 1024": (flash_attention_cuda(q, k, v, window=1024),
+                            mha_ref(q, k, v, window=1024)),
+            "q_offset 1536": (
+                flash_attention_cuda(q[:, :, -512:], k, v, q_offset=S - 512),
+                mha_ref(q[:, :, -512:], k, v, q_offset=S - 512)),
+            "fused AoS KV": (flash_attention_cuda(
+                q, torch.stack([k, v], dim=3).contiguous()),
+                mha_ref(q, k, v))}
+        lim = LM_KERNEL_TOL["flash_attention"][dname]
+        for what, (got, want) in cases.items():
+            e = max_err(got, want, lim[0], f"flash_attention {dname} {what}",
+                        rtol=lim[1])
+            if dname == "float32":
+                errs["flash_attention"] = max(errs["flash_attention"], e)
+        if dname == "bfloat16":
+            check_wrong("flash_attention", lim, cases["causal"][1], {
+                "accumulator rounded to bfloat16 after each 64-key tile":
+                    attn_bf16_accumulator(q, k, v)})
+        del q, k, v, cases, got, want
+        x, dts, A, Bm, C = ssd_inputs(dt)
+        chunk = SSD_SHAPE[-1]
+        got = ssd_intra_chunk_cuda(x, dts, A, Bm, C, chunk=chunk)
+        want = ssd_intra_chunk_ref(x, dts, A, Bm, C, chunk=chunk)
+        for part, g_, w_ in zip(("y_intra", "chunk states"), got, want):
+            lim = LM_KERNEL_TOL[f"ssd_intra_chunk {part}"][dname]
+            e = max_err(g_, w_, lim[0], f"ssd_intra_chunk {dname} {part}",
+                        rtol=lim[1])
+            if dname == "float32":
+                errs["ssd_intra_chunk"] = max(errs["ssd_intra_chunk"], e)
+        if dname == "bfloat16":
+            check_wrong("ssd_intra_chunk y_intra",
+                        LM_KERNEL_TOL["ssd_intra_chunk y_intra"][dname],
+                        want[0], {"y_intra summed in bfloat16":
+                                  ssd_bf16_sum(x, dts, A, Bm, C, chunk)})
+        del x, dts, A, Bm, C, got, want
         torch.cuda.empty_cache()
 
     # -- 3. the main path through Graph/Executor on the GPU ------------------
@@ -476,7 +862,7 @@ def main() -> int:
               "flux": {"flux_difference": FLUX_STEPS},
               "eikonal_solve": {"eikonal_fim": iters}}
     launches = {k: 0 for k in wrappers}
-    for path, counts in path_launches.items():
+    for path, counts in list(path_launches.items()):
         log(f"main path launches {path}: {json.dumps(counts)}")
         for k, n in counts.items():
             if n != expect[path].get(k, 0):
@@ -508,6 +894,29 @@ def main() -> int:
             log(f"  {us / 1e3 / iters:.4f} ms per iteration, {count} "
                 f"launches: {name[:100]}")
     del state, ex
+    torch.cuda.empty_cache()
+
+    # LM serving: qwen3-8b through K6, mamba2-130m through K7
+    lm_runs = {}
+    for arch in ("qwen3-8b", "mamba2-130m"):
+        run = serve_lm(arch, card, zero_counts,
+                       lambda: {k: w.launches for k, w in wrappers.items()})
+        lm_runs[arch] = run
+        gc.collect()     # the model went with serve_lm's frame
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        path_launches[f"serve {arch}"] = run["counts"]
+        expect[f"serve {arch}"] = {k: n for k, n in run["expect"].items()
+                                   if n}
+    for path, counts in path_launches.items():
+        if not path.startswith("serve"):
+            continue
+        log(f"main path launches {path}: {json.dumps(counts)}")
+        for k, n in counts.items():
+            if n != expect[path].get(k, 0):
+                raise AssertionError(f"{k}: {n} launches in {path}, "
+                                     f"expected {expect[path].get(k, 0)}")
+            launches[k] += n
 
     # -- 4. times -----------------------------------------------------------
     results = {}
@@ -577,10 +986,48 @@ def main() -> int:
             f"({card})")
     del phi, eik, eik_mid
 
+    for dname in ("bfloat16", "float32"):
+        q, k, v = attn_inputs(getattr(torch, dname))
+        B, Hq, Hkv, S, D = ATTN_SHAPE
+        nbytes, ops = attn_work(B, Hq, Hkv, S, S, D, q.element_size())
+        r = dict(
+            ms=time_ms(lambda: flash_attention_cuda(q, k, v)),
+            plain_ms=time_ms(lambda: mha_ref(q, k, v), iters=10),
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+            nbytes=nbytes, ops=ops,
+            ops_per_s=BF16_TC_OPS_PER_S if dname == "bfloat16"
+            else F32_OPS_PER_S)
+        if dname == "bfloat16":
+            results["flash_attention"] = r
+        else:
+            log(f"time flash_attention float32: kernel {r['ms']:.4f} ms, "
+                f"bound {bound(nbytes, ops)[0]:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+                f"({card})")
+        del q, k, v
+    x, dts, A, Bm, C = ssd_inputs(torch.bfloat16)
+    nbytes, ops = ssd_work(*SSD_SHAPE, x.element_size())
+    chunk = SSD_SHAPE[-1]
+    results["ssd_intra_chunk"] = dict(
+        ms=time_ms(lambda: ssd_intra_chunk_cuda(x, dts, A, Bm, C,
+                                                chunk=chunk)),
+        plain_ms=time_ms(lambda: ssd_intra_chunk_ref(x, dts, A, Bm, C,
+                                                     chunk=chunk)),
+        library_ms=None, nbytes=nbytes, ops=ops,
+        ops_per_s=BF16_TC_OPS_PER_S)
+    del x, dts, A, Bm, C
+    for arch, run in lm_runs.items():
+        log(f"serve {arch}: {run['tok_s']:.1f} tokens/s, decode "
+            f"{run['step_ms']:.3f} ms per step, prefill ms per request "
+            f"{[round(ms, 3) for _, ms in run['prefill_ms']]} ({card})")
+
     entries = []
     for name, meta in kernels.items():
         r = results[name]
-        b_ms, b_by = bound(r["nbytes"], r["ops"])
+        b_ms, b_by = bound(r["nbytes"], r["ops"],
+                           r.get("ops_per_s", F32_OPS_PER_S))
         lib_ms = r["library_ms"]
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"time {name}: kernel {r['ms']:.4f} ms, bound {b_ms:.4f} ms "

@@ -1,0 +1,61 @@
+"""Architecture registry of the port: ``get(name)`` -> the published
+ModelConfig, ``get_smoke(name)`` -> the reduced same-family config of the
+CPU tests.  The port serves qwen3-8b (dense attention, K6) and mamba2-130m
+(Mamba-2 SSD, K7); every other arch of the JAX package raises ``KeyError``
+naming the ROADMAP queue that brings it."""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig, ShapeCfg
+
+ARCH_IDS = ("qwen3_8b", "mamba2_130m")
+
+ALIASES = {"qwen3-8b": "qwen3_8b", "mamba2-130m": "mamba2_130m"}
+
+#: archs of the JAX package that the port does not serve yet -> the
+#: ROADMAP queue that brings them
+LATER = {
+    "gemma3_12b": "ROADMAP queue 5 (gemma3 local layers and ring cache)",
+    "phi3_5_moe": "ROADMAP queue 5 (MoE)",
+    "arctic_480b": "ROADMAP queue 5 (MoE)",
+    "recurrentgemma_9b": "ROADMAP queue 5 (RG-LRU)",
+    "seamless_m4t_medium": "ROADMAP queue 5 (encoder-decoder and VLM "
+                           "serving)",
+    "llava_next_mistral_7b": "ROADMAP queue 5 (encoder-decoder and VLM "
+                             "serving)",
+    "qwen1_5_4b": "ROADMAP queue 5 (the remaining dense archs)",
+    "chatglm3_6b": "ROADMAP queue 5 (the remaining dense archs)",
+}
+
+
+def _module(name: str):
+    key = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if key.startswith("phi3_5_moe"):
+        key = "phi3_5_moe"
+    if key in LATER:
+        raise KeyError(f"arch {name!r} is not in the port yet: {LATER[key]}")
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; the port knows "
+                       f"{list(ARCH_IDS)}")
+    return importlib.import_module(f"{__name__}.{key}")
+
+
+def get(name: str) -> ModelConfig:
+    """The published config of ``name``."""
+    return _module(name).config()
+
+
+def get_smoke(name: str) -> ModelConfig:
+    """The reduced config of ``name`` for CPU smoke tests."""
+    return _module(name).smoke()
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """Every arch the port serves, by id."""
+    return {a: get(a) for a in ARCH_IDS}
+
+
+__all__ = ["ARCH_IDS", "ALIASES", "LATER", "get", "get_smoke", "all_configs",
+           "ModelConfig", "ShapeCfg"]

@@ -1,10 +1,13 @@
-"""Carry executor state between the JAX package and the port.
+"""Carry executor state and LM weights between the JAX package and the
+port.
 
-The system has no weights: its state IS the data.  Both executors keep a
+The graph workloads have no weights: their state IS the data.  Both
+executors keep a
 state dict of raw storage keyed by tensor and result name, with identical
 storage shapes (the layout solver and ``aosoa_tile`` are the same), so a
 reference state converts entry by entry.  NumPy arrays are the medium:
 ``{k: np.asarray(v) for k, v in jax_state.items()}`` on the way in.
+The LM's weights go across with :func:`params_from_reference`.
 
 A bfloat16 array from JAX has NumPy dtype ``bfloat16`` (registered by the
 ``ml_dtypes`` package), which ``torch.from_numpy`` refuses; its bits go
@@ -18,26 +21,55 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_from_reference", "state_to_reference"]
+__all__ = ["state_from_reference", "state_to_reference",
+           "params_from_reference"]
 
 
 def _is_bf16(dtype: np.dtype) -> bool:
     return dtype.name == "bfloat16"
 
 
+def _from_numpy(v) -> torch.Tensor:
+    v = np.array(v, order="C")   # a writable copy: torch shares it
+    if _is_bf16(v.dtype):
+        return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(v)
+
+
 def state_from_reference(state_np: Mapping[str, np.ndarray],
                          device: Any) -> dict[str, torch.Tensor]:
     """Torch state on ``device`` from a reference state of NumPy arrays;
     keys, shapes and values are kept (bfloat16 bit for bit)."""
-    out = {}
-    for k, v in state_np.items():
-        v = np.array(v, order="C")   # a writable copy: torch shares it
-        if _is_bf16(v.dtype):
-            t = torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(v)
-        out[k] = t.to(device)
-    return out
+    return {k: _from_numpy(v).to(device) for k, v in state_np.items()}
+
+
+def params_from_reference(params_np: Mapping[str, Any], cfg,
+                          device: Any) -> torch.nn.Module:
+    """The port's LM module on ``device`` holding the weights of a JAX
+    ``init_lm`` tree (nested dicts of NumPy arrays).  The JAX tree stacks
+    the layer groups on a leading axis (``groups/p0/attn/wq[g]``); the
+    port names the same weight ``groups.g.p0.attn.wq``.  Values are kept,
+    bfloat16 bit for bit."""
+    from .models.lm import init_lm
+
+    lm = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        for name, param in lm.named_parameters():
+            parts = name.split(".")
+            leaf: Any = params_np
+            group = None
+            for part in parts:
+                if part.isdigit():
+                    group = int(part)
+                else:
+                    leaf = leaf[part]
+            value = _from_numpy(leaf if group is None else leaf[group])
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: reference shape "
+                                 f"{tuple(value.shape)} != "
+                                 f"{tuple(param.shape)}")
+            param.copy_(value.to(param.dtype))
+    return lm.to(device)
 
 
 def state_to_reference(state: Mapping[str, torch.Tensor]

@@ -1,0 +1,1 @@
+"""attention kernel: CUDA wrapper (kernel.py), plain version (ref.py), ops."""

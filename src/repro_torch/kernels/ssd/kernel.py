@@ -1,0 +1,78 @@
+"""Mamba-2 SSD intra-chunk CUDA kernel (K7) — wrapper of ``csrc/ssd.cu``.
+
+:func:`ssd_intra_chunk_cuda` replaces ``ssd_intra_chunk_pallas``
+(``repro/kernels/ssd/kernel.py``): per (batch, chunk, head) the
+intra-chunk quadratic dual form and the chunk's outgoing state.  The
+inter-chunk scan around it is torch ops (``ref.ssd_inter_chunk``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...tuning.tiles import register_tile_kernel
+from .. import _build
+from .._common import check_cuda_tensor, stream_of
+
+__all__ = ["TILE_KERNEL", "DEFAULT_CHUNK", "tile_candidates",
+           "ssd_intra_chunk_cuda"]
+
+TILE_KERNEL = "ssd"       # name in the tile registry
+DEFAULT_CHUNK = 64
+
+_SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIGNATURES = {"ssd_intra_chunk_f32": _SIG, "ssd_intra_chunk_bf16": _SIG}
+
+
+def tile_candidates(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """Feasible chunk lengths for a sequence of ``S`` positions: exact
+    tilings, as the reference registers them (the CUDA kernel takes
+    chunks of up to 128)."""
+    (s,) = shape
+    return tuple(c for c in (32, 64, 128, 256) if c <= s and s % c == 0)
+
+
+register_tile_kernel(TILE_KERNEL, tile_candidates)
+
+
+def ssd_intra_chunk_cuda(x, dt, A, Bm, C, *, chunk: int = DEFAULT_CHUNK):
+    """K7 on the GPU.  x ``(B, S, H, P)`` and Bm, C ``(B, S, N)`` in one of
+    float32 / bfloat16; dt ``(B, S, H)`` and A ``(H,)`` float32; all
+    contiguous.  Returns ``(y_intra (B, S, H, P) in x's dtype, s_chunk (B,
+    S/chunk, H, P, N) float32)``.  A chunk above 128, P above 64 or N above
+    128 is refused by the launch itself ("invalid argument")."""
+    sfx = check_cuda_tensor(x, "ssd x")
+    for t, what in ((Bm, "ssd B"), (C, "ssd C")):
+        check_cuda_tensor(t, what)
+        if t.dtype != x.dtype:
+            raise TypeError(f"{what}: dtype {t.dtype} != x dtype {x.dtype}")
+    for t, what in ((dt, "ssd dt"), (A, "ssd A")):
+        check_cuda_tensor(t, what)
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: dtype {t.dtype} is not float32")
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dt.shape) != (B_, S, H) or tuple(A.shape) != (H,) or \
+            tuple(Bm.shape) != (B_, S, N) or tuple(C.shape) != (B_, S, N):
+        raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(Bm.shape)}, C {tuple(C.shape)} disagree")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"ssd: sequence {S} must tile by chunk {chunk}")
+    nc = S // chunk
+    y = torch.empty_like(x)
+    s = torch.empty((B_, nc, H, P, N), dtype=torch.float32, device=x.device)
+    lib = _build.load("ssd", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        code = getattr(lib, f"ssd_intra_chunk_{sfx}")(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), y.data_ptr(), s.data_ptr(), B_, S, H, P, N, chunk,
+            stream_of(x))
+    _build.check(lib, code, "ssd_intra_chunk")
+    ssd_intra_chunk_cuda.launches += 1
+    return y, s
+
+
+ssd_intra_chunk_cuda.launches = 0

@@ -1,0 +1,152 @@
+"""Serving launcher: continuous batching over the graph-native executors.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+        --smoke [--device cpu]
+
+Prefill and batched greedy decode are Ripple graphs (``launch/steps.py``)
+run by the port's ``Executor``; the KV cache is a layout-polymorphic
+record state tensor; :class:`~repro_torch.runtime.batcher.Batcher` admits
+requests into the decode executor's batch slots.  On the GPU (the default)
+prefill attention runs on the K6 kernel and the Mamba-2 SSD on K7.
+
+``--smoke`` takes the arch's reduced config and asserts that the
+batcher's token streams equal :func:`legacy_generate`'s, the uniform
+prefill + decode loop.  The JAX package's further smoke checks (decode
+traced once, a fresh worker with zero new traces) have no counterpart:
+the port traces nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..core.device import resolve_device
+from ..core.layout import Layout
+from ..models.lm import init_lm, prefill
+from . import steps as S
+
+__all__ = ["legacy_generate", "serve_ripple", "main"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
+                    use_kernel: bool = True):
+    """The uniform loop: prefill, then greedy decode of the whole batch at
+    one position.  ``tokens`` (B, S) int; returns ``((B, gen) token array,
+    prefill seconds, decode seconds)``.
+
+    Each row is prefilled on its own and the caches are stacked: the
+    batcher prefills one request at a time, and a batched prefill runs
+    its matrix products at another shape, which the GPU's libraries may
+    sum in another order, and greedy decoding would follow any rounding
+    difference.  The decode steps run the whole batch at once."""
+    dev = next(params.parameters()).device
+    tokens = torch.as_tensor(tokens).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    rows = [prefill(params, {"tokens": tokens[b:b + 1]}, cfg,
+                    max_seq=max_seq, use_kernel=use_kernel)
+            for b in range(tokens.shape[0])]
+    logits = torch.cat([r[0] for r in rows])
+    caches = _stack_caches([r[1] for r in rows], cfg)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    step = S.make_decode_step(cfg)
+    toks = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [toks]
+    t1 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, caches = step(params, caches, toks)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(toks)
+    out = torch.stack(out, dim=1).cpu().numpy()
+    t_decode = time.perf_counter() - t1
+    return out, t_prefill, t_decode
+
+
+def _stack_caches(parts: list, cfg) -> dict:
+    """Per-row caches (batch 1 each, at one position) stacked along the
+    batch axis: axis 1 of SoA KV storage (its component axis leads), axis
+    0 of everything else."""
+    kv_axis = 1 if cfg.kv_layout is Layout.SOA else 0
+
+    def cat(xs):
+        if isinstance(xs[0], tuple):    # Mamba (ssd_state, conv_state)
+            return tuple(torch.cat(list(z)) for z in zip(*xs))
+        return torch.cat(xs, dim=kv_axis)
+
+    first = parts[0]
+    return {"groups": [{k: cat([p["groups"][g][k] for p in parts])
+                        for k in grp}
+                       for g, grp in enumerate(first["groups"])],
+            "tail": [cat([p["tail"][i] for p in parts])
+                     for i in range(len(first["tail"]))],
+            "pos": first["pos"]}
+
+
+def _prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.vocab_size,
+                        (batch, prompt_len)).astype(np.int32)
+
+
+def serve_ripple(cfg, params, args):
+    """Serve through the Batcher; with ``--smoke`` check it against the
+    uniform loop token for token."""
+    from ..runtime.batcher import Batcher
+
+    B = args.batch
+    max_seq = args.prompt_len + args.gen
+    prompts = _prompts(cfg, B, args.prompt_len)
+    t0 = time.perf_counter()
+    batcher = Batcher(cfg, params, batch=B, max_seq=max_seq)
+    reqs = [batcher.submit(p, max_new_tokens=args.gen) for p in prompts]
+    batcher.run()
+    t_total = time.perf_counter() - t0
+    gen = np.stack([r.generated for r in reqs])
+    n_tok = int(sum(len(r.generated) for r in reqs))
+    print(f"[serve] arch={cfg.name} batch={B} prompt={args.prompt_len} "
+          f"gen={args.gen} path=ripple device={batcher.device}")
+    print(f"[serve] {batcher.steps} decode steps, {n_tok} tokens in "
+          f"{t_total * 1e3:.0f}ms ({n_tok / max(t_total, 1e-9):.1f} tok/s)")
+    print(f"[serve] sample generations (first 3 rows):\n{gen[:3]}")
+    if args.smoke:
+        legacy, _, _ = legacy_generate(cfg, params,
+                                       torch.from_numpy(prompts), args.gen,
+                                       max_seq)
+        if not (gen == legacy).all():
+            raise AssertionError(
+                f"ripple/legacy argmax mismatch:\n{gen}\nvs\n{legacy}")
+        print("[smoke] ripple == legacy argmax sequences  OK")
+    return gen
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu for the plain versions")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke else \
+        configs.get(args.arch)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return serve_ripple(cfg, params, args)
+
+
+if __name__ == "__main__":
+    main()

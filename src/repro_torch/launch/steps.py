@@ -1,0 +1,275 @@
+"""Serving step builders: prefill and batched greedy decode as Ripple
+graphs on the port's ``Graph``/``Executor``, and the uniform decode step
+of the legacy loop — the serving half of ``repro.launch.steps``.
+
+The decode step is a Graph with one node per layer.  Every attention
+cache is a *record* DistTensor (fields k, v over the (B, S, Hkv) or (B,
+Hkv, S) space), so the executor's layout solver, not the model code,
+picks AoS / SoA / AoSoA storage: the node reads the layout off the
+RecordArray it is handed and runs the model under it.  The JAX package
+memoises the graphs so that a re-built worker hits its executable cache;
+the port runs eagerly and traces nothing, so there is nothing to memoise.
+Training steps and the sharded specs of the dry run are ROADMAP queues 5
+and 2.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core.graph import Graph
+from ..core.layout import RecordArray
+from ..core.tensor import DistTensor
+from ..models import kvcache as kvc
+from ..models.blocks import layer_decode, norm_apply
+from ..models.config import ModelConfig
+from ..models.lm import (_prefill_to_decode_cache, decode_step,
+                         decoder_pass, embed_tokens, lm_logits)
+
+__all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
+           "PrefillGraph", "cache_state_overrides", "make_decode_graph",
+           "make_prefill_graph", "make_decode_step"]
+
+
+def make_decode_step(cfg: ModelConfig):
+    """The legacy loop's step: ``step(params, caches, tokens) -> (logits,
+    caches)``, the whole batch at the caches' one position."""
+
+    def step(params, caches, tokens):
+        return decode_step(params, caches, tokens, cfg)
+
+    return step
+
+
+@dataclass(frozen=True)
+class CacheSlot:
+    """One decode-cache layer lifted into named executor state tensors.
+
+    ``group``/``part`` address the layer in the cache structure of
+    ``models/lm.py`` (``caches["groups"][group]["p{part}"]``; ``group ==
+    -1`` is the tail layer ``caches["tail"][part]``).  ``tensors`` is one
+    record DistTensor for an attention layer and two plain DistTensors
+    (SSM state, conv buffer) for a Mamba layer."""
+
+    label: str
+    kind: str
+    group: int
+    part: int
+    tensors: tuple
+
+
+def _slot_tensors(cfg: ModelConfig, label: str, kind: str, batch: int,
+                  max_seq: int) -> tuple:
+    dt = cfg.compute_torch_dtype
+    if kind == "A":
+        Hkv = cfg.padded_kv_heads()
+        space = ((batch, max_seq, Hkv) if cfg.kv_order == "bsh"
+                 else (batch, Hkv, max_seq))
+        return (DistTensor(f"kv_{label}", space, dtype=dt,
+                           spec=kvc.kv_spec(cfg.head_dim),
+                           layout=cfg.kv_layout),)
+    if kind == "M":
+        H = cfg.padded_ssm_heads()
+        P_, N, K = cfg.ssm_head_dim, cfg.ssm_state, cfg.d_conv
+        return (DistTensor(f"ssm_{label}", (batch, H, P_, N),
+                           dtype=torch.float32),
+                DistTensor(f"cv_{label}", (batch, K - 1, H * P_ + 2 * N),
+                           dtype=dt))
+    raise NotImplementedError(f"layer kind {kind!r} is ROADMAP queue 5")
+
+
+def serving_cache_slots(cfg: ModelConfig, batch: int,
+                        max_seq: int) -> tuple:
+    """Every decode-cache layer as a CacheSlot, in the reference's layer
+    order (g0p0, g0p1, ..., g1p0, ..., tail0, ...)."""
+    n_groups, pattern, tail = cfg.layer_groups()
+    slots = []
+    for gi in range(n_groups):
+        for pi, kind in enumerate(pattern):
+            label = f"g{gi}p{pi}"
+            slots.append(CacheSlot(label, kind, gi, pi, _slot_tensors(
+                cfg, label, kind, batch, max_seq)))
+    for ti, kind in enumerate(tail):
+        label = f"t{ti}"
+        slots.append(CacheSlot(label, kind, -1, ti, _slot_tensors(
+            cfg, label, kind, batch, max_seq)))
+    return tuple(slots)
+
+
+def _slot_params(params, gi: int, pi: int):
+    if gi < 0:
+        return params[f"tail{pi}"]["layer"]
+    return params["groups"][gi][f"p{pi}"]
+
+
+def _slot_entry(caches, slot: CacheSlot):
+    if slot.group < 0:
+        return caches["tail"][slot.part]
+    return caches["groups"][slot.group][f"p{slot.part}"]
+
+
+def _guard_graph_serving(cfg: ModelConfig) -> None:
+    if cfg.is_encdec or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and VLM serving is ROADMAP "
+            f"queue 5")
+
+
+def _embed_node(cfg: ModelConfig, params):
+    def embed(tokens_t, h_t):
+        return embed_tokens(params, tokens_t, cfg)
+    return embed
+
+
+def _attn_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
+    gi, pi, kind = slot.group, slot.part, slot.kind
+
+    def layer(h_t, kv, pos):
+        # the solver's layout arrives on the RecordArray; run the model
+        # under it, so the model code stays layout-polymorphic
+        lcfg = cfg.with_(kv_layout=kv.layout)
+        h2, store = layer_decode(_slot_params(params, gi, pi), h_t, kind,
+                                 lcfg, cache=kv.data, pos=pos)
+        return h2, RecordArray(store, kv.spec, kv.layout)
+
+    return layer
+
+
+def _state_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
+    gi, pi, kind = slot.group, slot.part, slot.kind
+
+    def layer(h_t, s0, s1, pos):
+        h2, (n0, n1) = layer_decode(_slot_params(params, gi, pi), h_t, kind,
+                                    cfg, cache=(s0, s1), pos=pos)
+        return h2, n0, n1
+
+    return layer
+
+
+def _head_node(cfg: ModelConfig, params):
+    def head(h_t, tokens_t, pos, active):
+        hn = norm_apply(params["final"], h_t, cfg, "ln")
+        nxt = torch.argmax(lm_logits(params, hn, cfg), dim=-1).to(
+            torch.int32)
+        nxt = torch.where(active, nxt, tokens_t)
+        return nxt, pos + active.to(torch.int32)
+    return head
+
+
+@dataclass(frozen=True)
+class DecodeGraph:
+    """Graph + tensor handles for one batched greedy-decode step.
+
+    ``tokens``/``pos``/``active`` are (B,) per-slot vectors (every batch
+    slot sits at its own depth; an inactive slot keeps its token and does
+    not advance), ``h`` is the (B, d_model) residual scratch, and each
+    CacheSlot contributes its cache tensors."""
+
+    graph: Graph
+    tokens: DistTensor
+    pos: DistTensor
+    active: DistTensor
+    h: DistTensor
+    slots: tuple
+
+
+@dataclass(frozen=True)
+class PrefillGraph:
+    """Graph + tensor handles for a single-request (B=1) prefill: writes
+    every decode-cache slot (batch 1) and ``first``, the greedy token that
+    follows the prompt."""
+
+    graph: Graph
+    prompt: DistTensor
+    hseq: DistTensor
+    hlast: DistTensor
+    first: DistTensor
+    slots: tuple
+
+
+def cache_state_overrides(cfg: ModelConfig, slots: tuple, caches) -> dict:
+    """Map a ``prefill()``/``init_caches()`` cache structure onto the
+    graph state names (``Executor.init_state(**overrides)`` kwargs);
+    attention storages go in as RecordArrays in ``cfg.kv_layout``."""
+    out = {}
+    for slot in slots:
+        entry = _slot_entry(caches, slot)
+        if slot.kind == "A":
+            out[slot.tensors[0].name] = RecordArray(
+                entry, kvc.kv_spec(cfg.head_dim), cfg.kv_layout)
+        else:
+            out[slot.tensors[0].name] = entry[0]
+            out[slot.tensors[1].name] = entry[1]
+    return out
+
+
+def make_decode_graph(cfg: ModelConfig, params, *, batch: int,
+                      max_seq: int) -> DecodeGraph:
+    """One greedy-decode step for ``batch`` slots as a Ripple graph: embed
+    -> every layer in the reference's order -> final norm, logits and
+    argmax, so the token sequence equals the uniform loop's."""
+    _guard_graph_serving(cfg)
+    tokens = DistTensor("tokens", (batch,), dtype=torch.int32)
+    pos = DistTensor("pos", (batch,), dtype=torch.int32)
+    active = DistTensor("active", (batch,), dtype=torch.bool)
+    h = DistTensor("h", (batch, cfg.d_model), dtype=cfg.compute_torch_dtype)
+    slots = serving_cache_slots(cfg, batch, max_seq)
+    g = Graph(name=f"decode_{cfg.name}")
+    g.then(_embed_node(cfg, params), args=(tokens, h), writes=(1,))
+    for slot in slots:
+        if slot.kind == "A":
+            kv, = slot.tensors
+            g.then(_attn_layer_node(cfg, params, slot), args=(h, kv, pos),
+                   writes=(0, 1))
+        else:
+            s0, s1 = slot.tensors
+            g.then(_state_layer_node(cfg, params, slot),
+                   args=(h, s0, s1, pos), writes=(0, 1, 2))
+    g.then(_head_node(cfg, params), args=(h, tokens, pos, active),
+           writes=(1, 2))
+    return DecodeGraph(g, tokens, pos, active, h, slots)
+
+
+def make_prefill_graph(cfg: ModelConfig, params, *, prompt_len: int,
+                       max_seq: int, use_kernel: bool = True
+                       ) -> PrefillGraph:
+    """B=1 prompt processing as a Ripple graph: embed -> decoder pass
+    (emitting every layer's decode-ready cache) -> first-token head.  The
+    cache writes are RecordArrays in ``cfg.kv_layout``; the executor
+    converts them to whatever layout its solver chose."""
+    _guard_graph_serving(cfg)
+    dt = cfg.compute_torch_dtype
+    prompt = DistTensor("prompt", (1, prompt_len), dtype=torch.int32)
+    hseq = DistTensor("hseq", (1, prompt_len, cfg.d_model), dtype=dt)
+    hlast = DistTensor("hlast", (1, cfg.d_model), dtype=dt)
+    first = DistTensor("first", (1,), dtype=torch.int32)
+    slots = serving_cache_slots(cfg, 1, max_seq)
+    flat = tuple(t for slot in slots for t in slot.tensors)
+
+    def body(h_, hl_, *cache_vals):
+        hh, raw = decoder_pass(params, h_, cfg, want_cache=True,
+                               use_kernel=use_kernel)
+        outs = []
+        for slot in slots:
+            store = _prefill_to_decode_cache(
+                _slot_entry(raw, slot), slot.kind, cfg, 1, max_seq, dt,
+                h_.device)
+            if slot.kind == "A":
+                outs.append(RecordArray(store, kvc.kv_spec(cfg.head_dim),
+                                        cfg.kv_layout))
+            else:
+                outs.extend(store)
+        return (hh[:, -1], *outs)
+
+    def head(hl_, first_):
+        return torch.argmax(lm_logits(params, hl_, cfg), dim=-1).to(
+            torch.int32)
+
+    g = Graph(name=f"prefill_{cfg.name}_s{prompt_len}")
+    g.then(_embed_node(cfg, params), args=(prompt, hseq), writes=(1,))
+    g.then(body, args=(hseq, hlast, *flat),
+           writes=tuple(range(1, 2 + len(flat))))
+    g.then(head, args=(hlast, first), writes=(1,))
+    return PrefillGraph(g, prompt, hseq, hlast, first, slots)

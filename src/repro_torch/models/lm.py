@@ -1,0 +1,191 @@
+"""LM assembly: init, prefill and decode for the archs the port serves,
+built from the uniform layer blocks, as ``repro.models.lm``.
+
+The parameters are an ``nn.Module`` tree named like the JAX tree:
+``embed``, ``groups[g].p{i}`` (the JAX package stacks the groups on a
+leading axis instead), ``tail{i}.layer``, ``final.ln`` and ``head``
+(absent with tied embeddings).  Caches mirror the JAX cache pytree with a
+list per group where JAX stacks: ``{"groups": [{"p0": entry, ...}, ...],
+"tail": [entry, ...], "pos": int tensor}``; an entry is KV storage for an
+attention layer and ``(ssd_state, conv_state)`` for a Mamba layer.
+
+Training (``forward_loss``) and the encoder of encoder-decoder archs are
+in ROADMAP queue 5.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from .blocks import (fill_attn_cache, init_layer, init_norm, layer_decode,
+                     layer_forward, make_attn_cache, make_layer_cache,
+                     norm_apply)
+from .common import Init, ParamModule
+from .config import ModelConfig
+
+__all__ = ["NEG_INF", "init_lm", "embed_tokens", "lm_logits",
+           "decoder_pass", "init_caches", "prefill", "decode_step"]
+
+NEG_INF = -1e30
+
+
+def _refuse_arch(cfg: ModelConfig) -> None:
+    if cfg.is_encdec or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and VLM archs are ROADMAP queue 5 "
+            f"(encoder-decoder and VLM serving)")
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator,
+            device: Any = None) -> ParamModule:
+    """Random weights for ``cfg`` from ``generator``, made on ``device``
+    (``None``: the GPU) in the config's parameter dtype.  The generator's
+    device must be ``device``'s type."""
+    _refuse_arch(cfg)
+    dev = resolve_device(device)
+    init = Init(generator, cfg.param_torch_dtype, dev)
+    lm = ParamModule()
+    Vp, d = cfg.padded_vocab(), cfg.d_model
+    init.dense(lm, "embed", (Vp, d), fan_in=d)
+    n_groups, pattern, tail = cfg.layer_groups()
+    groups = nn.ModuleList()
+    for _ in range(n_groups):
+        g = ParamModule()
+        for i, kind in enumerate(pattern):
+            init_layer(init, g, cfg, kind, name=f"p{i}")
+        groups.append(g)
+    lm.add_module("groups", groups)
+    for i, kind in enumerate(tail):
+        t = ParamModule()
+        init_layer(init, t, cfg, kind, name="layer")
+        lm.add_module(f"tail{i}", t)
+    fin = ParamModule()
+    init_norm(init, fin, cfg, "ln", d)
+    lm.add_module("final", fin)
+    if not cfg.tie_embeddings:
+        init.dense(lm, "head", (Vp, d), fan_in=d)
+    return lm
+
+
+def _layers(params, cfg: ModelConfig):
+    """(layer params, kind, ("groups", g, "p{i}") | ("tail", i)) in the
+    reference's scan order."""
+    n_groups, pattern, tail = cfg.layer_groups()
+    for g in range(n_groups):
+        for i, kind in enumerate(pattern):
+            yield params["groups"][g][f"p{i}"], kind, ("groups", g, f"p{i}")
+    for i, kind in enumerate(tail):
+        yield params[f"tail{i}"]["layer"], kind, ("tail", i)
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig):
+    """Token embeddings in the compute dtype."""
+    h = params["embed"].to(cfg.compute_torch_dtype)[tokens]
+    if cfg.scale_embed:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    return h
+
+
+def lm_logits(params, h, cfg: ModelConfig):
+    """Logits over the (padded) vocabulary; soft-capped where the config
+    says so, padded entries at -1e30."""
+    w = (params["head"] if "head" in params else params["embed"]).to(h.dtype)
+    logits = h @ w.t()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    Vp = w.shape[0]
+    if Vp != cfg.vocab_size:
+        mask = torch.arange(Vp, device=h.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, NEG_INF)
+    return logits
+
+
+def decoder_pass(params, h, cfg: ModelConfig, *, want_cache: bool = False,
+                 use_kernel: bool = True):
+    """-> (h after the final norm, caches | None), caches as
+    ``{"groups": [...], "tail": [...]}`` of raw layer emissions."""
+    n_groups, pattern, tail = cfg.layer_groups()
+    groups = [dict() for _ in range(n_groups)]
+    tails = []
+    for p, kind, where in _layers(params, cfg):
+        h, c = layer_forward(p, h, kind, cfg, want_cache=want_cache,
+                             use_kernel=use_kernel)
+        if where[0] == "groups":
+            groups[where[1]][where[2]] = c
+        else:
+            tails.append(c)
+    h = norm_apply(params["final"], h, cfg, "ln")
+    return h, ({"groups": groups, "tail": tails} if want_cache else None)
+
+
+def init_caches(params, cfg: ModelConfig, batch: int, max_seq: int,
+                device: Any = None):
+    """Empty decode caches (attention caches sized to ``max_seq``)."""
+    n_groups, pattern, tail = cfg.layer_groups()
+    dt = cfg.compute_torch_dtype
+    one = lambda kind: make_layer_cache(kind, cfg, batch, max_seq, dt, device)
+    return {"groups": [{f"p{i}": one(k) for i, k in enumerate(pattern)}
+                       for _ in range(n_groups)],
+            "tail": [one(k) for k in tail],
+            "pos": torch.zeros((), dtype=torch.int32,
+                               device=resolve_device(device))}
+
+
+def _prefill_to_decode_cache(raw, kind, cfg: ModelConfig, batch, max_seq,
+                             dtype, device):
+    """A layer_forward cache emission as decode-ready storage."""
+    if kind == "A":
+        k, v = raw
+        store = make_attn_cache(cfg, batch, max_seq, dtype, device)
+        return fill_attn_cache(store, k, v, cfg)
+    return raw   # Mamba states are decode-ready
+
+
+def prefill(params, batch, cfg: ModelConfig, *,
+            max_seq: Optional[int] = None, use_kernel: bool = True):
+    """Process the prompts ``batch["tokens"]`` (B, S); -> (last-token
+    logits (B, Vp), caches).  On the GPU attention runs on K6 and the SSD
+    on K7 unless ``use_kernel=False``."""
+    _refuse_arch(cfg)
+    tokens = batch["tokens"]
+    h = embed_tokens(params, tokens, cfg)
+    B, S = tokens.shape
+    max_seq = max_seq or S
+    h, raw = decoder_pass(params, h, cfg, want_cache=True,
+                          use_kernel=use_kernel)
+    dt, dev = cfg.compute_torch_dtype, h.device
+    n_groups, pattern, tail = cfg.layer_groups()
+    caches = {
+        "groups": [{f"p{i}": _prefill_to_decode_cache(
+            raw["groups"][g][f"p{i}"], kind, cfg, B, max_seq, dt, dev)
+            for i, kind in enumerate(pattern)} for g in range(n_groups)],
+        "tail": [_prefill_to_decode_cache(raw["tail"][i], kind, cfg, B,
+                                          max_seq, dt, dev)
+                 for i, kind in enumerate(tail)],
+        "pos": torch.tensor(S, dtype=torch.int32, device=dev)}
+    return lm_logits(params, h[:, -1], cfg), caches
+
+
+def decode_step(params, caches, tokens_t, cfg: ModelConfig):
+    """One token for the whole batch at the caches' position.  tokens_t
+    (B,) -> (logits (B, Vp), new caches)."""
+    pos = caches["pos"]
+    h_t = embed_tokens(params, tokens_t, cfg)
+    groups = [dict(g) for g in caches["groups"]]
+    tails = list(caches["tail"])
+    for p, kind, where in _layers(params, cfg):
+        if where[0] == "groups":
+            h_t, groups[where[1]][where[2]] = layer_decode(
+                p, h_t, kind, cfg, cache=groups[where[1]][where[2]], pos=pos)
+        else:
+            h_t, tails[where[1]] = layer_decode(
+                p, h_t, kind, cfg, cache=tails[where[1]], pos=pos)
+    h_t = norm_apply(params["final"], h_t, cfg, "ln")
+    return lm_logits(params, h_t, cfg), {"groups": groups, "tail": tails,
+                                         "pos": pos + 1}

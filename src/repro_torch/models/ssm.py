@@ -1,0 +1,169 @@
+"""Mamba-2 (SSD) block, after arXiv:2405.21060 with n_groups = 1, as
+``repro.models.ssm`` builds it: separate projections for z / x / B / C /
+dt, a causal depthwise conv over the x / B / C streams, SSD in the chunked
+dual form and a per-head gated RMSNorm.
+
+The SSD goes through ``kernels/ssd/ops.py``'s ``ssd``: its intra-chunk
+part on the K7 kernel for a CUDA tensor, or on its plain version for a CPU
+tensor or with ``use_kernel=False``, then the state scan across chunks in
+torch ops.  The one-token decode step stays plain torch, as the JAX
+package's ``ssd_decode_step`` is plain jnp.  RG-LRU (RecurrentGemma) is in
+ROADMAP queue 5.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd.ops import ssd, ssd_decode_step
+from .common import Init, ParamModule
+
+__all__ = ["causal_conv1d", "conv_state_update", "init_mamba2",
+           "mamba2_forward", "mamba2_decode"]
+
+f32 = torch.float32
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                  prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, S, C), w (C, K): depthwise causal conv in float32.
+    ``prefix`` (B, K-1, C) is the left halo (decode state); zeros
+    otherwise."""
+    B, S, C = x.shape
+    K = w.shape[-1]
+    if prefix is None:
+        prefix = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prefix, x], dim=1)
+    out = torch.zeros((B, S, C), dtype=f32, device=x.device)
+    for k in range(K):
+        out = out + xp[:, k:k + S].float() * w[:, k].float()
+    return out.to(x.dtype)
+
+
+def conv_state_update(state: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """Roll one token into the (B, K-1, C) conv state."""
+    return torch.cat([state[:, 1:], xt[:, None]], dim=1)
+
+
+def init_mamba2(init: Init, parent: ParamModule, *, d_model: int,
+                d_state: int, n_heads: int, head_dim: int, d_conv: int = 4,
+                name: str = "mamba", pad_heads: int = 0) -> None:
+    """Add the Mamba-2 parameters as child ``name`` of ``parent``.
+    ``n_heads`` includes ``pad_heads`` zero heads (none at tp = 1)."""
+    H, P, N = n_heads, head_dim, d_state
+    p = ParamModule()
+    init.dense(p, "wz", (d_model, H, P), fan_in=d_model)
+    init.dense(p, "wx", (d_model, H, P), fan_in=d_model)
+    init.dense(p, "wB", (d_model, N), fan_in=d_model)
+    init.dense(p, "wC", (d_model, N), fan_in=d_model)
+    init.dense(p, "wdt", (d_model, H), fan_in=d_model)
+    # dt bias ~ softplus^-1 of dt in [1e-3, 1e-1]
+    init.custom(p, "dt_bias",
+                torch.log(torch.expm1(torch.logspace(-3, -1, H))))
+    init.custom(p, "A_log", torch.log(torch.linspace(1.0, 16.0, H)))
+    init.const(p, "D", (H,), 1.0)
+    init.dense(p, "conv_x", (H * P, d_conv), fan_in=d_conv)
+    init.dense(p, "conv_B", (N, d_conv), fan_in=d_conv)
+    init.dense(p, "conv_C", (N, d_conv), fan_in=d_conv)
+    init.const(p, "norm", (H, P), 1.0)
+    init.dense(p, "wo", (H, P, d_model), fan_in=H * P)
+    if pad_heads:
+        with torch.no_grad():
+            for nm in ("wz", "wx", "wdt"):
+                p[nm][:, H - pad_heads:] = 0.0
+            p["wo"][H - pad_heads:] = 0.0
+    parent.add_module(name, p)
+
+
+def _gated_head_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Per-head gated RMSNorm: norm(y * silu(z)) over the head_dim axis."""
+    g = y.float() * F.silu(z.float())
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    return (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def _conv_weights(p) -> torch.Tensor:
+    return torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=0)
+
+
+def mamba2_forward(p, x: torch.Tensor, *, chunk: int = 128,
+                   init_state=None, conv_prefix=None,
+                   use_kernel: bool = True):
+    """x (B, S, d) -> (y (B, S, d), (ssd_state, conv_state)).
+
+    The sequence is padded to a chunk multiple with dt = 0 (identity
+    decay, no state contribution), so the final state is exact."""
+    B, S, d = x.shape
+    H, P = p["wz"].shape[1], p["wz"].shape[2]
+    N = p["wB"].shape[1]
+    K = p["conv_x"].shape[-1]
+    cdt = x.dtype
+
+    z = torch.einsum("bsd,dhp->bshp", x, p["wz"].to(cdt))
+    xh = torch.einsum("bsd,dhp->bshp", x, p["wx"].to(cdt))
+    Bm = x @ p["wB"].to(cdt)
+    C = x @ p["wC"].to(cdt)
+    dt = x @ p["wdt"].to(cdt)
+
+    streams = torch.cat([xh.reshape(B, S, H * P), Bm, C], dim=-1)
+    conv_out = F.silu(causal_conv1d(streams, _conv_weights(p),
+                                    prefix=conv_prefix))
+    if conv_prefix is None:
+        conv_prefix = torch.zeros((B, K - 1, streams.shape[-1]),
+                                  dtype=streams.dtype, device=x.device)
+    new_conv_state = torch.cat([conv_prefix, streams], dim=1)[:, -(K - 1):]
+    xh = conv_out[..., : H * P].reshape(B, S, H, P)
+    Bm = conv_out[..., H * P: H * P + N]
+    C = conv_out[..., H * P + N:]
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        zpad = lambda a: F.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+        xh, Bm, C, dt = zpad(xh), zpad(Bm), zpad(C), zpad(dt)
+    y, state = ssd(xh, dt, A, Bm, C, D=p["D"].float(), init_state=init_state,
+                   chunk=chunk, use_kernel=use_kernel)
+    if pad:
+        y = y[:, :S]
+    y = _gated_head_norm(y, z, p["norm"])
+    out = torch.einsum("bshp,hpd->bsd", y, p["wo"].to(y.dtype))
+    return out, (state, new_conv_state)
+
+
+def mamba2_decode(p, xt: torch.Tensor, state):
+    """One-token step.  xt (B, d); state = (ssd_state (B,H,P,N),
+    conv_state (B, K-1, HP+2N))."""
+    ssd_state, conv_state = state
+    B, d = xt.shape
+    H, P = p["wz"].shape[1], p["wz"].shape[2]
+    N = p["wB"].shape[1]
+    cdt = xt.dtype
+
+    z = torch.einsum("bd,dhp->bhp", xt, p["wz"].to(cdt))
+    xh = torch.einsum("bd,dhp->bhp", xt, p["wx"].to(cdt)).reshape(B, H * P)
+    Bm = xt @ p["wB"].to(cdt)
+    C = xt @ p["wC"].to(cdt)
+    dt = xt @ p["wdt"].to(cdt)
+
+    stream_t = torch.cat([xh, Bm, C], dim=-1)
+    full = torch.cat([conv_state, stream_t[:, None]], dim=1)   # (B, K, C)
+    conv_t = F.silu(torch.einsum("bkc,ck->bc", full.float(),
+                                 _conv_weights(p).float()))
+    new_conv_state = full[:, 1:]
+    xh = conv_t[:, : H * P].reshape(B, H, P).to(cdt)
+    Bm = conv_t[:, H * P: H * P + N].to(cdt)
+    C = conv_t[:, H * P + N:].to(cdt)
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    new_ssd, yt = ssd_decode_step(ssd_state, xh, dt, A, Bm, C,
+                                  D=p["D"].float())
+    yt = _gated_head_norm(yt, z, p["norm"])
+    out = torch.einsum("bhp,hpd->bd", yt, p["wo"].to(yt.dtype))
+    return out, (new_ssd, new_conv_state)

@@ -1,0 +1,19 @@
+"""Serving runtime: continuous batching, fault injection and retry."""
+
+from .faults import (Fault, FaultPlan, HostTimeoutError,
+                     InjectedDeterministicFault, InjectedFault, RetryPolicy,
+                     fault_scope, trip)
+from .supervisor import StepStats, TransientError
+
+__all__ = ["Batcher", "Request", "StepStats", "TransientError", "Fault",
+           "FaultPlan", "HostTimeoutError", "InjectedFault",
+           "InjectedDeterministicFault", "RetryPolicy", "fault_scope",
+           "trip"]
+
+
+def __getattr__(name):
+    # the batcher pulls in the model and graph builders: import it lazily
+    if name in ("Batcher", "Request"):
+        from . import batcher
+        return getattr(batcher, name)
+    raise AttributeError(name)

@@ -7,10 +7,15 @@ package, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 1e-5 (flux 1e-4: ~90-operation face fluxes summed in
+another order; the SSD 2e-4: up to 128 terms of magnitude ~10 summed in
 another order), bfloat16 2e-2 (the kernels compute in float32 and round
 once, the plain versions round after every operation).  The eikonal
 kernel in bfloat16, which rounds its tile once per sweep, is held to atol
-2e-3 with rtol 1.6e-2: a few bfloat16 steps at the fronts' magnitude."""
+2e-3 with rtol 1.6e-2: a few bfloat16 steps at the fronts' magnitude.
+The attention and SSD kernels and their plain versions both compute in
+float32 and round once, so a bfloat16 output is held to its float32 atol
+and 2^-6 relative (two bfloat16 steps at the least), and the SSD's
+float32 chunk states to 2e-5 in either dtype."""
 
 import numpy as np
 import pytest
@@ -34,6 +39,13 @@ def dev():
 
 def _tol(dtype, f32=1e-5):
     return f32 if dtype == "float32" else 2e-2
+
+
+# (atol, rtol) of the attention kernel's output and the SSD kernel's
+# y_intra and chunk states, by dtype
+LM_TOL = {"attention": {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2**-6)},
+          "ssd y": {"float32": (2e-4, 2e-4), "bfloat16": (2e-4, 2**-6)},
+          "ssd states": {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2e-5)}}
 
 
 def _close(got, want, tol, rtol=None):
@@ -223,3 +235,117 @@ def test_eikonal_wrapper_refuses_what_the_kernel_does_not_take(dev):
         eikonal_fim_cuda(torch.ones(130, 514, device=dev),
                          torch.zeros(128, 512, dtype=torch.bool, device=dev),
                          0.1, block=(128, 512))
+
+
+# K6 cases: (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, fused KV);
+# lengths off the kernel's 64-row tiles exercise its ragged edge
+ATTN_CASES = {
+    "causal_gqa": (2, 4, 2, 200, 200, 64, True, None, 0, False),
+    "full_mha": (1, 3, 3, 96, 130, 128, False, None, 0, False),
+    "window": (1, 4, 1, 192, 192, 128, True, 50, 0, False),
+    "q_offset": (2, 2, 2, 64, 192, 64, True, None, 128, False),
+    "fused_aos": (1, 4, 2, 128, 128, 128, True, None, 0, True),
+    "head_dim_256": (1, 2, 1, 70, 70, 256, True, None, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernel(dev, dtype, case):
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ops import flash_attention, mha_ref
+
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, fused = \
+        ATTN_CASES[case]
+    q = _randn(dev, dtype, B, Hq, Sq, D, seed=1)
+    if fused:
+        kv = _randn(dev, dtype, B, Hkv, Skv, 2, D, seed=2)
+        args, k, v = (kv, None), kv[..., 0, :], kv[..., 1, :]
+    else:
+        k = _randn(dev, dtype, B, Hkv, Skv, D, seed=2)
+        v = _randn(dev, dtype, B, Hkv, Skv, D, seed=3)
+        args = (k, v)
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, *args, causal=causal, window=window,
+                          q_offset=q_offset)
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, mha_ref(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset), *LM_TOL["attention"][dtype])
+
+
+def test_attention_kernel_reads_strided_views(dev):
+    """The model's (B, S, H, D) projections go in transposed, and the
+    output is written into a (B, S, H, D) buffer, with no copy."""
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ops import mha_ref
+
+    q = _randn(dev, "float32", 2, 100, 4, 64, seed=1)
+    k = _randn(dev, "float32", 2, 100, 2, 64, seed=2)
+    v = _randn(dev, "float32", 2, 100, 2, 64, seed=3)
+    out = torch.empty_like(q)
+    got = flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), out=out.transpose(1, 2))
+    assert got.data_ptr() == out.data_ptr()
+    _close(out.transpose(1, 2), mha_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2)), 1e-5)
+
+
+# K7 cases: (B, S, H, P, N, chunk); 40 is a prompt shorter than one
+# 64-position chunk, no multiple of the kernel's 16-row thread tile
+SSD_CASES = {"mamba2": (1, 512, 4, 64, 128, 128), "smoke": (2, 64, 3, 16,
+                                                            16, 16),
+             "ragged": (1, 40, 2, 32, 48, 40)}
+
+
+def _ssd_inputs(dev, dtype, B, S, H, P, N):
+    g = np.random.default_rng(7)
+    f = lambda *s: torch.from_numpy(g.standard_normal(s).astype(np.float32))
+    dt = torch.from_numpy(g.uniform(1e-3, 1e-1, (B, S, H)).astype(
+        np.float32))
+    A = -torch.from_numpy(np.linspace(1.0, 16.0, H).astype(np.float32))
+    cast = lambda t: t.to(dev).to(getattr(torch, dtype))
+    return (cast(f(B, S, H, P)), dt.to(dev), A.to(dev), cast(f(B, S, N)),
+            cast(f(B, S, N)))
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel(dev, dtype, case):
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ops import ssd, ssd_intra_chunk
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_intra_chunk_ref
+
+    B, S, H, P, N, chunk = SSD_CASES[case]
+    x, dt, A, Bm, C = _ssd_inputs(dev, dtype, B, S, H, P, N)
+    before = ssd_intra_chunk_cuda.launches
+    y, s = ssd_intra_chunk(x, dt, A, Bm, C, chunk=chunk)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+    y_want, s_want = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=chunk)
+    assert y.dtype == x.dtype and s.dtype == torch.float32
+    # float32: each output sums up to 128 terms of magnitude up to ~10 in
+    # another order than the plain version (5.6e-5 at the mamba2 shape)
+    _close(y, y_want, *LM_TOL["ssd y"][dtype])
+    _close(s, s_want, *LM_TOL["ssd states"][dtype])
+    # the whole SSD against the chunked form, which keeps y_intra float32
+    tol = _tol(dtype, f32=2e-4)
+    got, state = ssd(x, dt, A, Bm, C, chunk=chunk)
+    want, want_state = ssd_chunked(x, dt, A, Bm, C, chunk=chunk)
+    _close(got, want, tol)
+    _close(state, want_state, tol)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    q = torch.ones(1, 2, 8, 512, device=dev)
+    with pytest.raises(RuntimeError, match="invalid argument"):   # D > 256
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_cuda(q, q.bfloat16(), q)
+    x, dt, A, Bm, C = _ssd_inputs(dev, "float32", 1, 256, 2, 64, 128)
+    with pytest.raises(RuntimeError, match="invalid argument"):   # L > 128
+        ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=256)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_intra_chunk_cuda(x, dt.bfloat16(), A, Bm, C, chunk=128)
