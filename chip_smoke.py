@@ -155,6 +155,22 @@ def time_ms(fn, iters: int = 30, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, iters: int = 30) -> float:
+    """Host time of one call in microseconds: ``iters`` calls queued back
+    to back on the host clock, without waiting for the card in between.
+    ``time_ms`` records its start event before the first call's host work,
+    so 1/``iters`` of this time falls inside each of its readings."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e6 / iters
+
+
 def run_steps(ex, state: dict, steps: int) -> tuple[dict, float]:
     """``steps`` passes of ``ex`` one at a time; returns the final state and
     the median host time of one step, each ended by a device synchronize."""
@@ -207,10 +223,12 @@ def check_wrong(what: str, lim: tuple, want, variants: dict) -> None:
                                  f"{name}")
 
 
-def attn_bf16_accumulator(q, k, v, block: int = 64):
-    """Causal attention with a wrong bfloat16 accumulator: the online
-    softmax's output sum rounded to q's dtype after each ``block`` keys,
-    everything else in float32."""
+def attn_wrong_bf16(q, k, v, rounded: str, block: int = 64):
+    """Causal attention in float32 with one deliberate bfloat16 rounding:
+    ``rounded="accumulator"`` rounds the online softmax's output sum to q's
+    dtype after each ``block`` keys; ``rounded="P"`` rounds each tile's
+    probabilities once to bfloat16 before P·V (the usual flash-attention
+    design, which K6 replaces by a hi/lo split of P)."""
     import torch
 
     B, Hq, S, D = q.shape
@@ -221,7 +239,7 @@ def attn_bf16_accumulator(q, k, v, block: int = 64):
     pos = torch.arange(S, device=q.device)
     m = torch.full((B, Hq, S, 1), -1e30, device=q.device)
     l = torch.zeros((B, Hq, S, 1), device=q.device)
-    acc = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
     for j in range(0, S, block):
         s = qs @ k[:, :, j:j + block].transpose(-1, -2)
         seen = pos[:, None] >= pos[None, j:j + block]
@@ -229,10 +247,13 @@ def attn_bf16_accumulator(q, k, v, block: int = 64):
             -1, keepdim=True))
         p = torch.where(seen, torch.exp(s - m_new), 0.0)
         alpha = torch.exp(m - m_new)
-        acc = (acc.float() * alpha + p @ v[:, :, j:j + block]).to(q.dtype)
+        pv = p.bfloat16().float() if rounded == "P" else p
+        acc = acc * alpha + pv @ v[:, :, j:j + block]
+        if rounded == "accumulator":
+            acc = acc.to(q.dtype).float()
         l = l * alpha + p.sum(-1, keepdim=True)
         m = m_new
-    return (acc.float() / l).to(q.dtype)
+    return (acc / l).to(q.dtype)
 
 
 def ssd_bf16_sum(x, dt, A, Bm, C, chunk: int):
@@ -709,7 +730,9 @@ def main() -> int:
         if dname == "bfloat16":
             check_wrong("flash_attention", lim, cases["causal"][1], {
                 "accumulator rounded to bfloat16 after each 64-key tile":
-                    attn_bf16_accumulator(q, k, v)})
+                    attn_wrong_bf16(q, k, v, "accumulator"),
+                "P rounded once to bfloat16 before P·V":
+                    attn_wrong_bf16(q, k, v, "P")})
         del q, k, v, cases, got, want
         x, dts, A, Bm, C = ssd_inputs(dt)
         chunk = SSD_SHAPE[-1]
@@ -929,6 +952,9 @@ def main() -> int:
         library_ms=time_ms(lambda: torch.add(y, x, alpha=SAXPY_A)),
         nbytes=3 * n * 4, ops=2 * n)
     log(f"time saxpy NBC: {nbc_ms:.4f} ms ({card})")
+    log(f"host time per call: saxpy "
+        f"{host_us(lambda: saxpy_cuda(SAXPY_A, x, y)):.1f} us, torch.add "
+        f"{host_us(lambda: torch.add(y, x, alpha=SAXPY_A)):.1f} us ({card})")
     del x, y
 
     rec = RecordArray(randn(2, PARTICLE_N), SAXPY_SPEC, Layout.SOA)

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,7 +45,14 @@ def round_to(value, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (as the reference casts its scalars to
     the working dtype before the kernel), returned as a float for the C
     call."""
-    return float(torch.tensor(float(value), dtype=dtype))
+    return _round_float(float(value), dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _round_float(value: float, dtype: torch.dtype) -> float:
+    # cached: a wrapper rounds the same few scalars on every launch, and
+    # making the tensor costs microseconds of host time
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -9,6 +9,11 @@ through element strides, so q, k, v and the output may be views whose last
 dim is contiguous: the model passes its ``(B, S, H, D)`` projections
 transposed, with no copy.  Any sequence length is taken: the kernel masks
 its own ragged edge.
+
+bfloat16 runs on the tensor cores (``wgmma``), which read 16-byte pieces:
+it needs 16-byte-aligned tensors whose ``(b, h, s)`` strides and D are
+multiples of 8 elements, and raises ``ValueError`` otherwise.  float32
+runs on the CUDA cores and takes any strides.
 """
 
 from __future__ import annotations
@@ -53,7 +58,16 @@ def _bhs_strides(t: torch.Tensor, what: str) -> list[int]:
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {what} has a non-contiguous "
                          f"last dim (stride {t.stride(-1)})")
-    return [t.stride(0), t.stride(1), t.stride(2)]
+    strides = [t.stride(0), t.stride(1), t.stride(2)]
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(st % 8 for st in strides)
+            or t.shape[-1] % 8):
+        raise ValueError(
+            f"flash_attention: bfloat16 {what} needs a 16-byte-aligned "
+            f"base, (b, h, s) strides and D that are multiples of 8 "
+            f"elements, got offset {t.data_ptr() % 16} bytes, strides "
+            f"{tuple(strides)}, D {t.shape[-1]}")
+    return strides
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,

@@ -4,9 +4,9 @@ K1 :func:`saxpy_cuda` replaces ``saxpy_pallas`` and K2
 :func:`saxpy_record_cuda` replaces ``saxpy_record_pallas``
 (``repro/kernels/saxpy/kernel.py``).  The paper uses SAXPY to measure the
 overhead of its iterator abstraction: the bounds-checked (BC) variant tests
-every index, the unchecked (NBC) variant launches whole blocks without the
-test plus one guarded tail block.  The record form puts x and y in ONE
-record buffer, the layout axis of Table 2.
+every index, the unchecked (NBC) variant runs its whole rounds of 16-byte
+vectors without the test and only the last, partial round with it.  The
+record form puts x and y in ONE record buffer, the layout axis of Table 2.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and adds
@@ -31,7 +31,7 @@ TILE_KERNEL = "saxpy"
 DEFAULT_BLOCK = 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FLAT = [_P, _P, _P, _F, ctypes.c_int64, _I, _I, _P]
+_FLAT = [_P, _P, _P, _F, ctypes.c_int64, _I, _P]
 _RECORD = [_P, _P, _F, ctypes.c_int64, _I, _I, _I, _P]
 _SIGNATURES = {"saxpy_f32": _FLAT, "saxpy_bf16": _FLAT,
                "saxpy_record_f32": _RECORD, "saxpy_record_bf16": _RECORD}
@@ -57,7 +57,11 @@ def check_record_block(n: int, block: int) -> None:
 def saxpy_cuda(a, x: torch.Tensor, y: torch.Tensor, *, block: int = 1024,
                bounds_check: bool = True) -> torch.Tensor:
     """``a * x + y`` over flat CUDA tensors; ``a`` is rounded to the
-    working dtype first.  ``block`` cells per thread block; any ``n``."""
+    working dtype first.  Any ``n``, and views at any offset.  ``block``
+    keeps the reference's contract (``>= 1``) but sets no grid: the kernel
+    sizes its grid to the work, capped by the SM count, and moves 16 bytes
+    per load; a view off the 16-byte grid, such as ``x[1:]``, runs the
+    kernel's scalar loop."""
     sfx = check_cuda_tensor(x, "saxpy x")
     check_cuda_tensor(y, "saxpy y")
     if x.dim() != 1 or x.shape != y.shape or x.dtype != y.dtype \
@@ -71,7 +75,7 @@ def saxpy_cuda(a, x: torch.Tensor, y: torch.Tensor, *, block: int = 1024,
     with torch.cuda.device(x.device):
         code = getattr(lib, f"saxpy_{sfx}")(
             x.data_ptr(), y.data_ptr(), out.data_ptr(), round_to(a, x.dtype),
-            x.numel(), block, int(bounds_check), stream_of(x))
+            x.numel(), int(bounds_check), stream_of(x))
     _build.check(lib, code, "saxpy")
     saxpy_cuda.launches += 1
     return out

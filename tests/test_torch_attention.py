@@ -6,7 +6,10 @@ made with numpy from a seed and handed to both.
 
 Tolerances: float32 1e-5 (the same math, summed in another order);
 bfloat16 2e-2 (both compute in float32 and round once, from the same
-bfloat16 inputs)."""
+bfloat16 inputs).  The numerical design of K6's bf16 tensor-core route is
+held to its card limit, per output atol 1e-5 with rtol 2^-6."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -155,3 +158,63 @@ def test_decode_attention_explicit_kpos():
                                  torch.from_numpy(cache_len),
                                  kpos=torch.from_numpy(kpos))
     _close(got, want, 1e-5)
+
+
+# -- the numerical design of K6's bf16 route ----------------------------------
+
+def _flash_pv(q, k, v, pv: str, block: int = 64):
+    """Causal flash attention on bf16 inputs in float32, as K6's bf16 route
+    runs it: online softmax over ``block``-key tiles, ``l`` summed from the
+    float32 P, the output rounded once.  ``pv`` says how each tile's P·V is
+    formed from bf16 operands, as the tensor cores take them: ``"float32"``
+    (P kept in float32), ``"split"`` (P_hi = bf16(P) and P_lo = bf16(P -
+    P_hi), both products summed in float32) or ``"rounded"`` (P rounded
+    once to bf16)."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    k = k.float().repeat_interleave(group, 1)
+    v = v.float().repeat_interleave(group, 1)
+    scores = q.float() @ k.transpose(-1, -2) * (1 / math.sqrt(D))
+    pos = torch.arange(S)
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, D))
+    for j in range(0, S, block):
+        seen = pos[:, None] >= pos[None, j:j + block]
+        s = scores[..., j:j + block]
+        m_new = torch.maximum(m, s.masked_fill(~seen, -1e30).amax(
+            -1, keepdim=True))
+        p = torch.where(seen, torch.exp(s - m_new), 0.0)
+        vb = v[:, :, j:j + block]
+        if pv == "float32":
+            o = p @ vb
+        else:
+            hi = p.bfloat16().float()
+            o = hi @ vb
+            if pv == "split":
+                o = o + (p - hi).bfloat16().float() @ vb
+        alpha = torch.exp(m - m_new)
+        acc = acc * alpha + o
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("pv,inside", [("float32", True), ("split", True),
+                                       ("rounded", False)])
+def test_k6_bf16_design_keeps_its_limit(pv, inside):
+    """Why K6 splits P: with P rounded once to bf16 before P·V some 5 % of
+    the outputs leave the limit against the float32 plain version; the
+    hi/lo split, at 1.5x the tensor-core work, keeps them all inside, as
+    float32 P does."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16() for shape in ((1, 4, 512, 128),
+                                              (1, 1, 512, 128),
+                                              (1, 1, 512, 128)))
+    want = mha_ref(q, k, v).float()
+    got = _flash_pv(q, k, v, pv).float()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    outside = int((~((got - want).abs() <= 1e-5 + 2**-6 * want.abs()))
+                  .sum())
+    assert (outside == 0) == inside, f"{outside} outputs outside the limit"

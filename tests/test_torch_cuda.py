@@ -61,14 +61,22 @@ def _randn(dev, dtype, *shape, seed=0):
         getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("n", [4096, 5000])
+# (n, x offset, y offset) in elements: views x[1:], y[1:] and x aligned
+# with y not are off the 16-byte grid, so the kernel runs the whole call
+# scalar; n = 2^20 + 3 also leaves a scalar tail after the vectors
+@pytest.mark.parametrize("n,x_off,y_off", [
+    pytest.param(4096, 0, 0, id="4096"),
+    pytest.param(5000, 0, 0, id="5000"),
+    pytest.param(2**20 + 3, 1, 1, id="1048579-views"),
+    pytest.param(2**20 + 3, 0, 1, id="1048579-mixed")])
 @pytest.mark.parametrize("bounds_check", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_saxpy_kernel(dev, n, bounds_check, dtype):
+def test_saxpy_kernel(dev, n, x_off, y_off, bounds_check, dtype):
     from repro_torch.kernels.saxpy.kernel import saxpy_cuda
     from repro_torch.kernels.saxpy.ops import saxpy, saxpy_ref
 
-    x, y = _randn(dev, dtype, n, seed=1), _randn(dev, dtype, n, seed=2)
+    x = _randn(dev, dtype, n + x_off, seed=1)[x_off:]
+    y = _randn(dev, dtype, n + y_off, seed=2)[y_off:]
     before = saxpy_cuda.launches
     got = saxpy(1.75, x, y, block=1024, bounds_check=bounds_check)
     assert saxpy_cuda.launches == before + 1
@@ -246,6 +254,12 @@ ATTN_CASES = {
     "q_offset": (2, 2, 2, 64, 192, 64, True, None, 128, False),
     "fused_aos": (1, 4, 2, 128, 128, 128, True, None, 0, True),
     "head_dim_256": (1, 2, 1, 70, 70, 256, True, None, 0, False),
+    # D short of the padded width: columns past D are zero-filled
+    "head_dim_96": (2, 4, 2, 150, 150, 96, True, None, 0, False),
+    # served prompt lengths, off the bf16 kernel's 128-row and 64-key tiles
+    "served_517": (1, 4, 1, 517, 517, 128, True, None, 0, False),
+    "served_1000": (1, 4, 1, 1000, 1000, 128, True, None, 0, False),
+    "q_offset_chunk": (1, 4, 1, 300, 1000, 128, True, None, 700, False),
 }
 
 
@@ -344,6 +358,13 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_cuda(q, q, q)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_cuda(q, q.bfloat16(), q)
+    # bfloat16 on the tensor cores: an s-stride of 132 elements
+    kv = torch.ones(1, 2, 8, 128, device=dev, dtype=torch.bfloat16)
+    qs = torch.ones(1, 2, 8, 132, device=dev, dtype=torch.bfloat16)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_cuda(qs[..., :128], kv, kv)
+    assert flash_attention_cuda.launches == before
     x, dt, A, Bm, C = _ssd_inputs(dev, "float32", 1, 256, 2, 64, 128)
     with pytest.raises(RuntimeError, match="invalid argument"):   # L > 128
         ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=256)
