@@ -13,7 +13,9 @@ result line):
    card, at the main path's shapes, float32 and bfloat16, every layout
    (the eikonal kernel: inner 1 and 4, tiles (8, 128) and (64, 256), on a
    mid-solve state); the bfloat16 limits of the eikonal, attention and
-   SSD kernels each shown to see a deliberately wrong variant;
+   SSD kernels each shown to see a deliberately wrong variant (for the
+   SSD also the designs its bf16 route rejects: S' and the state weights
+   each rounded once to bfloat16);
 3. the main path through the port's ``Graph``/``Executor`` on the GPU:
    the Table 2 SAXPY probe (n = 2^24), the particle step graph (2^24
    particles per species, 100 steps, closed-form check), the FORCE flux
@@ -42,7 +44,12 @@ result line):
    for their type: 67 TFLOP/s of float32 outside the tensor cores, 989
    TFLOP/s of bf16 on them for the bf16 inputs of K6 and K7), its plain
    version and, where one PyTorch call computes the same function, that
-   call.
+   call; the eikonal kernel also at its other timed tiles, in bfloat16,
+   with its loads and stores alone (inner 0) and with every access
+   scalar,
+   the SSD kernel also by its profiler device time and its wrapper's host
+   time (``time_ms`` reads the host once a call's host work outlasts its
+   device time), and in float32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without
@@ -256,31 +263,57 @@ def attn_wrong_bf16(q, k, v, rounded: str, block: int = 64):
     return (acc / l).to(q.dtype)
 
 
+def ssd_chunk_terms(x, dt, A, Bm, C, chunk: int):
+    """K7's float32 intermediates as the plain version forms them: dt
+    (B, nc, H, L), cs = cumsum(dt A) (B, nc, H, L), the scores (C B^T) o
+    decay (B, nc, H, L, L), x (B, nc, H, L, P) and B (B, nc, L, N)."""
+    import torch
+
+    B, S, H, P = x.shape
+    N, nc = Bm.shape[-1], S // chunk
+    dtc = dt.reshape(B, nc, chunk, H).movedim(3, 2)
+    cs = torch.cumsum(dtc * A[:, None], dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    decay = torch.exp(torch.where(tri, seg, 0.0)) * tri
+    bc = Bm.float().reshape(B, nc, chunk, N)
+    cb = torch.einsum("bcin,bcjn->bcij",
+                      C.float().reshape(B, nc, chunk, N), bc)
+    xh = x.float().reshape(B, nc, chunk, H, P).movedim(3, 2)
+    return dtc, cs, cb[:, :, None] * decay, xh, bc
+
+
 def ssd_bf16_sum(x, dt, A, Bm, C, chunk: int):
     """K7's ``y_intra`` with a wrong bfloat16 sum: the running sum over a
     chunk's positions rounded to x's dtype after each term, the terms in
     float32 as the plain version forms them."""
     import torch
 
-    B, S, H, P = x.shape
-    N, nc = Bm.shape[-1], S // chunk
-    dtc = dt.reshape(B, nc, chunk, H)
-    cs = torch.cumsum(dtc * A, dim=2).movedim(3, 2)        # (B, nc, H, L)
-    seg = cs[..., :, None] - cs[..., None, :]
-    tri = torch.ones((chunk, chunk), dtype=torch.bool,
-                     device=x.device).tril()
-    decay = torch.exp(torch.where(tri, seg, 0.0)) * tri
-    cb = torch.einsum("bcin,bcjn->bcij",
-                      C.float().reshape(B, nc, chunk, N),
-                      Bm.float().reshape(B, nc, chunk, N))
-    scores = cb[:, :, None] * decay                        # (B,nc,H,L,L)
-    dx = (dtc[..., None] * x.float().reshape(B, nc, chunk, H, P))
-    dx = dx.movedim(3, 2)                                  # (B,nc,H,L,P)
-    y = torch.zeros((B, nc, H, chunk, P), dtype=x.dtype, device=x.device)
+    dtc, _, scores, xh, _ = ssd_chunk_terms(x, dt, A, Bm, C, chunk)
+    dx = dtc[..., None] * xh                               # (B,nc,H,L,P)
+    y = torch.zeros(xh.shape, dtype=x.dtype, device=x.device)
     for j in range(chunk):
         y = (y.float() + scores[..., j, None] * dx[..., j, None, :]).to(
             x.dtype)
-    return y.movedim(2, 3).reshape(B, S, H, P)
+    return y.movedim(2, 3).reshape(x.shape)
+
+
+def ssd_rejected_bf16(x, dt, A, Bm, C, chunk: int, part: str):
+    """K7's bf16 route as the designs it rejects compute it, in float32 on
+    the card: ``part="y_intra"`` forms S' = (C B^T) o decay o dt and rounds
+    it once to bfloat16 before S' x (the kernel issues S' as a bf16 hi/lo
+    pair); ``part="chunk states"`` rounds the state weights w_j x_j once to
+    bfloat16 before the product with B (the kernel issues two pieces)."""
+    import torch
+
+    dtc, cs, scores, xh, bc = ssd_chunk_terms(x, dt, A, Bm, C, chunk)
+    if part == "y_intra":
+        y = (scores * dtc[..., None, :]).bfloat16().float() @ xh
+        return y.movedim(2, 3).reshape(x.shape).to(x.dtype)
+    w = dtc * torch.exp(cs[..., -1:] - cs)                 # (B, nc, H, L)
+    a = (xh * w[..., None]).bfloat16().float()
+    return torch.einsum("bchjp,bcjn->bchpn", a, bc)
 
 
 def device_time_by_kernel(fn) -> dict[str, tuple[float, int]]:
@@ -747,8 +780,18 @@ def main() -> int:
         if dname == "bfloat16":
             check_wrong("ssd_intra_chunk y_intra",
                         LM_KERNEL_TOL["ssd_intra_chunk y_intra"][dname],
-                        want[0], {"y_intra summed in bfloat16":
-                                  ssd_bf16_sum(x, dts, A, Bm, C, chunk)})
+                        want[0], {
+                            "y_intra summed in bfloat16":
+                                ssd_bf16_sum(x, dts, A, Bm, C, chunk),
+                            "S' rounded once to bfloat16 before S' x":
+                                ssd_rejected_bf16(x, dts, A, Bm, C, chunk,
+                                                  "y_intra")})
+            check_wrong("ssd_intra_chunk chunk states",
+                        LM_KERNEL_TOL["ssd_intra_chunk chunk states"][dname],
+                        want[1], {
+                            "state weights rounded once to bfloat16":
+                                ssd_rejected_bf16(x, dts, A, Bm, C, chunk,
+                                                  "chunk states")})
         del x, dts, A, Bm, C, got, want
         torch.cuda.empty_cache()
 
@@ -1005,12 +1048,34 @@ def main() -> int:
         library_ms=None,
         nbytes=4 * (nx + 2) * (ny + 2) + nx * ny + 4 * nx * ny,
         ops=EIK_OPS_PER_CELL_SWEEP * EIK_INNER * nx * ny)
-    for inner, tile in ((1, EIK_BLOCK), (EIK_INNER, (64, 256))):
-        ms = time_ms(lambda: eikonal_fim_cuda(phi, eik["mask"], 1 / EIK_N,
+    # K5 at the other timed tiles and in bfloat16, and two variants of the
+    # main path's call: inner 0 (the loads and stores alone), and phi and
+    # the mask one element off their allocations, which turns off every
+    # vector access (pair loads, mask words, float4 stores)
+    off_phi = torch.empty(phi.numel() + 1, device=dev)[1:].view(phi.shape)
+    off_phi.copy_(phi)
+    mask = eik["mask"]
+    off_mask = torch.empty(mask.numel() + 1, dtype=mask.dtype,
+                           device=dev)[1:].view(mask.shape)
+    off_mask.copy_(mask)
+    for what, args, m, inner, tile in (
+            ("", phi, mask, 1, EIK_BLOCK),
+            ("", phi, mask, EIK_INNER, (64, 256)),
+            (" bfloat16", phi.bfloat16(), mask, EIK_INNER, EIK_BLOCK),
+            (" (loads and stores alone)", phi, mask, 0, EIK_BLOCK),
+            (" (scalar accesses: phi and mask off the grid)", off_phi,
+             off_mask, EIK_INNER, EIK_BLOCK),
+            (" (scalar accesses: phi and mask off the grid)", off_phi,
+             off_mask, EIK_INNER, (64, 256))):
+        ms = time_ms(lambda: eikonal_fim_cuda(args, m, 1 / EIK_N,
                                               inner=inner, block=tile))
-        log(f"time eikonal_fim inner={inner} tile={tile}: {ms:.4f} ms "
+        log(f"time eikonal_fim inner={inner} tile={tile}{what}: {ms:.4f} ms "
             f"({card})")
-    del phi, eik, eik_mid
+    host = host_us(lambda: eikonal_fim_cuda(phi, eik["mask"], 1 / EIK_N,
+                                            inner=EIK_INNER,
+                                            block=EIK_BLOCK))
+    log(f"host time per call: eikonal_fim {host:.1f} us ({card})")
+    del phi, off_phi, mask, off_mask, eik, eik_mid
 
     for dname in ("bfloat16", "float32"):
         q, k, v = attn_inputs(getattr(torch, dname))
@@ -1043,6 +1108,26 @@ def main() -> int:
                                                      chunk=chunk)),
         library_ms=None, nbytes=nbytes, ops=ops,
         ops_per_s=BF16_TC_OPS_PER_S)
+    # the kernel's device time apart from its wrapper's host time: 30
+    # launches under the profiler, and the host time of one call
+    k7 = {name: v for name, v in device_time_by_kernel(
+        lambda: [ssd_intra_chunk_cuda(x, dts, A, Bm, C, chunk=chunk)
+                 for _ in range(30)]).items() if "ssd" in name}
+    k7_host = host_us(lambda: ssd_intra_chunk_cuda(x, dts, A, Bm, C,
+                                                   chunk=chunk))
+    for name, (us, count) in k7.items():
+        log(f"time ssd_intra_chunk bf16 device (profiler): "
+            f"{us / count / 1e3:.4f} ms per launch over {count} launches "
+            f"of {name[:60]}; host time per call {k7_host:.1f} us; "
+            f"time_ms {results['ssd_intra_chunk']['ms']:.4f} ms ({card})")
+    if not k7:
+        log("time ssd_intra_chunk bf16 device (profiler): not measured (the "
+            "profiler saw no device activity)")
+    x, dts, A, Bm, C = ssd_inputs(torch.float32)
+    f32_ms = time_ms(lambda: ssd_intra_chunk_cuda(x, dts, A, Bm, C,
+                                                  chunk=chunk))
+    log(f"time ssd_intra_chunk float32: kernel {f32_ms:.4f} ms, bound "
+        f"{bound(*ssd_work(*SSD_SHAPE, 4))[0]:.4f} ms ({card})")
     del x, dts, A, Bm, C
     for arch, run in lm_runs.items():
         log(f"serve {arch}: {run['tok_s']:.1f} tokens/s, decode "

@@ -11,29 +11,61 @@
 // The inter-chunk state scan, y_inter and the D skip are torch ops in
 // kernels/ssd/ops.py, as ssd_pallas leaves them to XLA.
 //
-// Bound on the card: operations.  Per block 2 L^2 N + 2 L^2 P + 2 L P N
+// Bound on the card: bytes.  Per block 2 L^2 N + 2 L^2 P + 2 L P N
 // operations (4.2 M at L = P * 2 = N = 128) against ~50 KB of bf16 tiles:
-// about 80 operations per byte, above the float32 ridge of ~20.  This first
-// version runs on the float32 CUDA cores; the three products are
-// tensor-core shaped (L, N, P multiples of 16) and go to wgmma later.
+// about 80 operations per byte, below the bf16 tensor cores' ridge of ~295,
+// above the float32 CUDA cores' ~20.
 //
-// Design: one 256-thread block per (head, chunk, batch).  The B tile, the C
-// tile (overwritten by dt * x once C B^T is formed) and the L x L score tile
-// sit in dynamic shared memory in float32 (199 KB at L = N = 128, P = 64),
-// rows padded by one float so that 16 threads reading 16 rows hit 16 banks.
-// The cumulative sum is a warp scan: each lane sums L/32 consecutive
-// positions, then the lane totals are scanned with shuffles.  Each of the
-// 16 x 16 threads owns rows ty + 16 i and columns tx + 16 j of every
-// product.  The decay is formed only where j <= i (above the diagonal
-// cs_i - cs_j > 0 could overflow exp to inf, and inf * 0 is NaN), and is
-// exactly 0 elsewhere.  Every head recomputes C B^T, as the TPU kernel does,
-// although n_groups = 1 makes it the same for all heads of a chunk.  Chunks
-// of up to 128 positions, P <= 64 and N <= 128 are taken; the ragged L (a
-// prompt shorter than the model's chunk) is masked in the tiles.
+// bf16 route (ssd_wgmma_kernel): wgmma on sm_90a.  One 256-thread block
+// per (head, chunk, batch), as two warpgroups of 64 chunk rows: at a
+// 640-token prompt (5 chunks) that is 120 blocks for 132 SMs, where sharing
+// C B^T between the heads of a chunk would leave half of them idle, and
+// C B^T is some 0.5 us of tensor-core time a block.  C, B and x are staged
+// in bf16 by 16-byte cp.async copies into the 128-byte-swizzled layout of
+// hopper.cuh (a 128-row tile of N = 128 columns is two 16 KB slabs): 80 KB
+// of tiles and 1.5 KB of float32 vectors (dt, cs, the weights w), two
+// blocks per SM.  The cumulative sum of dt * A is a scan by four warps,
+// then a scan of their totals.  C B^T is one wgmma product with both
+// operands K-major in shared memory (warpgroup 0 forms the 64 x 64 block
+// left of the diagonal, warpgroup 1 its 64 x 128 rows).  On the
+// accumulator fragments S'_ij = (C B^T)_ij exp(cs_i - cs_j) dt_j for
+// j <= i and 0 elsewhere (the decay never passes through exp above the
+// diagonal, where cs_i - cs_j > 0 could overflow to inf, and inf * 0 is
+// NaN); dt_j folded into S' keeps x exact in bf16.  y_intra = S' x takes
+// S' as the register A operand, converted in place from the accumulator
+// layout, with x (positions x P, P contiguous) the B operand read
+// transposed, as K6's P V.  S' is issued twice, S'_hi = bf16(S') and
+// S'_lo = bf16(S' - S'_hi): S' rounded once to bf16 puts some 3 % of the
+// outputs at the mamba2-130m shape outside y_intra's limit, the split none
+// (tests/test_torch_ssd.py emulates both).  The chunk state xT diag(w) B,
+// w_j = dt_j exp(cs_{L-1} - cs_j), is m64n64 per warpgroup over one 64-
+// column slab of B, with A = (w x)^T built in registers from the staged x
+// and issued as two bf16 pieces (hi, lo): one piece is outside the states'
+// float32 limit (2e-5, 2e-5), two are inside.  The bf16 route needs P and
+// N multiples of 8 and 16-byte-aligned x, B and C (the wrapper raises
+// before the launch).
+//
+// float32 route (ssd_chunk_kernel): the float32 CUDA cores; no served
+// model runs the SSD in float32.  One 256-thread block per (head, chunk,
+// batch).  The B tile, the C tile (overwritten by dt * x once C B^T is
+// formed) and the L x L score tile sit in dynamic shared memory in float32
+// (199 KB at L = N = 128, P = 64), rows padded by one float so that 16
+// threads reading 16 rows hit 16 banks.  The cumulative sum is a warp
+// scan: each lane sums L/32 consecutive positions, then the lane totals
+// are scanned with shuffles.  Each of the 16 x 16 threads owns rows
+// ty + 16 i and columns tx + 16 j of every product.  Every head recomputes
+// C B^T, as the TPU kernel does.
+//
+// Both routes take chunks of up to 128 positions, P <= 64 and N <= 128;
+// the ragged L (a prompt shorter than the model's chunk) is masked in the
+// tiles.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
+#include "hopper.cuh"
 #include "record_index.cuh"
 
 namespace {
@@ -242,6 +274,259 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace ripple::hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int kLT = 128;  // chunk rows per tile: two warpgroups of 64
+constexpr int kSlab = kLT * kRowBytes;  // one 64-column slab of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int NS>  // 64-column slabs of the B and C tiles (N <= 64 NS)
+struct WgmmaSmem {
+  static constexpr int kC = 0;
+  static constexpr int kB = NS * kSlab;
+  static constexpr int kX = 2 * NS * kSlab;
+  static constexpr int kCs = kX + kSlab;   // float32 cs, dt, w, warp totals
+  static constexpr int kDt = kCs + 4 * kLT;
+  static constexpr int kW = kDt + 4 * kLT;
+  static constexpr int kTot = kW + 4 * kLT;
+  // 1024 bytes to align the base to the swizzle pattern's repeat
+  static constexpr int kBytes = kTot + 16 + 1024;
+};
+
+// exp(d) as exp2(d log2 e): a few float32 ulps from expf, and shorter (the
+// scores' limit is 2^-6 relative)
+__device__ __forceinline__ float decay(float d) { return exp2f(kLog2e * d); }
+
+// x[j][p] of the staged x tile (one slab, row j, 128-byte swizzle)
+__device__ __forceinline__ float x_at(const uint8_t* sx, int j, int p) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      sx + j * kRowBytes + ((((p >> 3) ^ (j & 7))) << 4) + (p & 7) * 2));
+}
+
+// Splits (a0, a1) into bf16 pairs hi = bf16(a) and lo = bf16(a - hi).
+__device__ __forceinline__ void split2(float a0, float a1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(a0 - hf.x, a1 - hf.y));
+}
+
+// y_intra for the 64 rows of warpgroup wg, whose columns (positions j) run
+// to 64 NJ: S = C B^T, S' on the fragments, y = S'_hi x + S'_lo x.
+template <int NJ, int NS>
+__device__ __forceinline__ void ssd_y_rows(uint32_t sC, uint32_t sB,
+                                           uint32_t sX, const float* cs,
+                                           const float* dtv, int wg, int L,
+                                           int P, bf16* y, int64_t row0,
+                                           int H, int h) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  float acc[NJ][32];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+    fence_acc(acc[j]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4 * NS; ++ks) {
+    const uint32_t col = (ks & 3) * 32;  // 16 bf16 within the slab
+    const uint64_t da = wgmma_desc(
+        sC + (ks >> 2) * kSlab + wg * 64 * kRowBytes + col, 16,
+        8 * kRowBytes);
+    const uint64_t db =
+        wgmma_desc(sB + (ks >> 2) * kSlab + col, 16, 8 * kRowBytes);
+    if constexpr (NJ == 1) {
+      wgmma_ss(acc[0], da, db, ks > 0);
+    } else {
+      wgmma_ss2(acc[0], acc[1], da, db, ks > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) fence_acc(acc[j]);
+
+  // S'_ij = S_ij exp(cs_i - cs_j) dt_j where j <= i < L, else 0, split into
+  // the A fragments of 16 columns each
+  const float cs_r[2] = {cs[r0], cs[r0 + 8]};
+  uint32_t hi[4 * NJ][4], lo[4 * NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int rr = (i >> 1) & 1, r = r0 + 8 * rr;
+      const int q = j * 64 + 8 * (i >> 2) + 2 * (lane & 3);
+      const float s0 = (q <= r && r < L)
+                           ? acc[j][i] * decay(cs_r[rr] - cs[q]) * dtv[q]
+                           : 0.0f;
+      const float s1 =
+          (q + 1 <= r && r < L)
+              ? acc[j][i + 1] * decay(cs_r[rr] - cs[q + 1]) * dtv[q + 1]
+              : 0.0f;
+      split2(s0, s1, hi[4 * j + (i >> 3)][(i >> 1) & 3],
+             lo[4 * j + (i >> 3)][(i >> 1) & 3]);
+    }
+
+  float ya[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ya[i] = 0.0f;
+  fence_acc(ya);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NJ; ++kk) {
+    const uint64_t dx =
+        wgmma_desc(sX + kk * 16 * kRowBytes, kSlab, 8 * kRowBytes);
+    wgmma_rs(ya, hi[kk], dx);
+    wgmma_rs(ya, lo[kk], dx);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_acc(ya);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = r0 + 8 * ((i >> 1) & 1);
+    const int p = 8 * (i >> 2) + 2 * (lane & 3);
+    if (r < L && p < P)
+      *reinterpret_cast<__nv_bfloat162*>(y + ((row0 + r) * H + h) * P + p) =
+          __floats2bfloat162_rn(ya[i], ya[i + 1]);
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const bf16* __restrict__ Bm,
+                     const bf16* __restrict__ C, bf16* __restrict__ y,
+                     float* __restrict__ s_out, Dims d) {
+  using S = WgmmaSmem<NS>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  float* cs = reinterpret_cast<float*>(gbase + S::kCs);
+  float* dtv = reinterpret_cast<float*>(gbase + S::kDt);
+  float* wv = reinterpret_cast<float*>(gbase + S::kW);
+  float* tot = reinterpret_cast<float*>(gbase + S::kTot);
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int L = d.L, P = d.P, N = d.N, H = d.H;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t row0 = static_cast<int64_t>(b) * d.S +
+                       static_cast<int64_t>(c) * L;
+
+  load_tile<kLT, 64 * NS, kThreads>(base + S::kC, C + row0 * N, N, L, N);
+  load_tile<kLT, 64 * NS, kThreads>(base + S::kB, Bm + row0 * N, N, L, N);
+  load_tile<kLT, 64, kThreads>(base + S::kX, x + (row0 * H + h) * P,
+                               static_cast<int64_t>(H) * P, L, P);
+  cp_async_commit();
+
+  // cs = inclusive cumsum of dt * A: four warps scan 32 positions each,
+  // then add the totals of the warps before them
+  if (t < kLT) {
+    const float dtt = t < L ? dt[(row0 + t) * H + h] : 0.0f;
+    float v = dtt * A[h];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += up;
+    }
+    dtv[t] = dtt;
+    cs[t] = v;
+    if (lane == 31) tot[warp] = v;
+  }
+  __syncthreads();
+  if (t < kLT) {
+    float before = 0.0f;
+    for (int w = 0; w < warp; ++w) before += tot[w];
+    cs[t] += before;
+  }
+  __syncthreads();
+  // w_j = dt_j exp(cs_{L-1} - cs_j), the chunk state's weights
+  if (t < kLT) wv[t] = t < L ? dtv[t] * expf(cs[L - 1] - cs[t]) : 0.0f;
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wg = t >> 7;
+  if (wg * 64 < L) {
+    if (wg == 0)
+      ssd_y_rows<1, NS>(base + S::kC, base + S::kB, base + S::kX, cs, dtv, 0,
+                        L, P, y, row0, H, h);
+    else
+      ssd_y_rows<2, NS>(base + S::kC, base + S::kB, base + S::kX, cs, dtv, 1,
+                        L, P, y, row0, H, h);
+  }
+
+  // s_chunk = (w x)^T B: warpgroup wg takes the 64 columns of slab wg of B;
+  // A[p][j] = x[j][p] w_j in registers, issued as two bf16 pieces
+  if (wg < NS) {
+    const uint8_t* sx = gbase + S::kX;
+    const int p0 = ((t >> 5) & 3) * 16 + (lane >> 2);
+    uint32_t ah[8][4], al[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const int p = p0 + 8 * (reg & 1);
+        const int j = kk * 16 + 2 * (lane & 3) + 8 * (reg >> 1);
+        split2(x_at(sx, j, p) * wv[j], x_at(sx, j + 1, p) * wv[j + 1],
+               ah[kk][reg], al[kk][reg]);
+      }
+    const int nk = (L + 15) / 16;
+    float sa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sa[i] = 0.0f;
+    fence_acc(sa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk < nk) {
+        const uint64_t db = wgmma_desc(
+            base + S::kB + wg * kSlab + kk * 16 * kRowBytes, kSlab,
+            8 * kRowBytes);
+        wgmma_rs(sa, ah[kk], db);
+        wgmma_rs(sa, al[kk], db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(sa);
+    float* so = s_out + ((static_cast<int64_t>(b) * d.nc + c) * H + h) *
+                            static_cast<int64_t>(P) * N;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int p = p0 + 8 * ((i >> 1) & 1);
+      const int n = wg * 64 + 8 * (i >> 2) + 2 * (lane & 3);
+      if (p < P && n < N)
+        *reinterpret_cast<float2*>(so + p * N + n) =
+            make_float2(sa[i], sa[i + 1]);
+    }
+  }
+}
+
+template <int NS>
+int launch_wgmma(const bf16* x, const float* dt, const float* A,
+                 const bf16* Bm, const bf16* C, bf16* y, float* s, int batch,
+                 const Dims& d, cudaStream_t stream) {
+  constexpr int smem = WgmmaSmem<NS>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_wgmma_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(d.H, d.nc, batch);
+  ssd_wgmma_kernel<NS><<<grid, kThreads, smem, stream>>>(x, dt, A, Bm, C, y,
+                                                         s, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int LR>
 int launch_lr(const T* x, const float* dt, const float* A, const T* Bm,
               const T* C, T* y, float* s, int batch, const Dims& d,
@@ -276,6 +561,15 @@ int launch_ssd(const void* x, const void* dt, const void* A, const void* Bm,
   const auto y_ = static_cast<T*>(y);
   const auto s_ = static_cast<float*>(s);
   const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, bf16>) {
+    bool aligned = P % 8 == 0 && N % 8 == 0;
+    for (const void* ptr : {x, Bm, C})
+      aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+    if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+    if (N <= 64)
+      return launch_wgmma<1>(x_, dt_, A_, B_, C_, y_, s_, batch, d, st);
+    return launch_wgmma<2>(x_, dt_, A_, B_, C_, y_, s_, batch, d, st);
+  }
   if (L <= 16) return launch_lr<T, 1>(x_, dt_, A_, B_, C_, y_, s_, batch, d, st);
   if (L <= 32) return launch_lr<T, 2>(x_, dt_, A_, B_, C_, y_, s_, batch, d, st);
   if (L <= 64) return launch_lr<T, 4>(x_, dt_, A_, B_, C_, y_, s_, batch, d, st);
@@ -298,8 +592,8 @@ extern "C" int ssd_intra_chunk_bf16(const void* x, const void* dt,
                                     const void* C, void* y, void* s,
                                     int batch, int S, int H, int P, int N,
                                     int L, void* stream) {
-  return launch_ssd<__nv_bfloat16>(x, dt, A, Bm, C, y, s, batch, S, H, P, N,
-                                   L, stream);
+  return launch_ssd<bf16>(x, dt, A, Bm, C, y, s, batch, S, H, P, N, L,
+                          stream);
 }
 
 RIPPLE_ERROR_STRING_FN

@@ -3,8 +3,8 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds.  Libraries go into ``build/repro_torch/`` of the checkout, named
-by a digest of the sources and flags, so an edited source is rebuilt and
-an unchanged one is reused.  ``nvcc`` comes from ``$CUDA_HOME/bin`` or the
+by a digest of the source, every ``csrc/*.cuh`` header and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.  ``nvcc`` comes from ``$CUDA_HOME/bin`` or the
 ``PATH``; without it, building raises.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -51,9 +51,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  The digest
+    covers every header under ``csrc/``, so an edited header rebuilds
+    every library."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in (CSRC / f"{name}.cu", CSRC / "record_index.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -3,12 +3,12 @@
 
 Solves ``|grad phi| = 1/f`` (f = 1: signed-distance reinitialisation)
 with the Fast Iterative Method.  K5 :func:`eikonal_fim_cuda` replaces
-``eikonal_fim_pallas`` (``repro/kernels/eikonal/kernel.py``): each thread
-block stages a halo-inclusive ``(bx, by)`` tile in shared memory and runs
+``eikonal_fim_pallas`` (``repro/kernels/eikonal/kernel.py``): each warp
+keeps a strip of a halo-inclusive ``(bx, by)`` tile in registers and runs
 ``inner`` Jacobi sweeps on it with the halo frozen and the sources pinned
-before writing the interior back; the outer loop (a graph-level
-conditional MapReduce with a convergence reduction) repeats until nothing
-changes.
+before writing the interior back (:func:`fim_geometry` says how tiles map
+onto lanes, warps and blocks); the outer loop (a graph-level conditional
+MapReduce with a convergence reduction) repeats until nothing changes.
 
 The Godunov upwind update in 2-D (f = 1, grid step h):
 
@@ -21,6 +21,8 @@ The Godunov upwind update in 2-D (f = 1, grid step h):
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +33,8 @@ from .._common import check_cuda_tensor, round_to, stream_of
 TILE_KERNEL = "eikonal"   # name in the tile registry
 DEFAULT_BLOCK = (8, 128)
 
-_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+_SIG = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _SIGNATURES = {"eikonal_fim_f32": _SIG, "eikonal_fim_bf16": _SIG}
 
 
@@ -49,6 +50,72 @@ def tile_candidates(shape: tuple[int, ...]) -> tuple[tuple[int, int], ...]:
 
 
 register_tile_kernel(TILE_KERNEL, tile_candidates)
+
+
+#: rows a warp holds, by the columns each lane holds: 16 cells a lane (32
+#: at 8 columns), which fit in 64 registers (``RIPPLE_FIM_SHAPE`` in
+#: ``csrc/eikonal.cu`` lists the kernel's instances)
+ROWS_PER_WARP = {1: 16, 2: 8, 4: 4, 8: 4}
+#: the kernel's budget: one register (and one bit of its ``live`` mask) per
+#: cell and lane, at most 512 threads a block (so 128 registers a thread),
+#: and the shared memory a block may take on an H100
+MAX_CELLS_PER_LANE = 32
+MAX_THREADS = 512
+MAX_SMEM_BYTES = 232_448
+#: warps a block holds when its tiles take fewer
+BLOCK_WARPS = 8
+
+
+class FimGeometry(NamedTuple):
+    """How K5 maps ``(bx, by)`` tiles onto the card: lane ``l`` owns
+    columns ``l * cols_per_lane + k`` (``k < cols_per_lane``) of the rows
+    ``w * rows_per_warp + i`` of its tile, where ``w`` is its warp's index
+    in the tile; a block holds ``tiles_per_block`` tiles stacked along dim
+    0; block ``(gx, gy)`` of ``grid`` holds the tiles at column ``gx * by``
+    and rows ``(gy * tiles_per_block + t) * bx``."""
+
+    block: tuple[int, int]
+    cols_per_lane: int
+    rows_per_warp: int
+    warps_per_tile: int
+    tiles_per_block: int
+    grid: tuple[int, int]
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps_per_tile * self.tiles_per_block
+
+    @property
+    def cells_per_lane(self) -> int:
+        return self.cols_per_lane * self.rows_per_warp
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of a block: two buffers of every warp's first and
+        last row, where warps share a tile."""
+        if self.warps_per_tile == 1:
+            return 0
+        return 4 * 2 * self.tiles_per_block * self.warps_per_tile * 2 * 32 \
+            * self.cols_per_lane
+
+
+@functools.lru_cache(maxsize=64)
+def fim_geometry(interior: tuple[int, int], block) -> FimGeometry:
+    """K5's geometry for ``block`` tiles (clamped as :func:`clamp_block`
+    does) of an ``(nx, ny)`` interior.  A tile the kernel has no instance
+    for (``by`` above 256) still gets a geometry, which the launch
+    refuses."""
+    nx, ny = interior
+    bx, by = clamp_block(interior, tuple(block))
+    cpl = next((c for c in ROWS_PER_WARP if 32 * c >= by), -(-by // 32))
+    rpw = ROWS_PER_WARP.get(cpl, 4)
+    wpt = -(-bx // rpw)
+    tiles_x = nx // bx
+    tpb = 1
+    while 2 * tpb * wpt <= BLOCK_WARPS and tiles_x % (2 * tpb) == 0:
+        tpb *= 2
+    return FimGeometry((bx, by), cpl, rpw, wpt, tpb,
+                       (ny // by, tiles_x // tpb))
 
 
 def godunov_update(phi: torch.Tensor, mask: torch.Tensor,
@@ -90,14 +157,13 @@ def clamp_block(interior: tuple[int, int], block) -> tuple[int, int]:
 def eikonal_fim_cuda(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
                      h: float, *, inner: int = 4,
                      block=DEFAULT_BLOCK) -> torch.Tensor:
-    """``inner`` shared-memory FIM sweeps per ``block`` tile on the GPU.
+    """``inner`` FIM sweeps per ``block`` tile on the GPU, in registers.
     ``phi_haloed`` is a float32 or bfloat16 ``(nx+2, ny+2)`` tensor,
     ``source_mask`` a bool ``(nx, ny)`` tensor on the same device; returns
     the ``(nx, ny)`` interior.  ``h`` is rounded to the working dtype
-    first; arithmetic is float32.  A tile the kernel cannot hold (more
-    than 64 cells a thread, or more shared memory than a block gets) or a
-    negative ``inner`` is refused by the launch itself, as a CUDA
-    "invalid argument" error."""
+    first; arithmetic is float32.  A tile the kernel cannot hold (``by``
+    above 256, or more than 16 warps) or a negative ``inner`` is refused
+    by the launch itself, as a CUDA "invalid argument" error."""
     sfx = check_cuda_tensor(phi_haloed, "eikonal_fim")
     if phi_haloed.dim() != 2 or min(phi_haloed.shape) < 3:
         raise ValueError(f"eikonal_fim: phi must be a haloed 2-d tensor, "
@@ -115,15 +181,16 @@ def eikonal_fim_cuda(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
                          f"{(nx, ny)}")
     if not source_mask.is_contiguous():
         raise ValueError("eikonal_fim: mask is not contiguous")
-    bx, by = clamp_block((nx, ny), block)
+    geo = fim_geometry((nx, ny), tuple(block))
     out = torch.empty((nx, ny), dtype=phi_haloed.dtype,
                       device=phi_haloed.device)
     lib = _build.load("eikonal", _SIGNATURES)
     with torch.cuda.device(phi_haloed.device):
         code = getattr(lib, f"eikonal_fim_{sfx}")(
             phi_haloed.data_ptr(), source_mask.data_ptr(), out.data_ptr(),
-            nx, ny, bx, by, inner, round_to(h, phi_haloed.dtype),
-            stream_of(phi_haloed))
+            nx, ny, *geo.block, inner, round_to(h, phi_haloed.dtype),
+            geo.cols_per_lane, geo.rows_per_warp, geo.warps_per_tile,
+            geo.tiles_per_block, *geo.grid, stream_of(phi_haloed))
     _build.check(lib, code, "eikonal_fim")
     eikonal_fim_cuda.launches += 1
     return out

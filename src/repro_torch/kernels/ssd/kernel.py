@@ -4,6 +4,10 @@
 (``repro/kernels/ssd/kernel.py``): per (batch, chunk, head) the
 intra-chunk quadratic dual form and the chunk's outgoing state.  The
 inter-chunk scan around it is torch ops (``ref.ssd_inter_chunk``).
+
+bfloat16 runs on the tensor cores (``wgmma``), which read 16-byte pieces:
+it needs 16-byte-aligned x, B and C with P and N multiples of 8, and
+raises ``ValueError`` otherwise.  float32 runs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -61,6 +65,11 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, C, *, chunk: int = DEFAULT_CHUNK):
                          f"{tuple(Bm.shape)}, C {tuple(C.shape)} disagree")
     if chunk < 1 or S % chunk:
         raise ValueError(f"ssd: sequence {S} must tile by chunk {chunk}")
+    offsets = [t.data_ptr() % 16 for t in (x, Bm, C)]
+    if x.dtype == torch.bfloat16 and (P % 8 or N % 8 or any(offsets)):
+        raise ValueError(f"ssd: bfloat16 needs 16-byte-aligned x, B and C "
+                         f"and P, N that are multiples of 8, got P {P}, N "
+                         f"{N}, offsets {offsets} bytes")
     nc = S // chunk
     y = torch.empty_like(x)
     s = torch.empty((B_, nc, H, P, N), dtype=torch.float32, device=x.device)

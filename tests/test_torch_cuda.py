@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import (Boundary, Executor, Layout, RecordArray,
                               pad_boundary_only)
 from repro_torch import workloads
+from repro_torch.kernels.eikonal.kernel import tile_candidates
 
 pytestmark = pytest.mark.cuda
 
@@ -194,9 +195,11 @@ def _eikonal_state(dev, n, dtype, iters=8):
 
 
 @pytest.mark.parametrize("inner", [1, 4])
-@pytest.mark.parametrize("tile", [(8, 128), (16, 64), (64, 256)])
+@pytest.mark.parametrize("tile", tile_candidates((256, 256)))
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_eikonal_kernel(dev, dtype, tile, inner):
+    """Every tuning tile: one warp a tile, and warps sharing a tile through
+    shared memory.  float32 is uncontracted, so bit-equal."""
     from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
     from repro_torch.kernels.eikonal.ops import (eikonal_fim_ref,
                                                  eikonal_fim_sweep)
@@ -206,9 +209,47 @@ def test_eikonal_kernel(dev, dtype, tile, inner):
     got = eikonal_fim_sweep(phi, mask, 1 / 256, inner=inner, block=tile)
     assert eikonal_fim_cuda.launches == before + 1
     assert got.dtype == phi.dtype and tuple(got.shape) == (256, 256)
-    atol, rtol = (1e-5, 1e-5) if dtype == "float32" else (2e-3, 1.6e-2)
-    _close(got, eikonal_fim_ref(phi, mask, 1 / 256, inner=inner, block=tile),
-           atol, rtol)
+    want = eikonal_fim_ref(phi, mask, 1 / 256, inner=inner, block=tile)
+    if dtype == "float32":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, 2e-3, 1.6e-2)
+
+
+# (interior, tile, phi offset, mask offset): tiles narrower than a warp's
+# 32 columns a lane and a ragged width take the kernel's scalar loads and
+# stores; on full-width tiles, phi one element off its allocation turns off
+# the pair loads, the mask one byte off the mask words and vector stores
+EIK_SCALAR_CASES = {"40x50": ((40, 50), (8, 50), 0, 0),
+                    "64x96": ((64, 96), (16, 96), 0, 0),
+                    "32x32": ((32, 32), (8, 32), 0, 0),
+                    "256x256-offset": ((256, 256), (8, 128), 1, 0),
+                    "256x256-mask-offset": ((256, 256), (8, 128), 0, 1),
+                    "256x256-both-offset": ((256, 256), (64, 256), 1, 1)}
+
+
+@pytest.mark.parametrize("case", list(EIK_SCALAR_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eikonal_kernel_scalar_path(dev, dtype, case):
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.eikonal.ops import eikonal_fim_ref
+
+    (nx, ny), tile, phi_off, mask_off = EIK_SCALAR_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(3)
+    phi = torch.rand(nx + 2, ny + 2, generator=g, device=dev)
+    phi = phi.masked_fill(phi > 0.5, 1e3).to(getattr(torch, dtype))
+    buf = torch.empty(phi.numel() + phi_off, dtype=phi.dtype, device=dev)
+    phi = buf[phi_off:].view(phi.shape).copy_(phi)
+    mask = torch.rand(nx, ny, generator=g, device=dev) < 0.05
+    buf = torch.empty(mask.numel() + mask_off, dtype=mask.dtype, device=dev)
+    mask = buf[mask_off:].view(mask.shape).copy_(mask)
+    for inner in (1, 4):
+        got = eikonal_fim_cuda(phi, mask, 1 / 64, inner=inner, block=tile)
+        want = eikonal_fim_ref(phi, mask, 1 / 64, inner=inner, block=tile)
+        if dtype == "float32":
+            assert torch.equal(got, want)
+        else:
+            _close(got, want, 2e-3, 1.6e-2)
 
 
 def test_eikonal_graph_on_the_card_matches_the_cpu(dev):
@@ -238,7 +279,7 @@ def test_eikonal_wrapper_refuses_what_the_kernel_does_not_take(dev):
         eikonal_fim_cuda(torch.ones(130, 66, device=dev).t(), mask, 0.1)
     with pytest.raises(ValueError, match="must tile"):
         eikonal_fim_cuda(phi, mask, 0.1, block=(8, 96))
-    # more than 64 cells a thread: the launch refuses it
+    # more than 256 columns a tile: the launch refuses it
     with pytest.raises(RuntimeError, match="invalid argument"):
         eikonal_fim_cuda(torch.ones(130, 514, device=dev),
                          torch.zeros(128, 512, dtype=torch.bool, device=dev),
@@ -306,10 +347,18 @@ def test_attention_kernel_reads_strided_views(dev):
 
 
 # K7 cases: (B, S, H, P, N, chunk); 40 is a prompt shorter than one
-# 64-position chunk, no multiple of the kernel's 16-row thread tile
+# 64-position chunk, no multiple of the kernel's 16-row thread tile; the
+# chunk lengths of the tile registry, and mamba2-130m's prompts padded to
+# its chunk (640 and 1024 positions, all 24 heads)
 SSD_CASES = {"mamba2": (1, 512, 4, 64, 128, 128), "smoke": (2, 64, 3, 16,
                                                             16, 16),
-             "ragged": (1, 40, 2, 32, 48, 40)}
+             "ragged": (1, 40, 2, 32, 48, 40),
+             "L16": (1, 256, 4, 64, 128, 16),
+             "L32": (2, 256, 4, 64, 128, 32),
+             "L64": (1, 256, 4, 64, 128, 64),
+             "L128": (2, 256, 4, 64, 128, 128),
+             "prompt_640": (1, 640, 24, 64, 128, 128),
+             "prompt_1024": (1, 1024, 24, 64, 128, 128)}
 
 
 def _ssd_inputs(dev, dtype, B, S, H, P, N):
@@ -370,3 +419,14 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
         ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=256)
     with pytest.raises(TypeError, match="float32"):
         ssd_intra_chunk_cuda(x, dt.bfloat16(), A, Bm, C, chunk=128)
+    # bfloat16 on the tensor cores: N off the multiples of 8, or a base off
+    # the 16-byte grid
+    x, dt, A, Bm, C = _ssd_inputs(dev, "bfloat16", 1, 256, 2, 64, 132)
+    before = ssd_intra_chunk_cuda.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_intra_chunk_cuda(x, dt, A, Bm[..., :124].contiguous(),
+                             C[..., :124].contiguous(), chunk=128)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        ssd_intra_chunk_cuda(x, dt, A, Bm.flatten()[4:4 + 256 * 128].view(
+            1, 256, 128), C[..., :128].contiguous(), chunk=128)
+    assert ssd_intra_chunk_cuda.launches == before

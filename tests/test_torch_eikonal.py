@@ -250,3 +250,69 @@ def test_single_sweep_block_divides_the_interior():
     assert single_sweep_block((4096, 4096)) == (8, 128)
     assert single_sweep_block((30, 300)) == (6, 100)
     assert single_sweep_block((7, 97)) == (7, 97)
+
+
+def _owned(n_tiles, per_block, tile, per_warp, n_warps, per_lane, n_lanes):
+    """How many times K5's geometry covers each index of one dim: tile
+    ``b * per_block + t`` of size ``tile``, split into ``n_warps`` strips of
+    ``per_warp`` (rows) or ``n_lanes`` lanes of ``per_lane`` (columns);
+    slots past the tile own nothing."""
+    blocks = np.arange(n_tiles // per_block)[:, None, None, None, None]
+    t = np.arange(per_block)[None, :, None, None, None]
+    w = np.arange(n_warps)[None, None, :, None, None]
+    lane = np.arange(n_lanes)[None, None, None, :, None]
+    k = np.arange(per_warp * per_lane)[None, None, None, None, :]
+    local = w * per_warp * n_lanes + lane * per_lane + k
+    idx = (blocks * per_block + t) * tile + local
+    idx = np.broadcast_to(idx, np.broadcast_shapes(
+        blocks.shape, t.shape, w.shape, lane.shape, k.shape))
+    local = np.broadcast_to(local, idx.shape)
+    return np.bincount(idx[local < tile], minlength=n_tiles * tile)
+
+
+@pytest.mark.parametrize("n", [64, 256, 4096])
+def test_eikonal_kernel_geometry_owns_every_cell_once(n):
+    """K5's geometry for every tuning tile: each interior cell owned by
+    exactly one (block, tile, warp, lane, slot), and every tile inside the
+    kernel's budget.  Ownership is a product of a row map (blocks along
+    dim 0, tiles a block, warps a tile, rows a warp) and a column map
+    (blocks along dim 1, lanes, columns a lane), so each is checked on its
+    own."""
+    from repro_torch.kernels.eikonal.kernel import (
+        MAX_CELLS_PER_LANE, MAX_SMEM_BYTES, MAX_THREADS, ROWS_PER_WARP,
+        fim_geometry, tile_candidates)
+
+    for tile in tile_candidates((n, n)):
+        geo = fim_geometry((n, n), tile)
+        bx, by = geo.block
+        assert geo.block == tile
+        gy_tiles = geo.grid[1] * geo.tiles_per_block
+        assert gy_tiles * bx == n and geo.grid[0] * by == n
+        rows = _owned(gy_tiles, geo.tiles_per_block, bx, geo.rows_per_warp,
+                      geo.warps_per_tile, 1, 1)
+        cols = _owned(geo.grid[0], 1, by, 1, 1, geo.cols_per_lane, 32)
+        assert (rows == 1).all() and (cols == 1).all(), tile
+        # the budget: an instance of the kernel, one register and one bit
+        # a cell, 512 threads a block, shared memory within the card's
+        assert geo.rows_per_warp == ROWS_PER_WARP[geo.cols_per_lane]
+        assert geo.cells_per_lane <= MAX_CELLS_PER_LANE
+        assert 32 <= geo.threads <= MAX_THREADS
+        assert geo.smem_bytes <= MAX_SMEM_BYTES
+        assert (geo.smem_bytes == 0) == (geo.warps_per_tile == 1)
+        assert geo.grid[1] <= 65535
+        # no warp holds only slots past its tile
+        assert (geo.warps_per_tile - 1) * geo.rows_per_warp < bx
+
+
+def test_eikonal_kernel_geometry_main_path():
+    """The main path's (8, 128) tile at 4096^2: two warps a tile, 4 rows of
+    4 columns a lane, 4 tiles a block, 16 KB of shared memory for the rows
+    the warps pass each other."""
+    from repro_torch.kernels.eikonal.kernel import fim_geometry
+
+    geo = fim_geometry((4096, 4096), (8, 128))
+    assert (geo.cols_per_lane, geo.rows_per_warp, geo.warps_per_tile,
+            geo.tiles_per_block, geo.grid) == (4, 4, 2, 4, (32, 128))
+    assert geo.threads == 256 and geo.smem_bytes == 16384
+    with pytest.raises(ValueError, match="must tile"):
+        fim_geometry((4096, 4096), (8, 96))

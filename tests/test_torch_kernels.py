@@ -283,3 +283,27 @@ def test_tile_registry_resolves_like_reference():
     with pt.record_tile_use() as rec:
         pt.resolve_tile("flux", None, sk.DEFAULT_BLOCK, shape=(32, 128))
     assert rec == {"flux": {((32, 128), (8, 128))}}
+
+
+def test_build_digest_covers_every_header(tmp_path, monkeypatch):
+    """A library's name digests its source and every ``csrc/*.cuh``: an
+    edited header (shared by K6 and K7, or the record accessor of K2-K4)
+    names a new library for every source, so no stale build loads."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    headers = sorted(p.name for p in tmp_path.glob("*.cuh"))
+    assert {"hopper.cuh", "record_index.cuh"} <= set(headers)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    for name in headers:
+        (tmp_path / name).write_text((tmp_path / name).read_text() + "\n")
+        after = {n: _build.library_path(n) for n in _build.SOURCES}
+        assert all(after[n] != before[n] for n in _build.SOURCES), name
+        before = after
+    # a new header joins the digest too
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build.library_path(n) != before[n] for n in _build.SOURCES)

@@ -174,3 +174,75 @@ def test_mamba2_decode_matches_reference():
         _close(go, wo, 1e-5)
         _close(tstate[0], jstate[0], 1e-5)
         _close(tstate[1], jstate[1], 1e-5)
+
+
+# -- the numerical design of K7's bf16 route ----------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _k7_case():
+    """mamba2-130m's prefill shape (B, S, H, P, N, chunk) = (1, 2048, 24,
+    64, 128, 128) with inputs as ``chip_smoke.py`` makes them (x, B, C
+    standard normal in bf16, dt uniform in [1e-3, 0.1), A = -(1 .. 16)),
+    from a numpy seed; the plain version's outputs; and the kernel's
+    float32 intermediates: S' = (C B^T) o decay o dt (B, nc, H, L, L), the
+    state operand (w x)^T (B, nc, H, P, L) with w_j = dt_j exp(cs_{L-1} -
+    cs_j), x as (B, nc, H, L, P) and B as (B, nc, 1, L, N)."""
+    B_, S, H, P, N, L = 1, 2048, 24, 64, 128, 128
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B_, S, H, P)).astype(
+        np.float32)).bfloat16()
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (B_, S, H)).astype(
+        np.float32))
+    A = -torch.from_numpy(np.linspace(1.0, 16.0, H).astype(np.float32))
+    Bm, C = (torch.from_numpy(rng.standard_normal((B_, S, N)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    want = tr.ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L)
+    nc = S // L
+    dtc = dt.reshape(B_, nc, L, H).movedim(3, 2)              # (B,nc,H,L)
+    cs = torch.cumsum(dtc * A[:, None], dim=-1)
+    tri = torch.ones((L, L), dtype=torch.bool).tril()
+    decay = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                                  0.0)) * tri
+    bc = Bm.float().reshape(B_, nc, L, N)
+    cb = torch.einsum("bcin,bcjn->bcij", C.float().reshape(B_, nc, L, N), bc)
+    s_prime = cb[:, :, None] * decay * dtc[..., None, :]
+    xh = x.float().reshape(B_, nc, L, H, P).movedim(3, 2)
+    w = dtc * torch.exp(cs[..., -1:] - cs)
+    return want, s_prime, (xh * w[..., None]).transpose(-1, -2), xh, \
+        bc[:, :, None]
+
+
+def _bf16_pieces(a, n):
+    """``a`` as ``n`` bf16 pieces that sum to it (hi, then what is left)."""
+    pieces = []
+    for _ in range(n):
+        pieces.append(a.bfloat16().float())
+        a = a - pieces[-1]
+    return pieces
+
+
+@pytest.mark.parametrize("part,design,inside", [
+    ("y_intra", "float32", True), ("y_intra", "split", True),
+    ("y_intra", "rounded", False), ("chunk states", 1, False),
+    ("chunk states", 2, True), ("chunk states", 3, True)])
+def test_k7_bf16_design_keeps_its_limit(part, design, inside):
+    """Why K7 issues S' and the state weights as bf16 hi/lo pairs: the
+    tensor cores take bf16 operands, and a float32 operand rounded once to
+    bf16 puts outputs outside the limits ``chip_smoke.py`` holds K7 to
+    against the plain version (y_intra (2e-4, 2^-6); the float32 chunk
+    states (2e-5, 2e-5)).  Two pieces keep every output inside, as float32
+    operands do; three gain nothing the limit sees."""
+    want, s_prime, state_a, xh, bc = _k7_case()
+    if part == "y_intra":
+        pieces = {"float32": [s_prime], "split": _bf16_pieces(s_prime, 2),
+                  "rounded": _bf16_pieces(s_prime, 1)}[design]
+        got = sum(p @ xh for p in pieces).movedim(2, 3).reshape(
+            want[0].shape).bfloat16()
+        ref, (atol, rtol) = want[0], (2e-4, 2**-6)
+    else:
+        got = sum(p @ bc for p in _bf16_pieces(state_a, design))
+        ref, (atol, rtol) = want[1], (2e-5, 2e-5)
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    outside = int((~((got.float() - ref.float()).abs()
+                     <= atol + rtol * ref.float().abs())).sum())
+    assert (outside == 0) == inside, f"{outside} outputs outside the limit"
