@@ -11,11 +11,14 @@ result line):
    ``sm_90a`` (all sources compiled at once);
 2. kernel parity — each kernel against its plain PyTorch version on the
    card, at the main path's shapes, float32 and bfloat16, every layout
-   (the eikonal kernel: inner 1 and 4, tiles (8, 128) and (64, 256), on a
-   mid-solve state); the bfloat16 limits of the eikonal, attention and
-   SSD kernels each shown to see a deliberately wrong variant (for the
-   SSD also the designs its bf16 route rejects: S' and the state weights
-   each rounded once to bfloat16);
+   (the flux kernel with λx != λy; the eikonal kernel: inner 1 and 4,
+   tiles (8, 128) and (64, 256), on a mid-solve state; the SSD kernel also
+   at the tile registry's chunk of 256); the bfloat16 limits of the
+   eikonal, attention and SSD kernels each shown to see a deliberately
+   wrong variant (for the SSD also the designs its bf16 route rejects: S'
+   and the state weights each rounded once to bfloat16; at chunk 256, in
+   both dtypes, a kernel that drops what the second 128-row tile takes
+   from the first);
 3. the main path through the port's ``Graph``/``Executor`` on the GPU:
    the Table 2 SAXPY probe (n = 2^24), the particle step graph (2^24
    particles per species, 100 steps, closed-form check), the FORCE flux
@@ -44,12 +47,13 @@ result line):
    for their type: 67 TFLOP/s of float32 outside the tensor cores, 989
    TFLOP/s of bf16 on them for the bf16 inputs of K6 and K7), its plain
    version and, where one PyTorch call computes the same function, that
-   call; the eikonal kernel also at its other timed tiles, in bfloat16,
-   with its loads and stores alone (inner 0) and with every access
-   scalar,
-   the SSD kernel also by its profiler device time and its wrapper's host
-   time (``time_ms`` reads the host once a call's host work outlasts its
-   device time), and in float32.
+   call; the flux kernel also in AoS, in bfloat16 and with its loads,
+   shuffles and stores alone; the eikonal kernel also at its other timed
+   tiles, in bfloat16, with its loads and stores alone (inner 0) and with
+   every access scalar,
+   the SSD kernel also by its profiler device time (at chunks 128 and
+   256) and its wrapper's host time (``time_ms`` reads the host once a
+   call's host work outlasts its device time), and in float32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without
@@ -79,6 +83,8 @@ BF16_TC_OPS_PER_S = 989e12
 SAXPY_N, SAXPY_A, SAXPY_STEPS = 1 << 24, 1.75, 20
 PARTICLE_N, PARTICLE_STEPS = 1 << 24, 100
 FLUX_N, FLUX_STEPS, FLUX_LAM = 4096, 20, 0.1
+# λx, λy of the flux kernel's parity: distinct, so that an x/y swap shows
+FLUX_PARITY_LAM = (0.1, 0.05)
 EIK_N, EIK_INNER, EIK_BLOCK, EIK_WARM = 4096, 4, (8, 128), 50
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # eikonal, as (atol, rtol): float32 uncontracted, so equal to the plain
@@ -90,9 +96,11 @@ EIK_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
 # version; bfloat16: the kernel computes in float32 and rounds once, the
 # plain version rounds after every operation
 FLUX_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# operations of one FORCE face flux in csrc/stencil.cu: three physical
-# fluxes of 13 each, 2 for the λ factors, 10 per component for the
-# Lax-Friedrichs flux and the Richtmyer state, 2 per component to average
+# operations of one FORCE face flux as the reference writes it
+# (physics/euler.py force_flux): three physical fluxes of 13 each, 2 for
+# the λ factors, 10 per component for the Lax-Friedrichs flux and the
+# Richtmyer state, 2 per component to average.  The bound counts the
+# unique faces once, whatever an implementation recomputes.
 OPS_PER_FACE = 3 * 13 + 2 + 4 * 10 + 4 * 2
 # per cell: lam * (F+ - F-) per dim and component, and the sum of the dims
 OPS_PER_CELL = 2 * 4 * 2 + 4
@@ -106,6 +114,9 @@ LM_GEN, LM_SLOTS, LM_MAX_SEQ = 32, 4, 2112
 # (B, S, H, P, N, chunk)
 ATTN_SHAPE = (1, 32, 8, 2048, 128)
 SSD_SHAPE = (1, 2048, 24, 64, 128, 128)
+# ... and at the tile registry's largest chunk, which mamba2-130m's
+# config takes with ssd_chunk=256
+SSD_CHUNK_256 = 256
 # K6/K7 against their plain versions, per output, as (atol, rtol).  Both
 # sides load the same values, compute in float32 and round once, so the
 # float32 limits cover sums in another order (H100 readings: K6 8.3e-7;
@@ -565,7 +576,8 @@ def main() -> int:
                                                saxpy_ref)
     from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
     from repro_torch.kernels.eikonal.ops import eikonal_fim_ref
-    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.kernels.stencil.kernel import (flux_difference_cuda,
+                                                    flux_traffic_cuda)
     from repro_torch.kernels.stencil.ops import (flux_difference,
                                                  flux_difference_ref)
     from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
@@ -591,9 +603,15 @@ def main() -> int:
         f"(wall {time.perf_counter() - t0:.1f}s, into {_build.BUILD_DIR})")
     for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix(".log")
+        advisories = 0
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "C7519" in line:   # "warpgroup.arrive is injected", one a wgmma
+                advisories += 1
+            elif "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+        if advisories:
+            log(f"ptxas {name}: {advisories} advisories C7519 (a wgmma fence "
+                f"injected by the compiler)")
 
     kernels = {  # name -> JSON entry
         "saxpy": {"source": "src/repro_torch/csrc/saxpy.cu",
@@ -700,10 +718,10 @@ def main() -> int:
         u = haloed_shock_bubble(dt)
         for lay in Layout:   # AoSoA goes through the ops relayout
             rec = relayout(RecordArray(u, EULER_SPEC, Layout.SOA), lay)
-            e = max_err(flux_difference(rec, FLUX_LAM, FLUX_LAM).data,
-                        flux_difference_ref(rec, FLUX_LAM, FLUX_LAM).data,
+            e = max_err(flux_difference(rec, *FLUX_PARITY_LAM).data,
+                        flux_difference_ref(rec, *FLUX_PARITY_LAM).data,
                         FLUX_TOL[dname], f"flux_difference {dname} "
-                                         f"{lay.name}")
+                                         f"{lay.name} λ={FLUX_PARITY_LAM}")
             if dname == "float32":
                 errs["flux_difference"] = max(errs["flux_difference"], e)
             del rec
@@ -792,7 +810,30 @@ def main() -> int:
                             "state weights rounded once to bfloat16":
                                 ssd_rejected_bf16(x, dts, A, Bm, C, chunk,
                                                   "chunk states")})
-        del x, dts, A, Bm, C, got, want
+        # the tile registry's chunk of 256: two 128-row tiles a block.  A
+        # kernel that dropped what tile 1 takes from tile 0 would return
+        # y_intra at chunk 128 and the states of each chunk's second half
+        got = ssd_intra_chunk_cuda(x, dts, A, Bm, C, chunk=SSD_CHUNK_256)
+        want = ssd_intra_chunk_ref(x, dts, A, Bm, C, chunk=SSD_CHUNK_256)
+        y_128, s_128 = ssd_intra_chunk_ref(x, dts, A, Bm, C, chunk=chunk)
+        half = (y_128, s_128[:, 1::2])
+        for part, g_, w_, h_ in zip(("y_intra", "chunk states"), got, want,
+                                    half):
+            lim = LM_KERNEL_TOL[f"ssd_intra_chunk {part}"][dname]
+            e = max_err(g_, w_, lim[0], f"ssd_intra_chunk {dname} {part} "
+                                        f"chunk {SSD_CHUNK_256}",
+                        rtol=lim[1])
+            if dname == "float32":
+                errs["ssd_intra_chunk"] = max(errs["ssd_intra_chunk"], e)
+            err, bad = outside(h_, w_, *lim)
+            log(f"ssd_intra_chunk {dname} {part} chunk {SSD_CHUNK_256} "
+                f"wrong variant (tile 1 without tile 0): max_abs_err="
+                f"{err:.3e}, {bad} values outside the limit")
+            if not bad:
+                raise AssertionError(f"ssd_intra_chunk {part}: the limit "
+                                     f"does not see a chunk of 256 cut in "
+                                     f"two")
+        del x, dts, A, Bm, C, got, want, y_128, s_128, half
         torch.cuda.empty_cache()
 
     # -- 3. the main path through Graph/Executor on the GPU ------------------
@@ -1034,7 +1075,20 @@ def main() -> int:
         library_ms=None,
         nbytes=4 * 4 * ((nx + 2) * (ny + 2) + nx * ny),
         ops=faces * OPS_PER_FACE + nx * ny * OPS_PER_CELL)
-    del rec, u
+    # K4 in its other layout and storage type, and its traffic alone: the
+    # same loads, shuffles and stores with a sum for the flux arithmetic
+    aos = relayout(rec, Layout.AOS)
+    rec_bf16 = RecordArray(u.bfloat16(), EULER_SPEC, Layout.SOA)
+    for what, fn in (
+            ("AOS", lambda: flux_difference_cuda(aos, FLUX_LAM, FLUX_LAM)),
+            ("SOA bfloat16", lambda: flux_difference_cuda(
+                rec_bf16, FLUX_LAM, FLUX_LAM)),
+            ("SOA (loads, shuffles and stores alone)",
+             lambda: flux_traffic_cuda(rec)),
+            ("AOS (loads, shuffles and stores alone)",
+             lambda: flux_traffic_cuda(aos))):
+        log(f"time flux_difference {what}: {time_ms(fn):.4f} ms ({card})")
+    del rec, u, aos, rec_bf16
 
     nx = ny = EIK_N
     phi = eik_mid
@@ -1123,11 +1177,30 @@ def main() -> int:
     if not k7:
         log("time ssd_intra_chunk bf16 device (profiler): not measured (the "
             "profiler saw no device activity)")
+    # ... and at the tile registry's chunk of 256 (two 128-row tiles a
+    # block), beside chunk 128's above
+    k7 = {name: v for name, v in device_time_by_kernel(
+        lambda: [ssd_intra_chunk_cuda(x, dts, A, Bm, C, chunk=SSD_CHUNK_256)
+                 for _ in range(30)]).items() if "ssd" in name}
+    b256 = bound(*ssd_work(*SSD_SHAPE[:-1], SSD_CHUNK_256, 2),
+                 BF16_TC_OPS_PER_S)[0]
+    for name, (us, count) in k7.items():
+        log(f"time ssd_intra_chunk bf16 chunk {SSD_CHUNK_256} device "
+            f"(profiler): {us / count / 1e3:.4f} ms per launch over {count} "
+            f"launches of {name[:60]}; bound {b256:.4f} ms ({card})")
+    if not k7:
+        log(f"time ssd_intra_chunk bf16 chunk {SSD_CHUNK_256} device "
+            f"(profiler): not measured (the profiler saw no device "
+            f"activity)")
     x, dts, A, Bm, C = ssd_inputs(torch.float32)
     f32_ms = time_ms(lambda: ssd_intra_chunk_cuda(x, dts, A, Bm, C,
                                                   chunk=chunk))
     log(f"time ssd_intra_chunk float32: kernel {f32_ms:.4f} ms, bound "
         f"{bound(*ssd_work(*SSD_SHAPE, 4))[0]:.4f} ms ({card})")
+    f32_ms = time_ms(lambda: ssd_intra_chunk_cuda(x, dts, A, Bm, C,
+                                                  chunk=SSD_CHUNK_256))
+    log(f"time ssd_intra_chunk float32 chunk {SSD_CHUNK_256}: kernel "
+        f"{f32_ms:.4f} ms ({card})")
     del x, dts, A, Bm, C
     for arch, run in lm_runs.items():
         log(f"serve {arch}: {run['tok_s']:.1f} tokens/s, decode "

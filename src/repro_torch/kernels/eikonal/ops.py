@@ -21,9 +21,9 @@ __all__ = ["eikonal_fim_sweep", "eikonal_fim_ref", "eikonal_global_jacobi",
 
 def eikonal_fim_sweep(phi_haloed, source_mask, h, *, inner: int = 4,
                       block=None, use_kernel: bool = True):
-    """``inner`` shared-memory FIM Jacobi sweeps per tile over a haloed
-    ``(nx+2, ny+2)`` level-set tensor (paper Table 5); returns the updated
-    ``(nx, ny)`` interior.
+    """``inner`` FIM Jacobi sweeps per tile, the tile held in registers,
+    over a haloed ``(nx+2, ny+2)`` level-set tensor (paper Table 5);
+    returns the updated ``(nx, ny)`` interior.
 
     ``block=None`` resolves the ``(bx, by)`` tile through the ambient tile
     scope (``repro_torch.tuning.tiles``); an explicit ``block`` always

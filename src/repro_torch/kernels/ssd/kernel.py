@@ -33,7 +33,7 @@ _SIGNATURES = {"ssd_intra_chunk_f32": _SIG, "ssd_intra_chunk_bf16": _SIG}
 def tile_candidates(shape: tuple[int, ...]) -> tuple[int, ...]:
     """Feasible chunk lengths for a sequence of ``S`` positions: exact
     tilings, as the reference registers them (the CUDA kernel takes
-    chunks of up to 128)."""
+    every one: chunks of up to 256)."""
     (s,) = shape
     return tuple(c for c in (32, 64, 128, 256) if c <= s and s % c == 0)
 
@@ -45,8 +45,9 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, C, *, chunk: int = DEFAULT_CHUNK):
     """K7 on the GPU.  x ``(B, S, H, P)`` and Bm, C ``(B, S, N)`` in one of
     float32 / bfloat16; dt ``(B, S, H)`` and A ``(H,)`` float32; all
     contiguous.  Returns ``(y_intra (B, S, H, P) in x's dtype, s_chunk (B,
-    S/chunk, H, P, N) float32)``.  A chunk above 128, P above 64 or N above
-    128 is refused by the launch itself ("invalid argument")."""
+    S/chunk, H, P, N) float32)``.  A chunk of 129-256 positions runs as
+    two 128-row tiles in one block.  A chunk above 256, P above 64 or N
+    above 128 is refused by the launch itself ("invalid argument")."""
     sfx = check_cuda_tensor(x, "ssd x")
     for t, what in ((Bm, "ssd B"), (C, "ssd C")):
         check_cuda_tensor(t, what)

@@ -4,11 +4,13 @@
 K4 :func:`flux_difference_cuda` replaces ``flux_difference_pallas``
 (``repro/kernels/stencil/kernel.py``): the FORCE flux difference summed
 over both dims of a haloed 2-D Euler record (space ``(nx+2, ny+2)`` in,
-``(nx, ny)`` out) with per-dim λ.  Each thread block stages its
-halo-inclusive tile in shared memory (the paper's ``in_shared``).  AoS and
-SoA are native; AoSoA is relayouted by the ops wrapper.
+``(nx, ny)`` out) with per-dim λ.  Each warp streams a strip of rows
+through registers and computes each face once: the x-face it carries from
+row to row, the y-face its lanes pass each other by shuffles
+(:func:`flux_geometry` says how strips map onto warps and blocks).  AoS
+and SoA are native; AoSoA is relayouted by the ops wrapper.
 
-The kernel picks its own 16 x 32 tile and masks the ragged edge; the
+The kernel's geometry is its own and masks the ragged edge; the
 reference's ``block`` contract (clamped to the interior, dividing it) is
 kept by :func:`check_block`, so the same calls succeed and fail in both
 packages.
@@ -17,6 +19,8 @@ packages.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,11 +34,25 @@ SUPPORTED_LAYOUTS = (Layout.AOS, Layout.SOA)
 PREFERRED_LAYOUT = Layout.SOA
 TILE_KERNEL = "flux"
 DEFAULT_BLOCK = (8, 128)
-CUDA_TILE = (16, 32)   # cells per thread block, as in csrc/stencil.cu
+#: the kernel's limits (``kMaxRows``, ``kMaxWarps`` in csrc/stencil.cu):
+#: lane r of a warp prepares row r's edge faces in shared memory sized for
+#: 8 rows and 4 warps; the grid's second dim is CUDA's
+MAX_ROWS = 8
+MAX_WARPS = 4
+MAX_GRID_Y = 65535
+#: the geometry taken: strips of 4 rows, 4 warps a block, the fastest that
+#: ``tools/k4_geometry.py`` reads at 4096^2 float32 on an H100 (a strip's
+#: loads all go out together at its start, and the walk keeps only two
+#: rows ahead in flight, so short strips keep more loads in flight)
+ROWS_PER_STRIP = 4
+WARPS_PER_BLOCK = 4
 
 _SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-_SIGNATURES = {"flux_difference_f32": _SIG, "flux_difference_bf16": _SIG}
+        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+_SIGNATURES = {f"{fn}_{sfx}": _SIG
+               for fn in ("flux_difference", "flux_traffic")
+               for sfx in ("f32", "bf16")}
 
 
 def tile_candidates(shape: tuple[int, ...]) -> tuple[tuple[int, int], ...]:
@@ -59,11 +77,41 @@ def check_block(interior: tuple[int, int], block) -> None:
                          f"{(bx, by)}")
 
 
-def flux_difference_cuda(state_haloed: RecordArray, lam_x,
-                         lam_y) -> RecordArray:
-    """Sum of FORCE flux differences over both dims of a haloed AoS or SoA
-    ``EULER_SPEC`` record on the GPU; λ rounded to the working dtype,
-    arithmetic in float32."""
+class FluxGeometry(NamedTuple):
+    """How K4 covers an ``(nx, ny)`` interior: warp ``w`` of block
+    ``(gx, gy)`` of ``grid`` owns the 32 interior columns from
+    ``(gx * warps_per_block + w) * 32`` (lane ``l`` the ``l``-th) and walks
+    the rows ``gy * rows_per_strip`` up to ``rows_per_strip`` further, or
+    to the interior's last row.  It reads the haloed rows from its first
+    row to one past its last (haloed row ``x + 1`` holds interior row
+    ``x``; the walk's loads run two rows further, clamped to ``nx + 1``),
+    and the haloed columns from its first to two past its last, clamped to
+    ``ny + 1``."""
+
+    rows_per_strip: int
+    warps_per_block: int
+    grid: tuple[int, int]
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps_per_block
+
+
+@functools.lru_cache(maxsize=64)
+def flux_geometry(nx: int, ny: int) -> FluxGeometry:
+    """K4's geometry for an ``(nx, ny)`` interior: strips of
+    ``ROWS_PER_STRIP`` rows (all of them when fewer), up to
+    ``WARPS_PER_BLOCK`` warps a block side by side along y."""
+    if nx < 1 or ny < 1:
+        raise ValueError(f"flux_difference: empty interior ({nx}, {ny})")
+    rows = min(ROWS_PER_STRIP, nx)
+    col_groups = -(-ny // 32)
+    warps = min(WARPS_PER_BLOCK, col_groups)
+    return FluxGeometry(rows, warps, (-(-col_groups // warps),
+                                      -(-nx // rows)))
+
+
+def _launch(fn: str, state_haloed: RecordArray, lam_x, lam_y) -> RecordArray:
     sfx = check_cuda_tensor(state_haloed.data, "flux_difference")
     if state_haloed.spec != EULER_SPEC \
             or state_haloed.layout not in SUPPORTED_LAYOUTS \
@@ -71,23 +119,44 @@ def flux_difference_cuda(state_haloed: RecordArray, lam_x,
         raise ValueError(f"flux_difference: expects a 2-d AoS or SoA "
                          f"EULER_SPEC record, got {state_haloed!r}")
     nx, ny = (s - 2 for s in state_haloed.space)
-    if nx < 1 or ny < 1:
-        raise ValueError(f"flux_difference: empty interior ({nx}, {ny})")
-    if -(-nx // CUDA_TILE[0]) > 65535:
+    geo = flux_geometry(nx, ny)
+    if geo.grid[1] > MAX_GRID_Y:
         raise ValueError(f"flux_difference: nx={nx} exceeds the grid")
+    cell_bytes = 4 * state_haloed.data.element_size()
+    if state_haloed.layout is Layout.AOS \
+            and state_haloed.data.data_ptr() % cell_bytes:
+        raise ValueError(f"flux_difference: an AoS record needs a base "
+                         f"aligned to its {cell_bytes}-byte cells")
     out = torch.empty(
         RecordArray.storage_shape(EULER_SPEC, (nx, ny), state_haloed.layout),
         dtype=state_haloed.dtype, device=state_haloed.device)
     lib = _build.load("stencil", _SIGNATURES)
     with torch.cuda.device(state_haloed.device):
-        code = getattr(lib, f"flux_difference_{sfx}")(
+        code = getattr(lib, f"{fn}_{sfx}")(
             state_haloed.data.data_ptr(), out.data_ptr(), nx, ny,
             LAYOUT_CODE[state_haloed.layout],
             round_to(lam_x, state_haloed.dtype),
-            round_to(lam_y, state_haloed.dtype), stream_of(state_haloed.data))
-    _build.check(lib, code, "flux_difference")
-    flux_difference_cuda.launches += 1
+            round_to(lam_y, state_haloed.dtype), geo.rows_per_strip,
+            geo.warps_per_block, *geo.grid, stream_of(state_haloed.data))
+    _build.check(lib, code, fn)
     return RecordArray(out, EULER_SPEC, state_haloed.layout)
 
 
+def flux_difference_cuda(state_haloed: RecordArray, lam_x,
+                         lam_y) -> RecordArray:
+    """Sum of FORCE flux differences over both dims of a haloed AoS or SoA
+    ``EULER_SPEC`` record on the GPU; λ rounded to the working dtype,
+    arithmetic in float32, the result rounded once."""
+    out = _launch("flux_difference", state_haloed, lam_x, lam_y)
+    flux_difference_cuda.launches += 1
+    return out
+
+
 flux_difference_cuda.launches = 0
+
+
+def flux_traffic_cuda(state_haloed: RecordArray) -> RecordArray:
+    """K4's loads, shuffles and stores with a sum in place of the flux
+    arithmetic, on the same geometry: the kernel's traffic alone, for
+    timing.  Its result is no flux."""
+    return _launch("flux_traffic", state_haloed, 1.0, 1.0)

@@ -1,10 +1,12 @@
 """Public FORCE flux-difference stencil + its graph builder.
 
-The CUDA kernel walks halo-inclusive tiles, which needs per-axis storage
-(AoS or SoA).  An AoSoA input is relayouted to the kernel's preferred
-layout on the way in and back on the way out — the same boundary
-conversion the executor's layout solver emits.  A CUDA record goes to the
-kernel (or the wrapper raises), a CPU record to the plain version.
+The CUDA kernel streams strips of rows through registers, one warp a
+strip of 32 columns, and computes each face once; it reads cells in
+per-axis storage (AoS or SoA).  An AoSoA input is relayouted to the
+kernel's preferred layout on the way in and back on the way out — the
+same boundary conversion the executor's layout solver emits.  A CUDA
+record goes to the kernel (or the wrapper raises), a CPU record to the
+plain version.
 """
 
 from typing import Optional

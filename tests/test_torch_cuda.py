@@ -107,9 +107,13 @@ def test_record_kernels(dev, layout, dtype):
 
 @pytest.mark.parametrize("layout", list(Layout))
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(64, 128), (40, 50)])
+@pytest.mark.parametrize("shape", [(64, 128), (40, 50), (256, 512),
+                                   (33, 33), (1, 1), (37, 131)])
 def test_flux_kernel(dev, layout, dtype, shape):
-    """Whole tiles and a ragged edge (40 x 50 is no multiple of 16 x 32)."""
+    """Whole strips and warps, and ragged edges: 40 x 50 and 37 x 131 are
+    no multiples of the 32-row strip or the 32-column warp, 33 x 33 is one
+    row past a strip and one column past a warp, 1 x 1 one cell.  λx and
+    λy differ, so an x/y swap shows."""
     from repro_torch.kernels.stencil.ops import (flux_difference,
                                                  flux_difference_ref)
     from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
@@ -119,7 +123,7 @@ def test_flux_kernel(dev, layout, dtype, shape):
         u = pad_boundary_only(u, axis=ax, width=1,
                               boundary=Boundary.TRANSMISSIVE)
     rec = RecordArray(u, EULER_SPEC, Layout.SOA).with_layout(layout)
-    got = flux_difference(rec, 0.1, 0.2, block=(8, 2))
+    got = flux_difference(rec, 0.1, 0.2, block=shape)
     assert got.layout is layout and got.space == shape
     _close(got.data, flux_difference_ref(rec, 0.1, 0.2).data,
            _tol(dtype, f32=1e-4))
@@ -349,7 +353,9 @@ def test_attention_kernel_reads_strided_views(dev):
 # K7 cases: (B, S, H, P, N, chunk); 40 is a prompt shorter than one
 # 64-position chunk, no multiple of the kernel's 16-row thread tile; the
 # chunk lengths of the tile registry, and mamba2-130m's prompts padded to
-# its chunk (640 and 1024 positions, all 24 heads)
+# its chunk (640 and 1024 positions, all 24 heads).  Chunks of 256 run as
+# two 128-row tiles: three chunks (S = 768), N = 64 (one slab), and L =
+# 200, whose second tile is masked past row 72.
 SSD_CASES = {"mamba2": (1, 512, 4, 64, 128, 128), "smoke": (2, 64, 3, 16,
                                                             16, 16),
              "ragged": (1, 40, 2, 32, 48, 40),
@@ -358,7 +364,10 @@ SSD_CASES = {"mamba2": (1, 512, 4, 64, 128, 128), "smoke": (2, 64, 3, 16,
              "L64": (1, 256, 4, 64, 128, 64),
              "L128": (2, 256, 4, 64, 128, 128),
              "prompt_640": (1, 640, 24, 64, 128, 128),
-             "prompt_1024": (1, 1024, 24, 64, 128, 128)}
+             "prompt_1024": (1, 1024, 24, 64, 128, 128),
+             "L256": (1, 768, 4, 64, 128, 256),
+             "L256_N64": (2, 512, 3, 32, 64, 256),
+             "L200": (1, 400, 2, 64, 128, 200)}
 
 
 def _ssd_inputs(dev, dtype, B, S, H, P, N):
@@ -398,6 +407,39 @@ def test_ssd_kernel(dev, dtype, case):
     _close(state, want_state, tol)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_chunk_256_under_a_tile_scope(dev, dtype):
+    """``ssd(...)`` with the chunk from ``tile_scope({"ssd": 256})``
+    launches K7 and matches ``ssd_chunked``; K7's outputs stay within their
+    limits, and a deliberately wrong K7, one that drops what query tile 1
+    takes from key tile 0 (it equals y_intra at chunk 128, and the states
+    of each chunk's second half), falls outside them."""
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_intra_chunk_ref
+    from repro_torch.tuning.tiles import tile_scope
+
+    x, dt, A, Bm, C = _ssd_inputs(dev, dtype, 1, 512, 4, 64, 128)
+    before = ssd_intra_chunk_cuda.launches
+    with tile_scope({"ssd": 256}):
+        got, state = ssd(x, dt, A, Bm, C)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+    want, want_state = ssd_chunked(x, dt, A, Bm, C, chunk=256)
+    tol = _tol(dtype, f32=2e-4)
+    _close(got, want, tol)
+    _close(state, want_state, tol)
+    y, s = ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=256)
+    y_want, s_want = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=256)
+    _close(y, y_want, *LM_TOL["ssd y"][dtype])
+    _close(s, s_want, *LM_TOL["ssd states"][dtype])
+    y_half, s_half = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=128)
+    for wrong, want_, lim in ((y_half, y_want, LM_TOL["ssd y"][dtype]),
+                              (s_half[:, 1::2], s_want,
+                               LM_TOL["ssd states"][dtype])):
+        with pytest.raises(AssertionError):
+            _close(wrong, want_, *lim)
+
+
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.attention.kernel import flash_attention_cuda
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
@@ -414,9 +456,9 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_cuda(qs[..., :128], kv, kv)
     assert flash_attention_cuda.launches == before
-    x, dt, A, Bm, C = _ssd_inputs(dev, "float32", 1, 256, 2, 64, 128)
-    with pytest.raises(RuntimeError, match="invalid argument"):   # L > 128
-        ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=256)
+    x, dt, A, Bm, C = _ssd_inputs(dev, "float32", 1, 512, 2, 64, 128)
+    with pytest.raises(RuntimeError, match="invalid argument"):   # L > 256
+        ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=512)
     with pytest.raises(TypeError, match="float32"):
         ssd_intra_chunk_cuda(x, dt.bfloat16(), A, Bm, C, chunk=128)
     # bfloat16 on the tensor cores: N off the multiples of 8, or a base off

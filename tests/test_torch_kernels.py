@@ -175,6 +175,78 @@ def test_flux_block_contract_fails_in_both():
         flux_difference(p, 0.1, 0.1, block=(16, 12))
 
 
+def _flux_cover(nx, ny):
+    """How often K4's geometry writes each interior row and column (a cell
+    is written by exactly one warp when both are 1), as
+    ``FluxGeometry`` documents the mapping, and the last haloed row and
+    column any warp reads."""
+    from repro_torch.kernels.stencil.kernel import flux_geometry
+
+    geo = flux_geometry(nx, ny)
+    R, W, (gx, gy) = geo.rows_per_strip, geo.warps_per_block, geo.grid
+    rows, cols = np.zeros(nx, int), np.zeros(ny, int)
+    last_row = last_col = 0
+    for s in range(gy):
+        x0 = s * R
+        if x0 >= nx:
+            continue
+        nrows = min(R, nx - x0)
+        rows[x0:x0 + nrows] += 1
+        # the rows of the strip and one past it on each side, and the walk's
+        # loads two rows ahead, clamped to nx + 1
+        last_row = max(last_row, x0 + nrows + 1, min(x0 + nrows + 3, nx + 1))
+    for w in range(gx * W):
+        y0 = w * 32
+        if y0 >= ny:
+            continue
+        cols[y0:min(y0 + 32, ny)] += 1
+        # lane columns clamped to ny + 1, and lane 31's right neighbour
+        last_col = max(last_col, min(y0 + 32, ny + 1), min(y0 + 33, ny + 1))
+    return geo, rows, cols, last_row, last_col
+
+
+def _check_flux_geometry(nx, ny):
+    from repro_torch.kernels.stencil.kernel import (MAX_GRID_Y, MAX_ROWS,
+                                                    MAX_WARPS)
+
+    geo, rows, cols, last_row, last_col = _flux_cover(nx, ny)
+    assert (rows == 1).all() and (cols == 1).all(), (nx, ny)
+    assert last_row <= nx + 1 and last_col <= ny + 1
+    R, W, (gx, gy) = geo.rows_per_strip, geo.warps_per_block, geo.grid
+    assert 1 <= R <= MAX_ROWS and 1 <= W <= MAX_WARPS
+    assert 32 <= geo.threads <= 1024 and 1 <= gy <= MAX_GRID_Y
+    # no block lies wholly past the interior
+    assert (gy - 1) * R < nx and (gx - 1) * W * 32 < ny
+
+
+def test_flux_geometry_covers_every_tile_interior():
+    """Every interior the tile registry offers tiles for, sides 16-4096."""
+    sides = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+    for nx in sides:
+        for ny in sides:
+            _check_flux_geometry(nx, ny)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 33), (37, 131), (5, 64),
+                                   (3, 129), (64, 257), (4097, 4095)])
+def test_flux_geometry_covers_ragged_interiors(shape):
+    """Ragged shapes: one cell, one column past a warp, neither axis a
+    multiple, one row past a strip, a strip shorter than the geometry's
+    with one column past a block, one column past a warp, both."""
+    _check_flux_geometry(*shape)
+
+
+def test_flux_geometry_main_path():
+    """4096^2: strips of 4 rows, 4 warps a block, 32 x 1024 blocks."""
+    from repro_torch.kernels.stencil.kernel import flux_geometry
+
+    geo = flux_geometry(4096, 4096)
+    assert (geo.rows_per_strip, geo.warps_per_block, geo.grid) == \
+        (4, 4, (32, 1024))
+    with pytest.raises(ValueError, match="empty interior"):
+        flux_geometry(0, 4)
+
+
 # -- physics (the math inside K4) ------------------------------------------------
 
 @pytest.mark.parametrize("fn", ["pressure", "sound_speed", "max_wavespeed",

@@ -54,7 +54,8 @@ def _inputs(B, S, H, P, N, dtype="float32", seed=0):
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 2, 16, 16, 16),
-                                   (2, 48, 3, 8, 24, 24)])
+                                   (2, 48, 3, 8, 24, 24),
+                                   (1, 512, 2, 16, 16, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_intra_chunk_plain_version_matches_pallas_kernel(shape, dtype):
     B, S, H, P, N, chunk = shape
