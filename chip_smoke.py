@@ -28,6 +28,14 @@ result line):
    against the plain loop on the card and the exact distance); every
    kernel's launch count is read from each graph's run, the counts set to
    0 just before it;
+   then the measured autotuner: the particle step graph (2^24 particles
+   per species, tiles left to the registry) and the flux graph (4096 x
+   4096) each constructed with ``Executor(g, tune="auto")`` under a fresh
+   tuning cache in ``build/``; the tuned plan's state after 100 steps
+   held against the heuristic plan's (bitwise, or the kernels' parity
+   limit), both timed per step and one step of each traced with
+   ``torch.profiler``, and a second construction checked to load the
+   decision with zero new measurements;
    then LM serving through ``Batcher`` -> ``Executor``: qwen3-8b at its
    published width and depth (36 layers, bf16, random weights from a
    seeded generator, made on the card) and mamba2-130m at its published
@@ -65,6 +73,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -107,6 +116,10 @@ OPS_PER_CELL = 2 * 4 * 2 + 4
 # operations of one Godunov update with its source select in
 # csrc/eikonal.cu, per cell and sweep
 EIK_OPS_PER_CELL_SWEEP = 17
+# the tuning phase: steps of the heuristic and of the tuned plan each, and
+# the tuning cache it starts empty
+TUNE_CHECK_STEPS = 100
+TUNE_CACHE = os.path.join(REPO, "build", "tune-cache")
 # LM serving: 8 requests, two of each prompt length, 4 batch slots
 LM_PROMPTS = (2048, 2048, 1536, 1536, 1000, 1000, 517, 517)
 LM_GEN, LM_SLOTS, LM_MAX_SEQ = 32, 4, 2112
@@ -327,20 +340,32 @@ def ssd_rejected_bf16(x, dt, A, Bm, C, chunk: int, part: str):
     return torch.einsum("bchjp,bcjn->bchpn", a, bc)
 
 
-def device_time_by_kernel(fn) -> dict[str, tuple[float, int]]:
+def device_time_by_kernel(fn,
+                          warmup: int = 0) -> dict[str, tuple[float, int]]:
     """Run ``fn`` once under ``torch.profiler``; returns the device time in
-    microseconds and the launch count of every kernel it ran, by name."""
+    microseconds and the launch count of every kernel it ran, by name.
+    ``warmup`` calls run first under the profiler's warm-up and are not
+    counted: on the H100 the trace lost the first launches of a short
+    call (the two K3 launches that open a particle step)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=1)
+                 if warmup else None) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         fn()
         torch.cuda.synchronize()
+    # with a schedule, the profiler's own "ProfilerStep#" range also
+    # carries the whole step's device time: it is no kernel
     return {e.key: (e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")}
 
 
 def bound(nbytes: float, ops: float,
@@ -379,6 +404,91 @@ def ssd_work(B: int, S: int, H: int, P: int, N: int, L: int,
     tri = L * (L + 1) // 2
     ops = B * nc * H * (2 * tri * N + 2 * tri * P + 2 * L * P * N)
     return nbytes, ops
+
+
+def tune_graph(what: str, g, inputs: dict, limits: dict, card: str,
+               zero_counts, read_counts) -> dict:
+    """Construct ``Executor(g, tune="auto", tune_inputs=inputs)`` on the
+    card, then run the heuristic and the tuned plan ``TUNE_CHECK_STEPS``
+    steps each from ``inputs`` (and one more step of each under
+    ``torch.profiler``, after the counts are read).  Fails unless every
+    state value of the
+    tuned plan equals the heuristic plan's within ``limits`` (state key ->
+    max |difference|; 0 means bitwise) and a second construction loads
+    the decision from the cache with zero measurements.  Returns the
+    launch counts of the whole phase (search, both runs) and the
+    readings."""
+    import torch
+
+    from repro_torch.core import Executor
+    from repro_torch.tuning import search as tune_search
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    tuned = Executor(g, tune="auto", tune_inputs=inputs)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    dec = tuned.plan.tuning
+    if dec.source != "measured":
+        raise AssertionError(f"tune {what}: decision from {dec.source}, "
+                             f"expected a measured one (fresh cache)")
+    log(f"tune {what}: {tuned.describe_tuning()}")
+    base = Executor(g)
+    want, base_ms = run_steps(base, base.init_state(**inputs),
+                              TUNE_CHECK_STEPS)
+    got, tuned_ms = run_steps(tuned, tuned.init_state(**inputs),
+                              TUNE_CHECK_STEPS)
+    counts = read_counts()
+    # where each plan's step goes: one more step of each under the profiler
+    for name, ex, st, wall_ms in (("heuristic", base, want, base_ms),
+                                  ("tuned", tuned, got, tuned_ms)):
+        by_kernel = device_time_by_kernel(lambda: ex.run(st, 1), warmup=1)
+        busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+        log(f"tune {what} {name} step: device busy {busy_ms:.4f} ms of "
+            f"{wall_ms:.3f} ms wall per step ({card})")
+        for kname, (us, n) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:8]:
+            log(f"  {us / 1e3:.4f} ms, {n} launches: {kname[:100]}")
+    for key, lim in limits.items():
+        t = base.tensors.get(key)
+        pairs = ([(f"{key}.{f}", tuned.read(got, t).field(f),
+                   base.read(want, t).field(f)) for f in t.spec.names]
+                 if t is not None and t.is_record
+                 else [(key, got[key], want[key])])
+        for name, a, b in pairs:
+            same = torch.equal(a, b)
+            err = float((a.float() - b.float()).abs().max())
+            log(f"tune {what} {name}: tuned vs heuristic after "
+                f"{TUNE_CHECK_STEPS} steps: bitwise equal {same}, max "
+                f"|difference| {err:.3e} (limit {lim:g})")
+            if not (same or err <= lim):
+                raise AssertionError(f"tune {what}: {name} of the tuned "
+                                     f"plan differs from the heuristic's")
+    measured = tune_search.STATS["measurements"]
+    again = Executor(g, tune="auto", tune_inputs=inputs).plan.tuning
+    if again.source != "cache" or \
+            tune_search.STATS["measurements"] != measured:
+        raise AssertionError(f"tune {what}: the second construction came "
+                             f"from {again.source} with "
+                             f"{tune_search.STATS['measurements'] - measured}"
+                             f" new measurements")
+    # each timed call of the search runs TUNE_STEPS steps: the first,
+    # one more warm-up, then the measured iterations
+    steps = sum((2 + m.iters) * tune_search.TUNE_STEPS
+                for m in dec.measurements) + 2 * TUNE_CHECK_STEPS
+    chosen = ", ".join(
+        [f"{k}={v.name}" for k, v in sorted(dec.layouts.items())]
+        + [f"{k}={v!r}" for k, v in sorted(dec.tiles.items())]) \
+        or "the heuristic plan"
+    log(f"tune {what}: search {search_s:.3f} s wall, {dec.proposed} "
+        f"proposed / {dec.pruned} pruned / {dec.measured} measured; chose "
+        f"{chosen}; per step heuristic {base_ms:.3f} ms, tuned "
+        f"{tuned_ms:.3f} ms (median of {TUNE_CHECK_STEPS}); the second "
+        f"construction loaded it from the cache with 0 measurements "
+        f"({card})")
+    return {"counts": counts, "steps": steps, "search_s": search_s,
+            "base_ms": base_ms, "tuned_ms": tuned_ms}
 
 
 def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
@@ -1002,6 +1112,51 @@ def main() -> int:
                 f"launches: {name[:100]}")
     del state, ex
     torch.cuda.empty_cache()
+
+    # the measured autotuner over the particle and flux graphs, under a
+    # fresh cache.  The eikonal solve is left out: one timed call of a
+    # loop graph runs TUNE_STEPS whole solves of 745 iterations (~1.1 s),
+    # about 8 s a candidate; the CPU tests tune a loop graph
+    from repro_torch.tuning import cache as tune_cache
+
+    shutil.rmtree(TUNE_CACHE, ignore_errors=True)
+    os.environ["REPRO_TUNE_CACHE"] = TUNE_CACHE
+    tune_cache.clear_memo()
+    counts_now = lambda: {k: w.launches for k, w in wrappers.items()}
+    g, _, _ = workloads.build_particle_graph(PARTICLE_N, block=None)
+    fields = workloads.particle_fields(PARTICLE_N)
+    inputs = {
+        k: RecordArray.from_fields(spec, {f: torch.from_numpy(v).to(dev)
+                                          for f, v in fields[k].items()},
+                                   lay)
+        for k, (spec, lay) in specs.items()}
+    del fields
+    run = tune_graph("particle_step", g, inputs,
+                     {"ions": TOL["float32"], "electrons": TOL["float32"],
+                      "field": TOL["float32"], "vmax": 0.0},
+                     card, zero_counts, counts_now)
+    path_launches["tune particle_step"] = run["counts"]
+    expect["tune particle_step"] = {"particle_update": 2 * run["steps"],
+                                    "saxpy_record": run["steps"]}
+    del inputs
+    g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
+                                      lam_y=FLUX_LAM)
+    run = tune_graph("flux", g, {"u": u0},
+                     {"u": 0.0, "flux": FLUX_TOL["float32"]},
+                     card, zero_counts, counts_now)
+    path_launches["tune flux"] = run["counts"]
+    expect["tune flux"] = {"flux_difference": run["steps"]}
+    del u0, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path in ("tune particle_step", "tune flux"):
+        counts = path_launches[path]
+        log(f"main path launches {path}: {json.dumps(counts)}")
+        for k, n in counts.items():
+            if n != expect[path].get(k, 0):
+                raise AssertionError(f"{k}: {n} launches in {path}, "
+                                     f"expected {expect[path].get(k, 0)}")
+            launches[k] += n
 
     # LM serving: qwen3-8b through K6, mamba2-130m through K7
     lm_runs = {}

@@ -30,10 +30,19 @@ A conditional subgraph (paper §5.3.6) is a ``loop`` segment, or a
 semantics through a sub-executor built once per segment.  On the GPU each
 check of the predicate is one device-to-host read.
 
+The **measured autotuner** (``tune="auto"`` / ``"load"``,
+``repro_torch.tuning.search``) times candidate layouts and kernel tiles as
+real runs of fresh executors, commits the fastest and persists it in the
+tuning cache keyed by the heuristic plan's :func:`plan_signature` (the
+structural identity of a plan: graph structure, node function code and
+closures, shapes, dtypes, layouts, schedule, device type, overrides,
+tiles), so a second process over an identical graph loads the decision
+with zero measurements.
+
 Not in this executor yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``mesh=`` and partitioned tensors (item 8), ``tune=``
-(item 9), region compile (``regions=True``, item 7(b)) and async region
-dispatch (``async_regions=True``, item 7(c)).
+its ROADMAP item: ``mesh=`` and partitioned tensors (item 8), region
+compile (``regions=True``, item 7(b)) and async region dispatch
+(``async_regions=True``, item 7(c)).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -42,10 +51,16 @@ PyTorch versions on the CPU.
 
 from __future__ import annotations
 
+import enum as enum_lib
+import functools
+import hashlib
+import sys
+import types
 from contextlib import contextmanager
 from dataclasses import dataclass, field as dfield
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..tuning.tiles import tile_scope
@@ -59,11 +74,10 @@ from .schedule import ScheduleDag
 from .tensor import DistTensor, ReductionResult
 
 __all__ = ["Executor", "execute", "LayoutPlan", "RelayoutStep",
-           "solve_layouts"]
+           "layout_candidates", "plan_signature", "solve_layouts"]
 
 _ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
               "executor)")
-_ITEM_TUNE = "ROADMAP item 9 (tuning)"
 _ITEM_REGIONS = "ROADMAP item 7(b) (region compile)"
 _ITEM_ASYNC = "ROADMAP item 7(c) (async regions)"
 
@@ -95,13 +109,19 @@ class LayoutPlan:
     """Solver output: ``initial`` is what :meth:`Executor.init_state`
     materializes (the first consuming segment's choice), ``per_segment``
     the layout of every record tensor each segment touches, ``relayouts``
-    the boundary conversions of one pass, and ``dag`` the dependency DAG
-    with its segment placement."""
+    the boundary conversions of one pass, ``dag`` the dependency DAG
+    with its segment placement, ``signature`` the 12-hex digest of the
+    :func:`plan_signature` and ``tuning`` the measured autotuner's
+    :class:`~repro_torch.tuning.search.TuningDecision` when the Executor
+    was constructed with ``tune="load"``/``"auto"`` (None when tuning is
+    off)."""
 
     per_segment: list[dict[str, Layout]] = dfield(default_factory=list)
     initial: dict[str, Layout] = dfield(default_factory=dict)
     relayouts: list[RelayoutStep] = dfield(default_factory=list)
     dag: Optional[ScheduleDag] = None
+    signature: str = ""
+    tuning: Optional[Any] = None
 
     def describe_dag(self) -> str:
         """Render the dependency DAG with its segment/wave placement and
@@ -109,6 +129,17 @@ class LayoutPlan:
         if self.dag is None:
             return "(no dependency DAG recorded)"
         return self.dag.describe(plan=self)
+
+    def describe_tuning(self) -> str:
+        """Render the measured autotuner's decision for this plan: the
+        baseline-vs-tuned steady-state times, every candidate measured
+        (layout per state key, tile per kernel) and which won.  With
+        tuning off, says so and how to turn it on."""
+        if self.tuning is None:
+            return ("(no measured tuning: heuristic layout solver and "
+                    "default kernel tiles — construct the Executor with "
+                    "tune=\"auto\" to measure)")
+        return self.tuning.describe()
 
 
 def _segment_nodes(kind: str, payload):
@@ -222,6 +253,253 @@ def solve_layouts(
     return plan
 
 
+# -- plan signature (structural identity of a plan) ----------------------------
+#
+# The tuning cache (and item 7(b)'s executable cache after it) must never
+# alias two plans that could compute different values, and should alias
+# plans from *re-instantiated* executors over an identical graph (the
+# serving pattern).  Node names are excluded (they come from a global
+# counter and differ per build); node *functions* are keyed by
+# module/qualname + code object + closure/default values, so a rebuilt
+# graph using the same function definitions matches.  Anything the
+# signature cannot prove equal falls back to ``id(...)``: a conservative
+# miss, never a wrong hit.
+
+_SIG_DEPTH = 6
+
+
+def _module_singleton(fn) -> bool:
+    """True if ``fn`` IS the attribute its module/qualname (or its
+    module/name) names — a stable process-wide singleton (e.g.
+    ``torch.amax``, whose qualname is ``_VariableFunctionsClass.amax``)."""
+    mod = sys.modules.get(getattr(fn, "__module__", None) or "")
+    if mod is None:
+        return False
+    if getattr(mod, getattr(fn, "__name__", None) or "", None) is fn:
+        return True
+    obj = mod
+    try:
+        for part in fn.__qualname__.split("."):
+            obj = getattr(obj, part)
+    except AttributeError:
+        return False
+    return obj is fn
+
+
+def _code_sig(code: types.CodeType):
+    consts = tuple(_code_sig(c) if isinstance(c, types.CodeType) else repr(c)
+                   for c in code.co_consts)
+    return (code.co_name, code.co_argcount, code.co_code, consts,
+            code.co_names)
+
+
+def _all_code_names(code: types.CodeType) -> set:
+    """Every global name referenced by ``code`` or its nested code
+    objects (inner lambdas/defs share the enclosing fn's globals)."""
+    names = set(code.co_names)
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            names |= _all_code_names(c)
+    return names
+
+
+def _globals_sig(fn, code: types.CodeType, depth: int):
+    """Key the VALUES of the module globals a function reads — a node fn
+    like ``def f(x): return x * SCALE`` must miss when SCALE changed
+    between Executor builds (co_names alone keys the name, not the
+    value).  Module-valued names are keyed by module name (cheap)."""
+    g = getattr(fn, "__globals__", None)
+    if g is None:
+        return ()
+    out = []
+    for name in sorted(_all_code_names(code)):
+        if name in g:
+            v = g[name]
+            if isinstance(v, types.ModuleType):
+                out.append((name, ("module", v.__name__)))
+            else:
+                out.append((name, _sig_value(v, depth)))
+    return tuple(out)
+
+
+def _fn_sig(fn, depth: int = 0):
+    if depth > _SIG_DEPTH:
+        return ("deep-fn", id(fn))
+    if isinstance(fn, functools.partial):
+        return ("partial", _fn_sig(fn.func, depth + 1),
+                _sig_value(fn.args, depth + 1),
+                _sig_value(fn.keywords, depth + 1))
+    # a bound method proxies __code__/__closure__ from the underlying
+    # function — the receiver carries state, so it must be keyed too
+    self_obj = getattr(fn, "__self__", None)
+    if self_obj is not None:
+        func = getattr(fn, "__func__", None)
+        return ("bound", _sig_value(self_obj, depth + 1),
+                _fn_sig(func, depth + 1) if func is not None else None)
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        mod = getattr(fn, "__module__", None)
+        qn = getattr(fn, "__qualname__", None) or getattr(fn, "__name__", None)
+        if qn is not None and _module_singleton(fn):
+            return ("singleton", mod, qn)
+        return ("callable", mod, qn, id(fn))
+    cells = []
+    for c in (fn.__closure__ or ()):
+        try:
+            cells.append(_sig_value(c.cell_contents, depth + 1))
+        except ValueError:          # empty cell
+            cells.append(("empty-cell",))
+    # globals are keyed by VALUE one level deep (the node fn itself and
+    # its closure-level callees); deeper library internals would explode
+    # the walk and are keyed by code identity alone
+    globs = _globals_sig(fn, code, depth + 1) if depth < 2 else ()
+    return ("fn", fn.__module__, fn.__qualname__, _code_sig(code),
+            tuple(cells), _sig_value(fn.__defaults__ or (), depth + 1),
+            _sig_value(fn.__kwdefaults__ or {}, depth + 1), globs)
+
+
+def _tensor_sig(t: DistTensor):
+    spec = (None if t.spec is None
+            else tuple((f.name, f.size) for f in t.spec.fields))
+    return ("dt", t.name, t.space, str(t.dtype), spec, t.layout.name,
+            t.pin_layout, t.partition, t.halo, t.boundary.name,
+            t.boundary_constant, t.subblocks)
+
+
+def _sig_value(v, depth: int = 0):
+    if depth > _SIG_DEPTH:
+        return ("deep", id(v))
+    if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return v
+    if isinstance(v, enum_lib.Enum):
+        return ("enum", type(v).__name__, v.name)
+    if isinstance(v, (torch.dtype, torch.device)):
+        return (type(v).__name__, str(v))
+    if isinstance(v, (tuple, list)):
+        return ("seq", tuple(_sig_value(x, depth + 1) for x in v))
+    if isinstance(v, dict):
+        return ("map", tuple(sorted(
+            (str(k), _sig_value(x, depth + 1)) for k, x in v.items())))
+    if isinstance(v, DistTensor):
+        return _tensor_sig(v)
+    if isinstance(v, ReductionResult):
+        return ("res", v.name, str(v.dtype), v.init)
+    if isinstance(v, np.ndarray):
+        if v.size > 1024:
+            return ("bigarr", tuple(v.shape), str(v.dtype), id(v))
+        return ("arr", v.shape, str(v.dtype), v.tobytes())
+    if isinstance(v, torch.Tensor):
+        # shape and dtype are metadata; only small tensors are copied to
+        # the host for value-keying
+        if v.numel() > 1024:
+            return ("bigarr", tuple(v.shape), str(v.dtype), id(v))
+        raw = v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        return ("arr", tuple(v.shape), str(v.dtype), raw.numpy().tobytes())
+    if callable(v):
+        return _fn_sig(v, depth + 1)
+    return ("obj", type(v).__module__, type(v).__qualname__, id(v))
+
+
+def _node_sig(node: Node):
+    args = []
+    for a in node.args:
+        if isinstance(a, TensorArg):
+            args.append(("targ", _tensor_sig(a.tensor), a.mode.name,
+                         None if a.layout is None else a.layout.name))
+        elif isinstance(a, DistTensor):
+            args.append(("t", _tensor_sig(a)))
+        elif isinstance(a, ReductionResult):
+            args.append(("r", a.name, str(a.dtype), a.init))
+        else:
+            args.append(("v", _sig_value(a)))
+    red = (None if node.reducer is None else
+           (node.reducer.name, node.reducer.combine,
+            _fn_sig(node.reducer.local)))
+    res = (None if node.result is None else
+           (node.result.name, str(node.result.dtype), node.result.init))
+    sub = None if node.subgraph is None else _graph_sig(node.subgraph)
+    return (node.kind, node.exec_kind.name, node.overlap, node.writes,
+            tuple(args), None if node.fn is None else _fn_sig(node.fn),
+            red, res, sub)
+
+
+def _graph_sig(g: Graph):
+    levels = tuple(tuple(_node_sig(n) for n in level) for level in g.levels)
+    cond = None if g.condition is None else _fn_sig(g.condition)
+    return ("graph", levels, cond)
+
+
+def _segments_sig(segments):
+    out = []
+    for kind, payload in segments:
+        if kind == "device":
+            out.append(("device", tuple(
+                tuple(_node_sig(n) for n in wave) for wave in payload)))
+        elif kind == "host":
+            out.append(("host", _node_sig(payload)))
+        else:  # loop / host_loop: payload is the subgraph
+            out.append((kind, _graph_sig(payload)))
+    return tuple(out)
+
+
+def plan_signature(executor: "Executor") -> tuple:
+    """Structural identity of a plan: graph structure (node kinds, args,
+    function code + closures — NOT auto-generated node names), tensor
+    shapes/dtypes/layouts, schedule mode, device type, per-segment layout
+    decisions, forced per-segment overrides and kernel tile overrides.
+    Two executors with equal signatures compute identical values for
+    identical inputs.  Tile overrides are part of the key because they
+    change the kernels' launches (the autotuner's candidates never alias).
+    The JAX package's signature also keys donation and the mesh, which
+    the port has not."""
+    plan = executor.plan
+    return ("ripple-torch-plan-v3", executor.schedule,
+            executor.device.type, _segments_sig(executor._segments),
+            tuple(tuple(sorted((n, l.name) for n, l in seg.items()))
+                  for seg in plan.per_segment),
+            tuple(sorted((n, l.name) for n, l in plan.initial.items())),
+            tuple(sorted(
+                (si, n, l.name)
+                for si, d in executor._segment_overrides.items()
+                for n, l in d.items())),
+            tuple(sorted((str(k), _sig_value(v))
+                         for k, v in executor._tile_config.items())))
+
+
+def layout_candidates(executor: "Executor") -> dict[str, tuple[Layout, ...]]:
+    """The measured autotuner's layout search space
+    (``repro_torch.tuning``).
+
+    For every record state key that is neither user-pinned nor already
+    forced by a layout override: the halo-feasible storage layouts
+    (``core/layout.py``'s :func:`storage_candidates`, additionally
+    clamped by every *access* of the key — any haloed access vetoes
+    AoSoA for the shared storage, the solver's rule).  Keys with a single
+    feasible layout are omitted: there is nothing to search."""
+    no_aosoa: set[str] = set()
+    seen: set[str] = set()
+    for kind, payload in executor._segments:
+        for node in _segment_nodes(kind, payload):
+            for a in node.args:
+                t = a.tensor if isinstance(a, TensorArg) else a
+                if not isinstance(t, DistTensor) or not t.is_record:
+                    continue
+                seen.add(t.name)
+                if _clamp_layout(t, Layout.AOSOA) is not Layout.AOSOA:
+                    no_aosoa.add(t.name)
+    out: dict[str, tuple[Layout, ...]] = {}
+    for name in sorted(seen):
+        t = executor.tensors[name]
+        if t.pin_layout or name in executor._layout_overrides:
+            continue
+        cands = tuple(lay for lay in storage_candidates(t.space, t.halo,
+                                                        t.partition)
+                      if not (lay is Layout.AOSOA and name in no_aosoa))
+        if len(cands) > 1:
+            out[name] = cands
+    return out
+
+
 class Executor:
     """Run a Graph on one device.
 
@@ -232,11 +510,20 @@ class Executor:
     layout), and ``tile_overrides`` forces kernel tiles (kernel name ->
     tile) while the nodes run.
 
+    ``tune`` is ``"off"`` (the heuristics), ``"load"`` (apply a cached
+    decision, heuristics on a miss, never measure) or ``"auto"`` (measure
+    on a miss and persist): ``tune_budget`` bounds the search (a
+    :class:`~repro_torch.tuning.search.TuneBudget` or a dict of its
+    fields) and ``tune_inputs`` are the ``init_state`` overrides every
+    candidate is timed on.
+
     Example::
 
         ex = Executor(graph)                  # on the GPU
         state = ex.run(ex.init_state(), steps=100)
         ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
+        ex = Executor(graph, tune="auto")     # measures once, persists
+        print(ex.describe_tuning())           # what won, and why
     """
 
     def __init__(self, graph: Graph, device: Any = None, *,
@@ -246,14 +533,17 @@ class Executor:
                      dict[int, dict[str, Layout]]] = None,
                  tile_overrides: Optional[dict[str, Any]] = None,
                  mesh: Any = None, tune: str = "off",
+                 tune_budget: Optional[Any] = None,
+                 tune_inputs: Optional[dict[str, Any]] = None,
                  regions: bool = False, async_regions: bool = False):
         if schedule not in ("dag", "sequential"):
             raise ValueError(
                 f"schedule must be 'dag' or 'sequential', got {schedule!r}")
+        if tune not in ("off", "load", "auto"):
+            raise ValueError(
+                f"tune must be 'off', 'load' or 'auto', got {tune!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh= is {_ITEM_MESH}")
-        if tune != "off":
-            raise NotImplementedError(f"tune={tune!r} is {_ITEM_TUNE}")
         if regions:
             raise NotImplementedError(f"regions=True is {_ITEM_REGIONS}")
         if async_regions:
@@ -280,12 +570,38 @@ class Executor:
             int(i): dict(v)
             for i, v in (segment_layout_overrides or {}).items()}
         self._tile_config = dict(tile_overrides or {})
+        self._tune_inputs = dict(tune_inputs or {})
+        self._build_plan()
+        if tune != "off":
+            from ..tuning.search import resolve_tuning
+
+            decision = resolve_tuning(self, tune, budget=tune_budget)
+            if decision.applied:
+                # rebuild the plan under the measured-best configuration
+                # (relayout steps and signature follow the tuned layouts
+                # and tiles, per-segment assignments included)
+                self._layout_overrides.update(decision.layouts)
+                for si, d in decision.segment_layouts.items():
+                    self._segment_overrides.setdefault(
+                        int(si), {}).update(d)
+                self._tile_config.update(decision.tiles)
+                self._build_plan()
+            self.plan.tuning = decision
+
+    def _build_plan(self) -> None:
+        """Solve layouts under the current overrides and derive what
+        depends on them: the plan signature and the loop sub-executors.
+        Run once at construction, and a second time when the autotuner
+        commits a configuration that differs from the heuristics."""
         self.plan = solve_layouts(self._segments, self.tensors,
                                   overrides=self._layout_overrides,
                                   segment_overrides=self._segment_overrides)
         self.plan.dag = self.dag
         # physical layout of each record tensor's state entry right now
         self._state_layouts: dict[str, Layout] = dict(self.plan.initial)
+        self._plan_sig = plan_signature(self)
+        self.plan.signature = hashlib.sha1(
+            repr(self._plan_sig).encode()).hexdigest()[:12]
         # conversions made at segment boundaries, loop bodies' included
         self.eager_relayouts = 0
         self._sub_execs: dict[int, Executor] = {}   # loop segment -> body
@@ -396,6 +712,12 @@ class Executor:
         """Render the dependency DAG, its segment/wave placement under the
         active schedule and the relayouts at each segment entry."""
         return self.plan.describe_dag()
+
+    def describe_tuning(self) -> str:
+        """Render the measured autotuner's decision for this plan
+        (``plan.describe_tuning()``): baseline vs tuned steady-state
+        times, every measured candidate, and what was committed."""
+        return self.plan.describe_tuning()
 
     # -- node lowering -----------------------------------------------------
     def _resolve_args(self, node: Node, state: dict,

@@ -14,7 +14,7 @@ and resolves its effective block through :func:`resolve_tile`:
 
 :func:`record_tile_use` captures which kernels a run actually consulted
 (and at which problem shapes) — the measured autotuner's search-space
-discovery, which comes to the port with ROADMAP item 9.
+discovery (``repro_torch.tuning.search``).
 
 This module imports nothing of ``repro_torch.core``: the executor and
 every ``kernels/*/ops.py`` import it at module load.

@@ -472,3 +472,94 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
         ssd_intra_chunk_cuda(x, dt, A, Bm.flatten()[4:4 + 256 * 128].view(
             1, 256, 128), C[..., :128].contiguous(), chunk=128)
     assert ssd_intra_chunk_cuda.launches == before
+
+
+# -- the measured autotuner on the card --------------------------------------------
+
+def _particle_inputs(dev, n):
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+
+    f = workloads.particle_fields(n)
+    return {k: RecordArray.from_fields(
+        spec, {name: torch.from_numpy(v).to(dev)
+               for name, v in f[k].items()}, lay)
+        for k, spec, lay in (("ions", PARTICLE_SPEC, Layout.AOS),
+                             ("electrons", PARTICLE_SPEC, Layout.AOSOA),
+                             ("field", SAXPY_SPEC, Layout.SOA))}
+
+
+def test_tuned_particle_graph_on_the_card_equals_heuristic(dev, tmp_path,
+                                                          monkeypatch):
+    """Tuning on the card commits whatever its timings say; the state is
+    the heuristic plan's bits whichever layouts and tiles win."""
+    from repro_torch.tuning import cache as tune_cache
+    from repro_torch.tuning import search as tune_search
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path))
+    tune_cache.clear_memo()
+    n, steps = 1 << 16, 3
+    g, _, _ = workloads.build_particle_graph(n, block=None)
+    inputs = _particle_inputs(dev, n)
+    tuned = Executor(g, tune="auto", tune_inputs=inputs)
+    dec = tuned.plan.tuning
+    assert dec.source == "measured" and dec.measured >= 2
+    base = Executor(g)
+    want = base.run(base.init_state(**inputs), steps)
+    got = tuned.run(tuned.init_state(**inputs), steps)
+    for name in ("ions", "electrons", "field"):
+        t = base.tensors[name]
+        for f in t.spec.names:
+            assert torch.equal(tuned.read(got, t).field(f),
+                               base.read(want, t).field(f)), (name, f)
+    assert torch.equal(got["vmax"], want["vmax"])
+    before = tune_search.STATS["measurements"]
+    assert Executor(g, tune="auto").plan.tuning.source == "cache"
+    assert tune_search.STATS["measurements"] == before
+    tune_cache.clear_memo()
+
+
+def _chip_phase_tiles():
+    """Every (kernel, tile) the registry offers at the chip phase's
+    shapes: K2 and K3 over 2^24 cells, K5 on a 4096 x 4096 interior."""
+    from repro_torch.kernels.eikonal.kernel import \
+        tile_candidates as eikonal_tiles
+    from repro_torch.kernels.particle.kernel import \
+        tile_candidates as particle_tiles
+    from repro_torch.kernels.saxpy.kernel import \
+        tile_candidates as saxpy_tiles
+
+    return ([("saxpy_record", b) for b in saxpy_tiles((1 << 24,))]
+            + [("particle_update", b) for b in particle_tiles((1 << 24,))]
+            + [("eikonal_fim", t) for t in eikonal_tiles((4096, 4096))])
+
+
+@pytest.mark.parametrize("kernel,tile", _chip_phase_tiles())
+def test_registry_tiles_launch_at_the_chip_phase_shapes(dev, kernel, tile):
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.eikonal.ops import eikonal_fim_ref
+    from repro_torch.kernels.particle.kernel import particle_update_cuda
+    from repro_torch.kernels.particle.ops import (PARTICLE_SPEC,
+                                                  particle_update_ref)
+    from repro_torch.kernels.saxpy.kernel import saxpy_record_cuda
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC, saxpy_record_ref
+
+    if kernel == "eikonal_fim":
+        n = 4096
+        phi, mask = _eikonal_state(dev, n, "float32", iters=1)
+        got = eikonal_fim_cuda(phi, mask, 1 / n, inner=4, block=tile)
+        want = eikonal_fim_ref(phi, mask, 1 / n, inner=4, block=tile)
+        _close(got, want, 1e-5)
+        return
+    n = 1 << 24
+    wrapper, ref, spec = {
+        "saxpy_record": (saxpy_record_cuda, saxpy_record_ref, SAXPY_SPEC),
+        "particle_update": (particle_update_cuda, particle_update_ref,
+                            PARTICLE_SPEC)}[kernel]
+    for lay in (Layout.AOS, Layout.SOA, Layout.AOSOA):
+        rec = RecordArray(_randn(dev, "float32", spec.num_components, n),
+                          spec, Layout.SOA).with_layout(lay)
+        before = wrapper.launches
+        got = wrapper(rec, workloads.DT, block=tile)
+        assert wrapper.launches == before + 1
+        _close(got.data, ref(rec, workloads.DT).data, 1e-5)

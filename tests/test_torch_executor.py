@@ -377,17 +377,15 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
     assert len(calls) == launches
 
 
-@pytest.mark.parametrize("option", ["mesh", "tune", "regions",
-                                    "async_regions", "partition"])
+@pytest.mark.parametrize("option", ["mesh", "regions", "async_regions",
+                                    "partition"])
 def test_unported_options_raise_with_their_roadmap_item(option):
     g, _, _ = workloads.build_particle_graph(1024)
-    kw, item = {}, {"mesh": "item 8", "tune": "item 9",
-                    "regions": "item 7\\(b\\)", "async_regions":
-                    "item 7\\(c\\)", "partition": "item 8"}[option]
+    kw, item = {}, {"mesh": "item 8", "regions": "item 7\\(b\\)",
+                    "async_regions": "item 7\\(c\\)",
+                    "partition": "item 8"}[option]
     if option == "mesh":
         kw["mesh"] = object()
-    elif option == "tune":
-        kw["tune"] = "auto"
     elif option in ("regions", "async_regions"):
         kw[option] = True
     else:
