@@ -49,6 +49,31 @@ result line):
    pair; the kernel route's last-position prefill logits within
    ``LOGIT_TOL`` of the plain route's on the same weights, and a
    deliberately wrong variant outside it;
+3b. region compile — the four graphs of phase 3 at their sizes run with
+   ``Executor(g)`` and with ``Executor(g, regions=True)`` under
+   ``donate=False`` and ``donate=True`` from the same inputs: the final
+   states equal bit for bit in every field (the eikonal solve in the same
+   745 iterations), zero captures in steady state and for a second
+   executor over the same graph, a state from another seed after capture
+   equal to the eager run on it (the kernels were recorded into the
+   graph, not run once), ms per step or iteration and the device busy
+   share of one profiled step both ways; then the 8 requests of qwen3-8b
+   and mamba2-130m served again, the decode executor eager and under
+   ``regions=True, donate=True``, with equal token streams, tokens/s and
+   decode ms per step both ways.  Launch counts: the wrappers' counts
+   set to 0 before each executor's first call and read after it (a
+   build calls each wrapper twice a step, the eager warm-up and the
+   capture), then set to 0 again and read after every later call
+   (replays call no wrapper: 0); the graphs captured at that call hold
+   each kernel of the graph as kernel nodes as often as the eager step
+   launches it (K1 twice, K2 once, K3 twice, K4 once a step, K5 once
+   an iteration), read from CUDA's DOT print of each graph, and a replay
+   runs every node of its graph; the launches that the profiler's trace
+   of a replayed step holds are printed beside them (the trace drops a
+   call's first records at times, so it is no gate); the served
+   requests' prefills launch K6 and K7 as in phase 3.  These counts are
+   checked and not added to the kernels line, whose ``launches`` are
+   phase 3's;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -665,6 +690,425 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
             "prefill_ms": prefill_ms, "logit_err": err, "busy": busy}
 
 
+def bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (NaNs included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def check_bits(what: str, got: dict, want: dict) -> None:
+    """Every field of ``got`` equal to ``want``'s bit for bit, or raise."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} against "
+                             f"{sorted(want)}")
+    bad = [k for k in want if not bits_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ from regions=False")
+
+
+class Stamped:
+    """A loop predicate that stamps the host clock at each check."""
+
+    def __init__(self, pred):
+        self.pred = pred
+        self.stamps: list[float] = []
+
+    def __call__(self, state) -> bool:
+        go = self.pred(state)
+        self.stamps.append(time.perf_counter())
+        return go
+
+
+# the kernels of a main-path graph's step (the eikonal solve's:
+# iteration), by wrapper; the profiler's name of each, and the piece of
+# its mangled name in a captured graph's kernel node
+REGION_KERNELS = {"saxpy_probe": {"saxpy": 2},
+                  "particle_step": {"saxpy_record": 1, "particle_update": 2},
+                  "flux": {"flux_difference": 1},
+                  "eikonal_solve": {"eikonal_fim": 1}}
+KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", "12saxpy_kernelI"),
+                  "saxpy_record": ("::saxpy_record_kernel<",
+                                   "19saxpy_record_kernelI"),
+                  "particle_update": ("::particle_kernel<",
+                                      "15particle_kernelI"),
+                  "flux_difference": ("::flux_kernel<", "11flux_kernelI"),
+                  "eikonal_fim": ("::fim_kernel<", "10fim_kernelI")}
+GRAPH_DUMPS = os.path.join("build", "graph-dumps")
+
+
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    """Every count equal to ``want``'s (0 where it has none)."""
+    bad = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: {bad}, expected {want}")
+
+
+def traced_counts(by_kernel: dict) -> dict:
+    """Launches of each kernel of ``KERNEL_SYMBOLS`` in a profiler trace."""
+    return {k: sum(n for name, (_, n) in by_kernel.items() if sym in name)
+            for k, (sym, _) in KERNEL_SYMBOLS.items()}
+
+
+class GraphNodes:
+    """While active, every ``torch.cuda.CUDAGraph`` is made in debug mode
+    and kept until :meth:`read`, which counts the kernel nodes of each
+    kernel of ``KERNEL_SYMBOLS`` in the graphs made since the last read
+    (from CUDA's DOT print of each graph) and lets them go.  A replay
+    runs every node of its graph, so these are the launches of a
+    replay."""
+
+    def __init__(self):
+        import torch
+
+        self.real = torch.cuda.CUDAGraph
+        made = self.made = []
+
+        class DebugGraph(self.real):
+            def __init__(self, keep_graph: bool = False):
+                # keep the cudaGraph_t for debug_dump (torch 2.11 drops
+                # it at capture_end otherwise, debug mode or not); the
+                # first replay instantiates it
+                super().__init__(True)
+                self.enable_debug_mode()
+                made.append(self)
+
+        self.debug = DebugGraph
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.CUDAGraph = self.debug
+        os.makedirs(GRAPH_DUMPS, exist_ok=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.CUDAGraph = self.real
+        self.made.clear()
+
+    def read(self) -> tuple[int, dict]:
+        counts = {k: 0 for k in KERNEL_SYMBOLS}
+        n = len(self.made)
+        for i, graph in enumerate(self.made):
+            path = os.path.join(GRAPH_DUMPS, f"graph{i}.dot")
+            graph.debug_dump(path)
+            with open(path) as f:
+                text = f.read()
+            for k, (_, sym) in KERNEL_SYMBOLS.items():
+                counts[k] += text.count(sym)
+        self.made.clear()
+        return n, counts
+
+
+def regions_graph(name: str, seed: int):
+    """``(graph, init overrides, steps, converging)`` of one main-path graph
+    at its chip size, the inputs from ``default_rng(seed)`` (seed 0: the
+    main path's own inputs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import Layout, RecordArray
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+    from repro_torch.physics.euler import shock_bubble_init
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    if name == "saxpy_probe":
+        g, _ = workloads.build_saxpy_graph(SAXPY_N, SAXPY_A)
+        return g, {"x": rng.standard_normal(SAXPY_N, dtype=np.float32)}, \
+            SAXPY_STEPS, None
+    if name == "particle_step":
+        g, _, _ = workloads.build_particle_graph(PARTICLE_N)
+        f = workloads.particle_fields(PARTICLE_N, seed)
+        specs = {"ions": (PARTICLE_SPEC, Layout.AOS),
+                 "electrons": (PARTICLE_SPEC, Layout.AOSOA),
+                 "field": (SAXPY_SPEC, Layout.SOA)}
+        return g, {k: RecordArray.from_fields(
+            spec, {fn: torch.from_numpy(v).to(dev) for fn, v in
+                   f[k].items()}, lay)
+            for k, (spec, lay) in specs.items()}, PARTICLE_STEPS, None
+    if name == "flux":
+        g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
+                                          lam_y=FLUX_LAM)
+        u = shock_bubble_init(FLUX_N, FLUX_N, device=dev)
+        if seed:   # every cell scaled by 1 +- 1 %: still a valid state
+            u = u * torch.from_numpy(rng.uniform(
+                0.99, 1.01, tuple(u.shape)).astype(np.float32)).to(dev)
+        return g, {"u": u}, FLUX_STEPS, None
+    g, _, converging = workloads.build_eikonal_graph(
+        EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N)
+    inp = workloads.eikonal_inputs(EIK_N)
+    if seed:
+        inp["phi"] = np.where(inp["mask"], 0.0, 1e3 * rng.uniform(
+            0.5, 1.0, inp["phi"].shape)).astype(np.float32)
+    return g, inp, None, converging
+
+
+def regions_phase(card: str, zero_counts, counts_now) -> dict:
+    """Region compile on the card: each main-path graph with
+    ``regions=False`` and with ``regions=True`` under ``donate=False`` and
+    ``donate=True``, from the same inputs; the final states equal bit for
+    bit, zero captures in steady state and for a second executor, a state
+    from another seed after capture equal to the eager run on it, the
+    wrappers called twice a step by the build and never by a replay, the
+    graph's kernels as kernel nodes of the captured graphs, and the times
+    both ways.  Returns the numbers by graph and mode."""
+    import torch
+
+    from repro_torch.core import (Executor, clear_executable_cache,
+                                  executable_cache_stats)
+
+    clear_executable_cache()
+    out = {}
+    for name in ("saxpy_probe", "particle_step", "flux", "eikonal_solve"):
+        g, inp0, steps, converging = regions_graph(name, 0)
+        _, inp1, _, _ = regions_graph(name, 1)
+        if converging is not None:
+            # an object, not a closure: the plan signature keys a closure's
+            # values (the stamps would make every executor's plan new) and
+            # an object by its identity
+            stamped = Stamped(converging)
+            stamps = stamped.stamps
+            g.levels[0][0].subgraph.conditional(stamped)
+
+        def drive(ex, inp):
+            """The graph's whole run: ``steps`` steps one call each, or one
+            solve; returns the state and the median ms per step (per
+            iteration of the solve, from the predicate's stamps)."""
+            state = ex.init_state(**inp)
+            if converging is None:
+                return run_steps(ex, state, steps)
+            stamps.clear()
+            torch.cuda.synchronize()
+            state = ex(state)
+            torch.cuda.synchronize()
+            return state, statistics.median(
+                (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+
+        def whole(ex, inp):
+            """One ``run(state, steps)`` (one call of the solve): wall ms
+            per step or per iteration, the copies in and out included."""
+            state = ex.init_state(**inp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = ex.run(state, steps or 1)
+            torch.cuda.synchronize()
+            n = steps or converging.iterations
+            return state, (time.perf_counter() - t0) * 1e3 / n
+
+        def busy(ex, inp):
+            """Device ms of one step (of the whole solve) under the
+            profiler, after two warm-up steps (the trace can lose a short
+            step's first launches), and the trace's launches of the
+            graph's kernels against those the step makes."""
+            state = ex.init_state(**inp)
+            if converging is None:
+                state = ex.run(state, 1)
+            by_kernel = device_time_by_kernel(
+                lambda: ex.run(state, 1),
+                warmup=0 if converging else 2)
+            n = converging.iterations if converging else 1
+            seen = traced_counts(by_kernel)
+            held = (f"its trace holds {sum(seen.values())} of the "
+                    f"{n * sum(per_step.values())} launches of "
+                    f"{'/'.join(per_step)}")
+            return (sum(us for us, _ in by_kernel.values()) / 1e3,
+                    by_kernel, held)
+
+        def top(by_kernel):
+            for kname, (us, count) in sorted(
+                    by_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+                log(f"  {us / 1e3:.4f} ms, {count} launches: {kname[:90]}")
+
+        per_step = REGION_KERNELS[name]
+        eager = Executor(g)
+        want0, eager_ms = drive(eager, inp0)
+        iters0 = converging.iterations if converging else steps
+        want1, _ = drive(eager, inp1)
+        iters1 = converging.iterations if converging else steps
+        _, eager_whole = whole(eager, inp0)
+        eager_busy, by_kernel, held = busy(eager, inp0)
+        log(f"regions {name} eager: device busy {eager_busy:.4f} ms; "
+            f"{held} ({card})")
+        top(by_kernel)
+        row = {"eager_ms": eager_ms, "eager_whole_ms": eager_whole,
+               "eager_busy_ms": eager_busy, "iterations": iters0}
+        for donate in (False, True):
+            tag = f"donate={donate}"
+            ex = Executor(g, regions=True, donate=donate)
+            zero_counts()
+            with GraphNodes() as nodes:
+                got, first_ms = drive(ex, inp0)
+                n_graphs, in_graphs = nodes.read()
+            build_calls = counts_now()
+            # the first step builds: its eager warm-up and its capture
+            check_counts(f"regions {name} {tag} wrapper calls at the "
+                         f"first call", build_calls,
+                         {k: 2 * c for k, c in per_step.items()})
+            check_counts(f"regions {name} {tag} kernel nodes of the "
+                         f"{n_graphs} captured graphs", in_graphs, per_step)
+            zero_counts()
+            captures = ex.cache_stats()["trace_events"]
+            check_bits(f"regions {name} {tag}", got, want0)
+            if converging is not None and converging.iterations != iters0:
+                raise AssertionError(f"regions {name} {tag}: "
+                                     f"{converging.iterations} iterations, "
+                                     f"{iters0} eagerly")
+            del got
+            got, steady_ms = drive(ex, inp0)
+            check_bits(f"regions {name} {tag} steady", got, want0)
+            del got
+            got, whole_ms = whole(ex, inp0)
+            check_bits(f"regions {name} {tag} run(steps)", got, want0)
+            del got
+            got, _ = drive(ex, inp1)
+            check_bits(f"regions {name} {tag} seed 1", got, want1)
+            del got
+            steady_caps = ex.cache_stats()["trace_events"] - captures
+            dev_ms, by_kernel, held = busy(ex, inp0)
+            if steady_caps:
+                raise AssertionError(f"regions {name} {tag}: {steady_caps} "
+                                     f"captures in steady state")
+            del ex
+            before = executable_cache_stats()["trace_events"]
+            second = Executor(g, regions=True, donate=donate)
+            got, _ = drive(second, inp1)
+            check_bits(f"regions {name} {tag} second executor", got, want1)
+            second_caps = executable_cache_stats()["trace_events"] - before
+            if second_caps:
+                raise AssertionError(f"regions {name} {tag}: the second "
+                                     f"executor made {second_caps} "
+                                     f"captures")
+            del got, second
+            check_counts(f"regions {name} {tag} wrapper calls after the "
+                         f"first call", counts_now(), {})
+            unit = "iteration" if converging is not None else "step"
+            log(f"regions {name} {tag}: bit for bit equal to regions=False "
+                f"({iters0} {unit}s; seed 1: {iters1}); captures: "
+                f"{captures} at the first call, {steady_caps} in steady "
+                f"state, {second_caps} for a second executor; wrapper "
+                f"calls {json.dumps(build_calls)} at the first call, 0 "
+                f"after; kernel nodes {json.dumps(in_graphs)} in its "
+                f"{n_graphs} graphs; ms per "
+                f"{unit} (median): eager {eager_ms:.3f}, regions "
+                f"{steady_ms:.3f} (first run {first_ms:.3f}); one "
+                f"run(state, steps): eager {eager_whole:.3f}, regions "
+                f"{whole_ms:.3f} ms per {unit} ({card})")
+            wall = steady_ms * (iters0 if converging is not None else 1)
+            eager_wall = eager_ms * (iters0 if converging else 1)
+
+            def share(ms, of):
+                if ms == 0.0:   # the profiler saw no device activity
+                    return "not measured"
+                return f"{ms:.4f} ms of {of:.3f} ms ({100 * ms / of:.1f} %)"
+
+            log(f"regions {name} {tag}: device busy "
+                f"{share(dev_ms, wall)}; eager "
+                f"{share(eager_busy, eager_wall)}; {held} ({card})")
+            top(by_kernel)
+            row[tag] = {"ms": steady_ms, "whole_ms": whole_ms,
+                        "busy_ms": dev_ms, "captures": captures}
+        out[name] = row
+        del eager, want0, want1, g, inp0, inp1
+        clear_executable_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_regions(arch: str, card: str, zero_counts, counts_now) -> dict:
+    """The 8 requests of the main path served twice from one set of
+    weights: the decode executor eager, then under ``regions=True,
+    donate=True``; the token streams must be equal, and each run's
+    prefills launch K6 and K7 as phase 3's do.  Returns tokens/s and
+    decode ms per step both ways."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import clear_executable_cache
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime.batcher import Batcher
+
+    dev = torch.device("cuda")
+    cfg = configs.get(arch)
+    kinds = [k for _ in range(cfg.layer_groups()[0])
+             for k in cfg.layer_groups()[1]] + list(cfg.layer_groups()[2])
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LM_PROMPTS]
+    expect = {"flash_attention": kinds.count("A") * len(prompts),
+              "ssd_intra_chunk": kinds.count("M") * len(prompts)}
+    runs = {}
+    for mode, opts in (("eager", {}),
+                       ("regions", {"regions": True, "donate": True})):
+        batcher = Batcher(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                          log=log, executor_opts=opts)
+        reqs = [batcher.submit(p, max_new_tokens=LM_GEN) for p in prompts]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        batcher.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now()
+        check_counts(f"regions serve {arch} {mode}", counts, expect)
+        harvests = sorted({t for r in reqs for t in r.token_times[1:]})
+        step_ms = statistics.median(
+            (b - a) * 1e3 for a, b in zip(harvests, harvests[1:]))
+        n_tok = sum(len(r.generated) for r in reqs)
+        # one more decode step alone (every slot retired by now), host
+        # clock, then the same step under the profiler
+        ex, state = batcher.executor, batcher.state
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = ex(state)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        by_kernel = device_time_by_kernel(lambda: ex(state))
+        dev_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+        stats = batcher.cache_stats()["decode"]
+        runs[mode] = {"streams": [list(r.generated) for r in reqs],
+                      "tok_s": n_tok / wall, "step_ms": step_ms,
+                      "alone_ms": statistics.median(walls),
+                      "busy_ms": dev_ms, "stats": stats}
+        log(f"regions serve {arch} {mode}: {n_tok} tokens in {wall:.3f} s "
+            f"= {n_tok / wall:.1f} tokens/s; decode {step_ms:.3f} ms per "
+            f"step (median gap between harvests, 4 slots); one decode step "
+            f"alone {runs[mode]['alone_ms']:.3f} ms wall, device busy "
+            f"{f'{dev_ms:.3f} ms' if dev_ms else 'not measured'}; "
+            f"executor {json.dumps(stats)}; launches {json.dumps(counts)} "
+            f"({card})")
+        del batcher, ex, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs["regions"]["streams"] != runs["eager"]["streams"]:
+        raise AssertionError(f"regions serve {arch}: token streams under "
+                             f"regions=True differ from the eager "
+                             f"batcher's")
+    if runs["regions"]["stats"]["trace_events"] != 1:
+        raise AssertionError(f"regions serve {arch}: "
+                             f"{runs['regions']['stats']['trace_events']} "
+                             f"captures of the decode graph, expected 1")
+    log(f"regions serve {arch}: the {len(prompts)} token streams under "
+        f"regions=True, donate=True equal the eager batcher's")
+    del params
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1180,6 +1624,11 @@ def main() -> int:
                                      f"expected {expect[path].get(k, 0)}")
             launches[k] += n
 
+    # -- 3b. region compile: the same graphs and serving, regions=True ------
+    reg = regions_phase(card, zero_counts, counts_now)
+    lm_reg = {arch: serve_regions(arch, card, zero_counts, counts_now)
+              for arch in ("qwen3-8b", "mamba2-130m")}
+
     # -- 4. times -----------------------------------------------------------
     results = {}
     x, y = randn(SAXPY_N), randn(SAXPY_N)
@@ -1361,6 +1810,20 @@ def main() -> int:
         log(f"serve {arch}: {run['tok_s']:.1f} tokens/s, decode "
             f"{run['step_ms']:.3f} ms per step, prefill ms per request "
             f"{[round(ms, 3) for _, ms in run['prefill_ms']]} ({card})")
+    for name, row in reg.items():
+        log(f"regions {name}: ms per "
+            f"{'iteration' if name == 'eikonal_solve' else 'step'} eager "
+            f"{row['eager_ms']:.3f}, regions donate=False "
+            f"{row['donate=False']['ms']:.3f}, donate=True "
+            f"{row['donate=True']['ms']:.3f}; device busy eager "
+            f"{row['eager_busy_ms']:.4f} ms, regions "
+            f"{row['donate=True']['busy_ms']:.4f} ms ({card})")
+    for arch, runs in lm_reg.items():
+        log(f"regions serve {arch}: tokens/s eager "
+            f"{runs['eager']['tok_s']:.1f}, regions "
+            f"{runs['regions']['tok_s']:.1f}; decode ms per step eager "
+            f"{runs['eager']['step_ms']:.3f}, regions "
+            f"{runs['regions']['step_ms']:.3f} ({card})")
 
     entries = []
     for name, meta in kernels.items():

@@ -1,4 +1,4 @@
-"""Graph executor (paper §6) — runs a Ripple Graph on one GPU, eagerly.
+"""Graph executor (paper §6) — runs a Ripple Graph on one GPU.
 
 The single-process counterpart of the JAX package's ``Executor``:
 
@@ -17,32 +17,85 @@ The single-process counterpart of the JAX package's ``Executor``:
 * host (Cpu) nodes and ``sync()`` wait for the device, then run their
   callback.
 
-Every segment runs eagerly: node functions are called in wave order, each
-wave against a snapshot of the state, so the result is the reference's
-per-segment dispatch semantics (its ``regions=False`` path, which its
-README states is bitwise-identical to region dispatch).  Node functions
-return new tensors and never write a state buffer in place, so a caller's
-state dict is never modified and there is nothing to donate: the
-reference's ``donate=`` has no counterpart here.
+With ``regions=False`` (the default) every segment runs eagerly: node
+functions are called in wave order, each wave against a snapshot of the
+state — the reference's per-segment dispatch (its ``regions=False``
+path).  Node functions return new tensors and never write a state buffer
+in place, so a caller's state dict is never modified.
+
+**Region compile** (``regions=True``).  The plan's segments are grouped
+into regions (``schedule.group_regions``): runs of ``device`` and
+``loop`` segments, and each ``host`` / ``host_loop`` segment alone.  The
+reference lowers a device region to ONE executable with its loops as
+``lax.while_loop``; CUDA graphs have no data-dependent loop, so here a
+device region is k pieces, which ``describe_dag()`` prints: each maximal
+loop-free run of segments (with the boundary relayouts and halo fills
+between them) is one graph, and each loop body is one graph, replayed
+while the host predicate holds (one device-to-host read per check, as
+eagerly).  On the card a piece's first run executes its segments eagerly
+on a side stream (so that ``nvcc`` builds and first-launch set-up happen
+outside capture; this is that call's result), then captures them into a
+``torch.cuda.CUDAGraph``; every later run replays it.  On the CPU a piece
+runs its segments through the same code and the same buffers, without
+capture.  Either way:
+
+* each graph reads from, and writes back into, **static buffers** (one
+  per state key, storage shape and dtype) that belong to the
+  executable-cache entry, shared by every piece of the plan, so that
+  pieces chain without copies.  A state value that is not its buffer is
+  copied in before the first piece that reads it;
+* node functions return new tensors, so each written key is copied from
+  its output into its buffer at the end of the graph.  The copies are
+  ordered by their aliasing: an output that IS another key's buffer (the
+  eikonal body's ``phi_prev <- phi``) is copied before that buffer is
+  written, and a cycle is broken through a temporary;
+* **donation**: with ``donate=False`` the caller's tensors are never
+  modified and a returned tensor is never overwritten later — a call
+  copies in what its graphs read and clones out what they wrote, once a
+  call (not per step or loop iteration).  With ``donate=True`` the
+  returned state's tensors ARE the static buffers, which the next call
+  overwrites (the reference's donation: a donated input must not be used
+  again); an incoming tensor that already is its buffer skips the
+  copy-in, so in-place writes into a returned state (the batcher's
+  admission) land in the buffers directly;
+* nothing falls back: a capture that fails (a node that syncs the host,
+  ``.item()`` or ``bool()`` of a CUDA tensor, inside a device region)
+  raises an error naming the piece and the node.  Host regions run
+  eagerly between graphs, after the device is idle.
+
+The **executable cache** is process-wide, keyed by :func:`plan_signature`
+and the device (a captured graph belongs to one device): a second
+executor with an equal signature reuses the region programs and their
+graphs with zero captures (``cache_stats()``).  Under ``donate=True`` an
+entry is leased to one live executor at a time (its returned state holds
+the buffers); a second executor then builds its own entry.  A captured
+graph reads the tensors in its nodes' closures (a model's weights), so
+an entry lives while an executor uses it or while every graph it was
+built from lives: once no executor holds it and one of those graphs is
+collected, the entry goes, with its graphs, buffers and pool.  An
+incoming tensor that lies in another key's static buffer (a donated
+state passed back under swapped keys) is cloned when the call starts,
+before any buffer is written.
 
 A conditional subgraph (paper §5.3.6) is a ``loop`` segment, or a
 ``host_loop`` when its body holds a host node; both run with while
-semantics through a sub-executor built once per segment.  On the GPU each
-check of the predicate is one device-to-host read.
+semantics through a sub-executor built once per segment with the
+enclosing ``regions`` and ``donate``.
 
 The **measured autotuner** (``tune="auto"`` / ``"load"``,
 ``repro_torch.tuning.search``) times candidate layouts and kernel tiles as
 real runs of fresh executors, commits the fastest and persists it in the
 tuning cache keyed by the heuristic plan's :func:`plan_signature` (the
 structural identity of a plan: graph structure, node function code and
-closures, shapes, dtypes, layouts, schedule, device type, overrides,
-tiles), so a second process over an identical graph loads the decision
-with zero measurements.
+closures, shapes, dtypes, layouts, schedule, donation, device type,
+overrides, tiles), so a second process over an identical graph loads the
+decision with zero measurements.
 
 Not in this executor yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``mesh=`` and partitioned tensors (item 8), region
-compile (``regions=True``, item 7(b)) and async region dispatch
-(``async_regions=True``, item 7(c)).
+its ROADMAP item: ``mesh=`` and partitioned tensors (item 8) and async
+region dispatch (``async_regions=True``, item 7(c)).  The defaults stay
+``regions=False`` and ``donate=False`` (the reference's are True);
+flipping them is a ROADMAP item of its own.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -56,6 +109,7 @@ import functools
 import hashlib
 import sys
 import types
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, field as dfield
 from typing import Any, Optional
@@ -63,22 +117,23 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..tuning.tiles import tile_scope
+from ..tuning.tiles import note_tile_uses, record_tile_use, tile_scope
 from . import halo as halo_lib
 from . import schedule as schedule_lib
 from .device import resolve_device
 from .graph import AccessMode, Graph, Node, TensorArg
 from .layout import (Layout, RecordArray, _as_tensor, relayout,
-                     storage_candidates)
+                     relayout_data, storage_candidates)
 from .schedule import ScheduleDag
 from .tensor import DistTensor, ReductionResult
 
-__all__ = ["Executor", "execute", "LayoutPlan", "RelayoutStep",
-           "layout_candidates", "plan_signature", "solve_layouts"]
+__all__ = ["Executor", "execute", "ExecutableCacheEntry", "LayoutPlan",
+           "RelayoutStep", "clear_executable_cache", "drop_executables",
+           "executable_cache_stats", "layout_candidates", "plan_signature",
+           "solve_layouts"]
 
 _ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
               "executor)")
-_ITEM_REGIONS = "ROADMAP item 7(b) (region compile)"
 _ITEM_ASYNC = "ROADMAP item 7(c) (async regions)"
 
 
@@ -110,8 +165,13 @@ class LayoutPlan:
     materializes (the first consuming segment's choice), ``per_segment``
     the layout of every record tensor each segment touches, ``relayouts``
     the boundary conversions of one pass, ``dag`` the dependency DAG
-    with its segment placement, ``signature`` the 12-hex digest of the
-    :func:`plan_signature` and ``tuning`` the measured autotuner's
+    with its segment placement, ``regions`` the segments grouped into
+    regions (``schedule.group_regions``), ``region_graphs`` the graphs
+    each device region runs as under ``regions=True`` (filled by
+    :meth:`Executor.describe_dag`), ``signature`` the 12-hex digest of
+    the :func:`plan_signature`, ``cache`` the executable-cache entry once
+    a region ran (None with ``regions=False``) and ``tuning`` the
+    measured autotuner's
     :class:`~repro_torch.tuning.search.TuningDecision` when the Executor
     was constructed with ``tune="load"``/``"auto"`` (None when tuning is
     off)."""
@@ -120,12 +180,16 @@ class LayoutPlan:
     initial: dict[str, Layout] = dfield(default_factory=dict)
     relayouts: list[RelayoutStep] = dfield(default_factory=list)
     dag: Optional[ScheduleDag] = None
+    regions: list = dfield(default_factory=list)
+    region_graphs: Optional[dict[int, int]] = None
     signature: str = ""
+    cache: Optional["ExecutableCacheEntry"] = None
     tuning: Optional[Any] = None
 
     def describe_dag(self) -> str:
-        """Render the dependency DAG with its segment/wave placement and
-        the relayout steps at each segment entry."""
+        """Render the dependency DAG with its segment/wave placement, the
+        relayout steps at each segment entry, the region grouping and the
+        executable-cache counters."""
         if self.dag is None:
             return "(no dependency DAG recorded)"
         return self.dag.describe(plan=self)
@@ -255,8 +319,7 @@ def solve_layouts(
 
 # -- plan signature (structural identity of a plan) ----------------------------
 #
-# The tuning cache (and item 7(b)'s executable cache after it) must never
-# alias two plans that could compute different values, and should alias
+# The tuning cache and the executable cache must never alias two plans that could compute different values, and should alias
 # plans from *re-instantiated* executors over an identical graph (the
 # serving pattern).  Node names are excluded (they come from a global
 # counter and differ per build); node *functions* are keyed by
@@ -445,15 +508,16 @@ def _segments_sig(segments):
 def plan_signature(executor: "Executor") -> tuple:
     """Structural identity of a plan: graph structure (node kinds, args,
     function code + closures — NOT auto-generated node names), tensor
-    shapes/dtypes/layouts, schedule mode, device type, per-segment layout
-    decisions, forced per-segment overrides and kernel tile overrides.
-    Two executors with equal signatures compute identical values for
-    identical inputs.  Tile overrides are part of the key because they
-    change the kernels' launches (the autotuner's candidates never alias).
-    The JAX package's signature also keys donation and the mesh, which
-    the port has not."""
+    shapes/dtypes/layouts, schedule mode, donation, device type,
+    per-segment layout decisions, forced per-segment overrides and kernel
+    tile overrides.  Two executors with equal signatures compute
+    identical values for identical inputs, so their region programs are
+    interchangeable.  Tile overrides are part of the key because they
+    change the kernels' launches (the autotuner's candidates never
+    alias).  The JAX package's signature also keys the mesh, which the
+    port has not; the executable cache adds the device index."""
     plan = executor.plan
-    return ("ripple-torch-plan-v3", executor.schedule,
+    return ("ripple-torch-plan-v3", executor.schedule, executor.donate,
             executor.device.type, _segments_sig(executor._segments),
             tuple(tuple(sorted((n, l.name) for n, l in seg.items()))
                   for seg in plan.per_segment),
@@ -500,6 +564,347 @@ def layout_candidates(executor: "Executor") -> dict[str, tuple[Layout, ...]]:
     return out
 
 
+# -- process-wide executable cache (region compile) ---------------------------
+
+@dataclass(eq=False)
+class ExecutableCacheEntry:
+    """The region programs of one plan signature on one device, and the
+    static buffers their graphs read and write.
+
+    ``executables`` maps ``('region', index, entry layouts)`` keys to
+    region programs.  ``builds`` counts programs constructed, ``hits``
+    fetches that found a program some other fetch built (the
+    re-instantiated-executor path), and ``trace_events`` the pieces
+    built: a capture of a CUDA graph on the card, the first run of a
+    piece's function on the CPU.  A steady-state ``run()`` moves none of
+    them.
+
+    ``buffers`` holds the static buffers, one per (state key, storage
+    shape, dtype); ``owners`` and ``storages`` give each buffer's key by
+    its ``id`` and by its storage; ``pool`` is the memory pool the
+    entry's graphs share (a graph's intermediates are dead outside its
+    replay, and replays never overlap).  ``graphs`` are weak references
+    to the graphs whose closures the programs read (a large tensor is
+    keyed by ``id`` in the signature, so it must outlive every graph that
+    reads it), ``pins`` those graphs held while ``users`` (live executors
+    that fetched the entry) is above 0.  Under ``donate=True`` an entry
+    with a user is leased to it."""
+
+    key: tuple
+    executables: dict = dfield(default_factory=dict)
+    builds: int = 0
+    hits: int = 0
+    trace_events: int = 0
+    buffers: dict = dfield(default_factory=dict)
+    owners: dict = dfield(default_factory=dict)
+    storages: dict = dfield(default_factory=dict)
+    pool: Any = None
+    graphs: list = dfield(default_factory=list)
+    pins: list = dfield(default_factory=list)
+    users: int = 0
+
+    def buffer(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The static buffer of ``name`` in ``like``'s storage shape and
+        dtype, allocated on first use."""
+        key = (name, tuple(like.shape), like.dtype)
+        buf = self.buffers.get(key)
+        if buf is None:
+            buf = self.buffers[key] = torch.empty(
+                like.shape, dtype=like.dtype, device=like.device)
+            self.owners[id(buf)] = self.storages[_storage(buf)] = name
+        return buf
+
+    def pin(self, graph: Graph) -> None:
+        """Keep ``graph`` alive while the entry has users, and drop the
+        entry once it has none and ``graph`` is collected."""
+        if any(r() is graph for r in self.graphs):
+            return
+        self.graphs.append(weakref.ref(graph, functools.partial(
+            _graph_collected, weakref.ref(self))))
+        self.pins.append(graph)
+
+    def acquire(self, executor: "Executor") -> weakref.finalize:
+        """Count ``executor`` as a user until it is collected or calls the
+        returned finalizer."""
+        self.users += 1
+        self.pins = [g for g in (r() for r in self.graphs) if g is not None]
+        release = weakref.finalize(executor, _release_entry, self)
+        release.atexit = False
+        return release
+
+
+# (plan signature, device type, device index) -> entries.  Under
+# donate=True a key holds one entry per executor alive at once; otherwise
+# one.  An entry outlives its executors while the graphs it was built
+# from live (that is the reuse); clear_executable_cache() drops them all.
+_EXECUTABLE_CACHE: dict[tuple, list[ExecutableCacheEntry]] = {}
+
+
+def _evict(entry: ExecutableCacheEntry) -> None:
+    entries = _EXECUTABLE_CACHE.get(entry.key)
+    if entries is None:
+        return
+    entries[:] = [e for e in entries if e is not entry]
+    if not entries:
+        del _EXECUTABLE_CACHE[entry.key]
+
+
+def _release_entry(entry: ExecutableCacheEntry) -> None:
+    """An executor stopped using ``entry``: unpin its graphs when it was
+    the last user (a graph collected then drops the entry)."""
+    entry.users -= 1
+    if entry.users == 0:
+        entry.pins = []
+        if not entry.graphs:      # nothing built: nothing to reuse
+            _evict(entry)
+
+
+def _graph_collected(entry_ref, _graph_ref) -> None:
+    entry = entry_ref()
+    if entry is not None and entry.users == 0:
+        _evict(entry)
+
+
+def clear_executable_cache() -> None:
+    """Drop every cached region program and its graphs and buffers."""
+    _EXECUTABLE_CACHE.clear()
+
+
+def drop_executables(signature: tuple) -> None:
+    """Drop the entries of one plan signature on every device (the tuner
+    drops its losing candidates' graphs this way)."""
+    for key in [k for k in _EXECUTABLE_CACHE if k[0] == signature]:
+        del _EXECUTABLE_CACHE[key]
+
+
+def executable_cache_stats() -> dict:
+    """Counters summed over the process-wide executable cache."""
+    entries = [e for es in _EXECUTABLE_CACHE.values() for e in es]
+    return {
+        "plans": len(_EXECUTABLE_CACHE),
+        "entries": len(entries),
+        "executables": sum(len(e.executables) for e in entries),
+        "builds": sum(e.builds for e in entries),
+        "hits": sum(e.hits for e in entries),
+        "trace_events": sum(e.trace_events for e in entries),
+    }
+
+
+class _CallState:
+    """One ``__call__``/``run`` under ``regions=True``.  ``state`` maps
+    every key to its current value — a static buffer once a piece has
+    read or written it; ``origin`` the value a key held when it was
+    copied into its buffer; ``written`` the keys a piece wrote;
+    ``buffers`` the ids of the static buffers handed out."""
+
+    __slots__ = ("state", "origin", "written", "buffers")
+
+    def __init__(self, state: dict):
+        self.state = dict(state)
+        self.origin: dict = {}
+        self.written: set = set()
+        self.buffers: set = set()
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _copy_back(outs: dict, dsts: dict) -> None:
+    """Copy each key's value into its static buffer (a piece's outputs
+    after its segments, its inputs before them), reading every value
+    before any buffer that it aliases is written: a value that lies in
+    another key's buffer is copied first, one that is a view of its own
+    buffer, or that closes a cycle, goes through a temporary."""
+    owner = {_storage(b): k for k, b in dsts.items()}
+    todo = {}
+    for k, src in outs.items():
+        todo[k] = src.clone() if owner.get(_storage(src)) == k else src
+    while todo:
+        blocked = {owner.get(_storage(src)) for k, src in todo.items()}
+        ready = [k for k in todo if k not in blocked]
+        if not ready:
+            k = next(iter(todo))
+            todo[k] = todo[k].clone()
+            continue
+        for k in ready:
+            dsts[k].copy_(todo.pop(k))
+
+
+def _segment_reads(nodes) -> set:
+    """The state keys ``nodes`` may read: every tensor or result among
+    their args (a written arg too: its function receives it)."""
+    reads = set()
+    for node in nodes:
+        for a in node.args:
+            if isinstance(a, TensorArg):
+                reads.add(a.tensor.name)
+            elif isinstance(a, (DistTensor, ReductionResult)):
+                reads.add(a.name)
+    return reads
+
+
+class _Piece:
+    """One graph of a device region: a run of loop-free segments of one
+    executor, each after its boundary relayouts (``chain``: (segment
+    index or None for relayouts alone, conversions, layouts)), lowered
+    against the entry's static buffers.  The first run builds it (see
+    the module docstring); ``in_bufs``/``out_bufs`` are then the buffers
+    it reads and writes back into."""
+
+    def __init__(self, label: str, chain: list, reads: tuple):
+        self.label = label
+        self.chain = chain
+        self.reads = reads
+        self.in_bufs: Optional[dict] = None
+        self.out_bufs: Optional[dict] = None
+        self.graph = None
+        self.tile_uses: dict = {}
+
+    def run(self, ex: "Executor", entry: ExecutableCacheEntry,
+            st: _CallState) -> None:
+        if self.in_bufs is None:
+            self._build(ex, entry, st)
+        else:
+            self._stage(entry, st, self.in_bufs)
+            if self.graph is not None:
+                self.graph.replay()
+                if self.tile_uses:
+                    note_tile_uses(self.tile_uses)
+            else:
+                self._execute(ex, entry, dict(st.state))
+        for k, buf in self.out_bufs.items():
+            st.state[k] = buf
+            st.buffers.add(id(buf))
+        st.written.update(self.out_bufs)
+
+    def _stage(self, entry, st: _CallState, bufs) -> None:
+        """Copy every key this piece reads into its static buffer, unless
+        the state already holds that buffer; every value is read before
+        any buffer it lies in is written."""
+        srcs, dsts = {}, {}
+        for name in self.reads:
+            x = st.state[name]
+            buf = entry.buffer(name, x) if bufs is None else bufs[name]
+            if x is buf:
+                continue
+            if x.shape != buf.shape or x.dtype != buf.dtype \
+                    or x.device != buf.device:
+                raise ValueError(
+                    f"{self.label}: state[{name!r}] is {tuple(x.shape)} "
+                    f"{x.dtype} on {x.device}, but the region was built "
+                    f"for {tuple(buf.shape)} {buf.dtype} on {buf.device}")
+            if id(x) not in st.buffers:
+                st.origin[name] = x
+            srcs[name], dsts[name] = x, buf
+        _copy_back(srcs, dsts)
+        for name, buf in dsts.items():
+            st.state[name] = buf
+            st.buffers.add(id(buf))
+
+    def _body(self, ex: "Executor", state: dict) -> dict:
+        for si, conv, layouts in self.chain:
+            for name, src, dst in conv:
+                state[name] = relayout_data(state[name],
+                                            ex.tensors[name].spec, src, dst)
+            if si is not None:
+                with tile_scope(ex._tile_config):
+                    state = ex._lower_levels(ex._segments[si][1], state,
+                                             layouts)
+        return state
+
+    def _execute(self, ex: "Executor", entry: ExecutableCacheEntry,
+                 bufstate: dict) -> dict:
+        """The segments on the buffers, then the copy-back; returns the
+        written keys' destinations (allocated on the first run)."""
+        out = self._body(ex, dict(bufstate))
+        outs = {k: v for k, v in out.items() if v is not bufstate[k]}
+        dsts = self.out_bufs
+        if dsts is None:
+            dsts = {k: entry.buffer(k, v) for k, v in outs.items()}
+        elif outs.keys() != dsts.keys():
+            raise RuntimeError(
+                f"{self.label}: wrote {sorted(outs)} in this run and "
+                f"{sorted(dsts)} when it was built")
+        _copy_back(outs, dsts)
+        return dsts
+
+    def _build(self, ex, entry, st: _CallState) -> None:
+        """The first run: stage the reads into (new) buffers, then run the
+        segments — on the card eagerly on a side stream, then once more
+        under capture."""
+        self._stage(entry, st, None)
+        in_bufs = {n: st.state[n] for n in self.reads}
+        bufstate = dict(st.state)
+        if ex.device.type != "cuda":
+            self.out_bufs = self._execute(ex, entry, bufstate)
+            self.in_bufs = in_bufs
+            entry.trace_events += 1
+            return
+        dev = ex.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        # the eager warm-up: builds the kernels and makes this call's
+        # result; the capture below records without running
+        with torch.cuda.stream(side), record_tile_use() as used:
+            self.out_bufs = self._execute(ex, entry, bufstate)
+        cur.wait_stream(side)
+        for buf in self.out_bufs.values():
+            buf.record_stream(cur)      # allocated on the side stream
+        if entry.pool is None:
+            entry.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        ex._running = None
+        try:
+            with torch.cuda.graph(graph, pool=entry.pool):
+                self._execute(ex, entry, bufstate)
+        except Exception as exc:
+            torch.cuda.set_stream(cur)
+            raise RuntimeError(
+                f"{self.label}: capture failed in node {ex._running!r} "
+                f"(a device region's nodes must not sync the host): "
+                f"{exc}") from exc
+        self.graph = graph
+        self.tile_uses = used
+        self.in_bufs = in_bufs
+        entry.trace_events += 1
+
+
+class _Loop:
+    """A ``loop`` segment of a device region: its body's pieces (built
+    from the loop's sub-executor, over the same buffers) replayed while
+    the predicate holds."""
+
+    def __init__(self, segment: int, body: list):
+        self.segment = segment
+        self.body = body
+
+    def run(self, ex: "Executor", entry: ExecutableCacheEntry,
+            st: _CallState) -> None:
+        sub = ex._sub_executor(self.segment)
+        condition = ex._segments[self.segment][1].condition
+        # while semantics: the predicate gates the first iteration too;
+        # bool() of a CUDA tensor is one device-to-host read per check
+        while bool(condition(st.state)):
+            for step in self.body:
+                step.run(sub, entry, st)
+
+
+def _count_graphs(steps) -> int:
+    return sum(_count_graphs(s.body) if isinstance(s, _Loop) else 1
+               for s in steps)
+
+
+@dataclass
+class _RegionProgram:
+    """A device region at one set of entry layouts: its pieces and loops
+    in order, and the layouts it leaves the state in."""
+
+    steps: list
+    exit_layouts: dict
+
+
 class Executor:
     """Run a Graph on one device.
 
@@ -509,6 +914,12 @@ class Executor:
     plan, ``segment_layout_overrides`` per segment (segment index -> key ->
     layout), and ``tile_overrides`` forces kernel tiles (kernel name ->
     tile) while the nodes run.
+
+    ``regions=True`` runs each device region as captured CUDA graphs
+    over static buffers (on the CPU: the same code without capture), and
+    ``donate`` says whether the returned state may be those buffers (see
+    the module docstring); every result equals ``regions=False``'s bit
+    for bit.
 
     ``tune`` is ``"off"`` (the heuristics), ``"load"`` (apply a cached
     decision, heuristics on a miss, never measure) or ``"auto"`` (measure
@@ -522,6 +933,8 @@ class Executor:
         ex = Executor(graph)                  # on the GPU
         state = ex.run(ex.init_state(), steps=100)
         ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
+        ex = Executor(graph, regions=True)    # captured CUDA graphs
+        print(ex.describe_dag(), ex.cache_stats())
         ex = Executor(graph, tune="auto")     # measures once, persists
         print(ex.describe_tuning())           # what won, and why
     """
@@ -535,7 +948,8 @@ class Executor:
                  mesh: Any = None, tune: str = "off",
                  tune_budget: Optional[Any] = None,
                  tune_inputs: Optional[dict[str, Any]] = None,
-                 regions: bool = False, async_regions: bool = False):
+                 regions: bool = False, donate: bool = False,
+                 async_regions: bool = False):
         if schedule not in ("dag", "sequential"):
             raise ValueError(
                 f"schedule must be 'dag' or 'sequential', got {schedule!r}")
@@ -544,14 +958,17 @@ class Executor:
                 f"tune must be 'off', 'load' or 'auto', got {tune!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh= is {_ITEM_MESH}")
-        if regions:
-            raise NotImplementedError(f"regions=True is {_ITEM_REGIONS}")
         if async_regions:
             raise NotImplementedError(
                 f"async_regions=True is {_ITEM_ASYNC}")
         self.graph = graph
         self.device = resolve_device(device)
         self.schedule = schedule
+        self.regions = bool(regions)
+        self.donate = bool(donate)
+        self._cache: Optional[ExecutableCacheEntry] = None
+        self._release: Optional[weakref.finalize] = None
+        self._running: Optional[str] = None    # the node being lowered
         self.tensors = graph.all_tensors()
         self.results = graph.all_results()
         for t in self.tensors.values():
@@ -590,21 +1007,104 @@ class Executor:
 
     def _build_plan(self) -> None:
         """Solve layouts under the current overrides and derive what
-        depends on them: the plan signature and the loop sub-executors.
-        Run once at construction, and a second time when the autotuner
-        commits a configuration that differs from the heuristics."""
+        depends on them: the regions, the plan signature and the loop
+        sub-executors.  Run once at construction, and a second time when
+        the autotuner commits a configuration that differs from the
+        heuristics."""
         self.plan = solve_layouts(self._segments, self.tensors,
                                   overrides=self._layout_overrides,
                                   segment_overrides=self._segment_overrides)
         self.plan.dag = self.dag
+        self.plan.regions = schedule_lib.group_regions(
+            [k for k, _ in self._segments])
         # physical layout of each record tensor's state entry right now
         self._state_layouts: dict[str, Layout] = dict(self.plan.initial)
+        self._layout_keys = tuple(sorted(self.plan.initial))
         self._plan_sig = plan_signature(self)
         self.plan.signature = hashlib.sha1(
             repr(self._plan_sig).encode()).hexdigest()[:12]
-        # conversions made at segment boundaries, loop bodies' included
+        # conversions made eagerly: at segment boundaries (loop bodies'
+        # included), and under regions=True at host regions and on exit
         self.eager_relayouts = 0
         self._sub_execs: dict[int, Executor] = {}   # loop segment -> body
+        if self._release is not None:
+            self._release()               # the old signature's entry
+        self._cache = None
+        self._release = None
+        self._fetched: set = set()
+
+    # -- executable cache --------------------------------------------------
+    def _cache_key(self) -> tuple:
+        index = self.device.index
+        if index is None and self.device.type == "cuda":
+            index = torch.cuda.current_device()
+        return (self._plan_sig, self.device.type, index)
+
+    def _entry(self) -> ExecutableCacheEntry:
+        """This plan's executable-cache entry, fetched on first use and
+        used until this executor is collected or re-plans.  Under
+        ``donate=True`` an entry another live executor uses is never
+        shared."""
+        if self._cache is not None:
+            return self._cache
+        key = self._cache_key()
+        entries = _EXECUTABLE_CACHE.setdefault(key, [])
+        entry = None
+        if self.donate:
+            entry = next((e for e in entries if e.users == 0), None)
+        elif entries:
+            entry = entries[0]
+        if entry is None:
+            entry = ExecutableCacheEntry(key)
+            entries.append(entry)
+        self._release = entry.acquire(self)
+        self._cache = self.plan.cache = entry
+        return entry
+
+    def _entries(self):
+        """The entries whose buffers a call may write: this plan's, and
+        those of its ``host_loop`` bodies (a ``loop`` body runs on its
+        enclosing plan's entry)."""
+        yield self._entry()
+        for i, (kind, _) in enumerate(self._segments):
+            if kind == "host_loop":
+                yield from self._sub_executor(i)._entries()
+
+    def _unalias(self, state: dict) -> dict:
+        """``state`` with every tensor that lies in another key's static
+        buffer cloned, so that no buffer is written before every key that
+        holds it has been read (``ex({"a": st["b"], "b": st["a"]})`` on a
+        donated ``st``).  A buffer is known by its ``id``; any other
+        tensor is looked up by its storage (a view of a buffer)."""
+        owners: dict = {}
+        storages: dict = {}
+        for e in self._entries():
+            owners.update(e.owners)
+            storages.update(e.storages)
+        out = dict(state)
+        if not owners:
+            return out
+        for k, x in state.items():
+            if not isinstance(x, torch.Tensor):
+                continue
+            owner = owners.get(id(x))
+            if owner is None:
+                owner = storages.get(_storage(x), k)
+            if owner != k:
+                out[k] = x.clone()
+        return out
+
+    def cache_stats(self) -> dict:
+        """Live executable-cache counters of this plan (``regions=True``).
+
+        ``trace_events`` counts the pieces built (graph captures on the
+        card); a steady-state ``run()`` leaves it unchanged.  ``hits``
+        counts programs this or another executor fetched without building
+        them — the re-instantiated-executor reuse path."""
+        c = self._entry()
+        return {"signature": self.plan.signature,
+                "executables": len(c.executables), "builds": c.builds,
+                "hits": c.hits, "trace_events": c.trace_events}
 
     # -- layout plumbing ---------------------------------------------------
     def _eff_in(self, t: DistTensor, layouts: dict[str, Layout]) -> DistTensor:
@@ -710,7 +1210,16 @@ class Executor:
 
     def describe_dag(self) -> str:
         """Render the dependency DAG, its segment/wave placement under the
-        active schedule and the relayouts at each segment entry."""
+        active schedule, the relayouts at each segment entry, the regions
+        (with ``regions=True``: the graphs each device region runs as) and
+        the executable-cache counters."""
+        if self.regions:
+            self._entry()
+            entry = {n: self.plan.initial[n] for n in self._layout_keys}
+            self.plan.region_graphs = {
+                r.index: _count_graphs(self._plan_steps(
+                    r.segments, entry, "")[0])
+                for r in self.plan.regions if r.kind == "device"}
         return self.plan.describe_dag()
 
     def describe_tuning(self) -> str:
@@ -797,6 +1306,7 @@ class Executor:
             # the same input snapshot, then merge
             snapshot = dict(state)
             for node in level:
+                self._running = node.name
                 if node.kind == "split":
                     tmp = dict(snapshot)
                     self._lower_split(node, tmp, layouts)
@@ -823,14 +1333,124 @@ class Executor:
     # -- conditional loops -------------------------------------------------
     def _sub_executor(self, i: int) -> "Executor":
         """The executor of loop segment ``i``'s body, built once per
-        segment with the layouts the enclosing plan solved for it."""
+        segment with the layouts the enclosing plan solved for it and the
+        enclosing ``regions`` and ``donate``."""
         sub = self._sub_execs.get(i)
         if sub is None:
             sub = self._sub_execs[i] = Executor(
                 self._segments[i][1], self.device,
                 layout_overrides=self.plan.per_segment[i],
-                schedule=self.schedule, tile_overrides=self._tile_config)
+                schedule=self.schedule, tile_overrides=self._tile_config,
+                regions=self.regions, donate=self.donate)
         return sub
+
+    # -- region compile ------------------------------------------------------
+    def _plan_steps(self, seg_indices, entry_layouts: dict[str, Layout],
+                    label: str) -> tuple[list, dict[str, Layout]]:
+        """The pieces and loops of a run of device/loop segments entered
+        in ``entry_layouts``, and the layouts it exits in.  A loop
+        segment's entry relayouts close the piece before it; its body is
+        planned by its sub-executor, whose layouts are the loop's own."""
+        current = dict(entry_layouts)
+        steps: list = []
+        chain: list = []
+        reads: set = set()
+
+        def close():
+            if chain:
+                steps.append(_Piece(f"{label}graph {len(steps)}",
+                                    list(chain), tuple(sorted(reads))))
+                chain.clear()
+                reads.clear()
+
+        for si in seg_indices:
+            targets = self.plan.per_segment[si]
+            conv = [(n, current[n], lay) for n, lay in sorted(targets.items())
+                    if current.get(n, lay) is not lay]
+            current.update(targets)
+            reads.update(n for n, _, _ in conv)
+            kind, payload = self._segments[si]
+            if kind == "device":
+                chain.append((si, conv, dict(current)))
+                reads.update(_segment_reads(_segment_nodes(kind, payload)))
+                continue
+            if conv:
+                chain.append((None, conv, dict(current)))
+            close()
+            sub = self._sub_executor(si)
+            body, exit_layouts = sub._plan_steps(
+                range(len(sub._segments)), current,
+                f"{label}loop seg{si} ")
+            if exit_layouts != current:
+                raise RuntimeError(f"loop segment {si}: its body changes "
+                                   f"layouts between iterations")
+            steps.append(_Loop(si, body))
+        close()
+        return steps, current
+
+    def _region_program(self, entry: ExecutableCacheEntry,
+                        region) -> _RegionProgram:
+        """The program of a device region at the current layouts, from the
+        cache (built on a miss)."""
+        key = ("region", region.index,
+               tuple(self._state_layouts[n] for n in self._layout_keys))
+        prog = entry.executables.get(key)
+        if prog is None:
+            steps, exit_layouts = self._plan_steps(
+                region.segments, dict(self._state_layouts),
+                f"region {region.index} ")
+            prog = entry.executables[key] = _RegionProgram(steps,
+                                                           exit_layouts)
+            entry.builds += 1
+            entry.pin(self.graph)
+        elif key not in self._fetched:
+            entry.hits += 1
+        self._fetched.add(key)
+        return prog
+
+    def _run_regions(self, st: _CallState) -> None:
+        """One pass over the regions: each device region's pieces and
+        loops on the static buffers; host work eagerly between them,
+        after the device is idle."""
+        entry = self._entry()
+        for region in self.plan.regions:
+            if region.kind == "device":
+                prog = self._region_program(entry, region)
+                for step in prog.steps:
+                    step.run(self, entry, st)
+                self._state_layouts.update(prog.exit_layouts)
+                continue
+            i = region.start
+            payload = self._segments[i][1]
+            self._apply_segment_layouts(st.state, i)
+            if region.kind == "host":
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                if payload.fn is not None:
+                    vals = self._resolve_args(
+                        payload, st.state, self._state_layouts) \
+                        if payload.args else []
+                    payload.fn(*vals)
+            else:   # host_loop: the body's regions, on the same call state
+                sub = self._sub_executor(i)
+                before = sub.eager_relayouts
+                while bool(payload.condition(st.state)):
+                    with sub._layout_epoch():
+                        sub._run_regions(st)
+                        sub._restore_initial_layouts(st.state)
+                self.eager_relayouts += sub.eager_relayouts - before
+
+    def _finish(self, st: _CallState) -> dict:
+        """The state a call returns: under ``donate=True`` the static
+        buffers themselves; otherwise a clone of each buffer a piece
+        wrote, and the value staged in for each buffer only read."""
+        state = st.state
+        if not self.donate:
+            for k, v in state.items():
+                if id(v) in st.buffers:
+                    orig = None if k in st.written else st.origin.get(k)
+                    state[k] = v.clone() if orig is None else orig
+        return state
 
     # -- execution -----------------------------------------------------------
     def _call_segments(self, state: dict) -> dict:
@@ -875,20 +1495,27 @@ class Executor:
 
     def __call__(self, state: dict) -> dict:
         """Execute the graph once; returns the new state dict."""
-        with self._layout_epoch():
-            state = self._call_segments(dict(state))
-            return self._restore_initial_layouts(dict(state))
+        return self.run(state, 1)
 
     def run(self, state: dict, steps: int) -> dict:
         """Execute the whole graph ``steps`` times (graphs are built once,
-        executed many — paper §5.3)."""
+        executed many — paper §5.3).  Under ``regions=True`` a device-only
+        graph replays its captured step ``steps`` times, copying in once
+        and cloning out once (unless ``donate=True``); every step count
+        shares that one capture."""
         if steps <= 0:
             return state
         with self._layout_epoch():
-            state = dict(state)
+            if not self.regions:
+                state = dict(state)
+                for _ in range(steps):
+                    state = self._call_segments(state)
+                return self._restore_initial_layouts(dict(state))
+            st = _CallState(self._unalias(state))
             for _ in range(steps):
-                state = self._call_segments(state)
-            return self._restore_initial_layouts(dict(state))
+                self._run_regions(st)
+            self._restore_initial_layouts(st.state)
+            return self._finish(st)
 
 
 def execute(graph: Graph, device: Any = None, steps: int = 1,

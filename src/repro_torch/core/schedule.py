@@ -277,6 +277,22 @@ class ScheduleDag:
             for st in plan.relayouts:
                 lines.append(f"relayout before seg{st.segment}: "
                              f"{st.tensor} {st.src.name}->{st.dst.name}")
+            if getattr(plan, "regions", None):
+                graphs = getattr(plan, "region_graphs", None)
+                lines.append("regions (captured graphs):" if graphs
+                             is not None else "regions (regions=False: "
+                             "each segment dispatched eagerly):")
+                lines.extend("  " + r.describe((graphs or {}).get(r.index))
+                             for r in plan.regions)
+            if getattr(plan, "signature", ""):
+                cache = getattr(plan, "cache", None)
+                line = f"plan signature {plan.signature}"
+                if cache is not None:
+                    line += (f" — executable cache: "
+                             f"{len(cache.executables)} executables, "
+                             f"{cache.builds} builds, {cache.hits} reuse "
+                             f"hits, {cache.trace_events} captures")
+                lines.append(line)
         return "\n".join(lines)
 
 
@@ -463,13 +479,18 @@ class Region:
     def segments(self) -> range:
         return range(self.start, self.stop)
 
-    def describe(self) -> str:
+    def describe(self, graphs: Optional[int] = None) -> str:
+        """One line; ``graphs`` is how many captured graphs a device
+        region runs as (a loop-free run of segments is one, each loop body
+        one more)."""
         span = (f"seg{self.start}" if len(self) == 1
                 else f"seg{self.start}..seg{self.stop - 1}")
         n = len(self)
+        tail = ""
+        if self.kind == "device" and graphs is not None:
+            tail = f" -> {graphs} graph{'s' if graphs != 1 else ''}"
         return (f"region {self.index} ({self.kind}): {span} "
-                f"({n} segment{'s' if n != 1 else ''}"
-                f"{' -> 1 executable' if self.kind == 'device' else ''})")
+                f"({n} segment{'s' if n != 1 else ''}{tail})")
 
 
 def group_regions(segment_kinds: list[str]) -> list[Region]:

@@ -13,7 +13,9 @@ prefill attention runs on the K6 kernel and the Mamba-2 SSD on K7.
 batcher's token streams equal :func:`legacy_generate`'s, the uniform
 prefill + decode loop.  The JAX package's further smoke checks (decode
 traced once, a fresh worker with zero new traces) have no counterpart:
-the port traces nothing.
+the launcher's decode executor is eager (``Batcher(executor_opts=
+{"regions": True, "donate": True})`` captures it; ``chip_smoke.py``
+checks those streams).
 """
 
 from __future__ import annotations

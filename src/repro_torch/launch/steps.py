@@ -8,7 +8,10 @@ Hkv, S) space), so the executor's layout solver, not the model code,
 picks AoS / SoA / AoSoA storage: the node reads the layout off the
 RecordArray it is handed and runs the model under it.  The JAX package
 memoises the graphs so that a re-built worker hits its executable cache;
-the port runs eagerly and traces nothing, so there is nothing to memoise.
+here a graph rebuilt over the same ``params`` has the same plan signature
+(node closures are keyed by their values, large tensors by identity), so
+under ``regions=True`` a re-built worker's decode executor fetches its
+captured graph without memoising.
 Training steps and the sharded specs of the dry run are ROADMAP queues 5
 and 2.
 """

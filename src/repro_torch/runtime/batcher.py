@@ -22,13 +22,16 @@ checkpoint: greedy decode is a pure function of the request log, so
 ``_recover()`` rebuilds the decode state by prefilling every in-flight
 request's prompt + generated tokens anew.
 
-The port runs eagerly: on the GPU a decode step's kernels are queued and
-the call returns before they finish, so ``prefill_ahead`` queues the
-queue head's prefills behind the step before the batcher reads the
-step's tokens.  The JAX package's trace and executable-cache counters
-have no counterpart, since the port traces nothing; :meth:`cache_stats`
-reports the executors' relayout counts instead.  Admission writes the
-batcher's own state tensors in place (the JAX package donates them).
+On the GPU a decode step's kernels are queued and the call returns
+before they finish, so ``prefill_ahead`` queues the queue head's prefills
+behind the step before the batcher reads the step's tokens.
+``executor_opts`` go to the decode executor: ``{"regions": True,
+"donate": True}`` replays the decode step as one captured CUDA graph
+whose static buffers ARE ``self.state``, so admission's in-place writes
+land in them.  Prefill executors stay eager: each is built per prompt
+length and run once per request, so a capture would cost more than it
+saves.  :meth:`cache_stats` reports the executors' relayout counts and,
+under ``regions=True``, the decode executor's executable-cache counters.
 """
 
 from __future__ import annotations
@@ -360,9 +363,12 @@ class Batcher:
 
     # -- introspection -----------------------------------------------------
     def cache_stats(self) -> dict[str, Any]:
-        """Relayouts the decode and prefill executors made (there are no
-        trace counters: the port traces nothing)."""
-        return {"decode": {"steps": self.steps,
-                           "relayouts": self.executor.eager_relayouts},
+        """Relayouts the decode and prefill executors made, and the decode
+        executor's executable-cache counters when it compiles regions."""
+        decode = {"steps": self.steps,
+                  "relayouts": self.executor.eager_relayouts}
+        if self.executor.regions:
+            decode.update(self.executor.cache_stats())
+        return {"decode": decode,
                 "prefill": {S: {"relayouts": ex.eager_relayouts}
                             for S, (_, ex) in sorted(self._prefill.items())}}

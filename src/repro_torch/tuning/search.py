@@ -390,6 +390,7 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
     budget = TuneBudget.coerce(budget)
     Executor = executor_lib.Executor
     graph = executor.graph
+    candidate_sigs: list[tuple] = []
 
     def bench(layouts, tiles, seg_layouts=None, probe=False,
               stop_above_ms=None):
@@ -397,12 +398,18 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
                     for si, d in executor._segment_overrides.items()}
         for si, d in (seg_layouts or {}).items():
             seg_over.setdefault(si, {}).update(d)
+        # timed as the caller will run: regions and donation included.
+        # The caller's state is never modified either way (a donating
+        # executor copies it into its buffers), so every call starts
+        # from it
         ex = Executor(graph, executor.device,
                       layout_overrides={**executor._layout_overrides,
                                         **layouts},
                       schedule=executor.schedule,
                       tile_overrides={**executor._tile_config, **tiles},
-                      segment_layout_overrides=seg_over)
+                      segment_layout_overrides=seg_over,
+                      regions=executor.regions, donate=executor.donate)
+        candidate_sigs.append(ex._plan_sig)
         state = ex.init_state(**executor._tune_inputs)
 
         def run_once():
@@ -414,7 +421,7 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
                                    min_iters=budget.min_timing_iters,
                                    stop_above_ms=stop_above_ms)
         STATS["measurements"] += 1
-        return (*timed, used)
+        return (*timed, used, ex._plan_sig)
 
     measurements: list[Measurement] = []
     best_layouts: dict[str, Any] = {}
@@ -424,7 +431,7 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
 
     # -- phase 0: baseline probe (times the heuristic plan and records
     # tile use) ------------------------------------------------------------
-    first, base_ms, _it, _dom, used = bench({}, {}, probe=True)
+    first, base_ms, _it, _dom, used, best_sig = bench({}, {}, probe=True)
     measured += 1
     measurements.append(Measurement("baseline", "plan", "heuristic",
                                     first, base_ms, iters=_it))
@@ -543,7 +550,7 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
             break      # incumbent survived enough joint neighborhoods
         stop = (None if budget.measure_all
                 else best_ms * budget.dominate_factor)
-        f, s, iters_run, dominated, _ = bench(
+        f, s, iters_run, dominated, _, sig = bench(
             p["layouts"], p["tiles"], p["segments"], stop_above_ms=stop)
         measured += 1
         taken += 1
@@ -553,7 +560,7 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
             f, s, predicted_bytes=pens[idx], iters=iters_run,
             early_stopped=dominated))
         if s < best_ms:
-            best_ms = s
+            best_ms, best_sig = s, sig
             best_layouts = dict(p["layouts"])
             best_tiles = dict(p["tiles"])
             best_segments = {si: dict(d) for si, d in p["segments"].items()}
@@ -566,7 +573,12 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
     pruned = max(proposed - measured, 0)
     STATS["proposed"] += proposed
     STATS["pruned"] += pruned
-    # item 7(b)'s executable cache will drop the losers' executables here
+    # drop the losing candidates' region programs (their graphs, pools and
+    # buffers); the winner ran under the caller's own regions and
+    # donation, so the caller's executor fetches it with zero captures
+    for sig in candidate_sigs:
+        if sig != best_sig:
+            executor_lib.drop_executables(sig)
 
     chosen_label = _joint_label(best_layouts, best_tiles, best_segments)
     measurements = [

@@ -34,6 +34,7 @@ __all__ = [
     "tile_scope",
     "active_tiles",
     "record_tile_use",
+    "note_tile_uses",
 ]
 
 # kernel name -> candidates fn: (shape tuple) -> sequence of tile configs
@@ -173,3 +174,13 @@ def record_tile_use() -> Iterator[dict[str, set]]:
         yield rec
     finally:
         _RECORDERS.remove(rec)
+
+
+def note_tile_uses(uses: Mapping[str, set]) -> None:
+    """Report consultations recorded earlier to every active recorder: a
+    captured CUDA graph replays its kernels without calling
+    :func:`resolve_tile`, so the executor notes what its capture
+    consulted on each replay."""
+    for rec in _RECORDERS:
+        for kernel, entries in uses.items():
+            rec.setdefault(kernel, set()).update(entries)

@@ -144,8 +144,9 @@ def build_eikonal_graph(n: int, *, inner: int = 4, block=(8, 128),
     change = DistTensor("change", (n, n))
     res = make_reduction_result("res", init=float("inf"))
     body = Graph(name="fim_iteration")
-    # nodes never write state in place, so phi_prev may alias phi; an
-    # executor that updates state in place needs a clone here
+    # phi_prev aliases phi here; under regions=True, whose graphs write
+    # state back in place, the executor handles it (the copy of phi_prev
+    # precedes phi's)
     body.split(lambda p, _prev: p, phi, phi_prev)
     body.then(make_eikonal_graph(phi, mask, 1.0 / n, inner=inner,
                                  block=block, overlap=False,

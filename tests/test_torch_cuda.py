@@ -563,3 +563,147 @@ def test_registry_tiles_launch_at_the_chip_phase_shapes(dev, kernel, tile):
         got = wrapper(rec, workloads.DT, block=tile)
         assert wrapper.launches == before + 1
         _close(got.data, ref(rec, workloads.DT).data, 1e-5)
+
+
+# -- region compile: K1-K5 inside captured CUDA graphs ----------------------------
+
+def _region_case(name, dev):
+    """``(graph, make_state(ex, seed), run(ex, state), wrappers)`` of one
+    main-path graph at a small size, its inputs from ``default_rng``."""
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.particle.kernel import particle_update_cuda
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.kernel import (saxpy_cuda,
+                                                  saxpy_record_cuda)
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.physics.euler import shock_bubble_init
+
+    n, grid = 1 << 16, 128
+
+    def rng(seed):
+        return np.random.default_rng(seed)
+
+    if name == "saxpy":
+        g, _ = workloads.build_saxpy_graph(n, 2.0)
+        return (g, lambda ex, s: ex.init_state(x=torch.from_numpy(
+                    rng(s).standard_normal(n, dtype=np.float32))),
+                lambda ex, st: ex.run(st, 3), (saxpy_cuda,))
+    if name == "particle":
+        g, _, _ = workloads.build_particle_graph(n)
+        specs = {"ions": (PARTICLE_SPEC, Layout.AOS),
+                 "electrons": (PARTICLE_SPEC, Layout.AOSOA),
+                 "field": (SAXPY_SPEC, Layout.SOA)}
+
+        def make(ex, s):
+            f = workloads.particle_fields(n, s)
+            return ex.init_state(**{
+                k: RecordArray.from_fields(
+                    sp, {fn: torch.from_numpy(v) for fn, v in
+                         f[k].items()}, lay)
+                for k, (sp, lay) in specs.items()})
+
+        return (g, make, lambda ex, st: ex.run(st, 3),
+                (particle_update_cuda, saxpy_record_cuda))
+    if name == "flux":
+        g, _ = workloads.build_flux_graph(grid, grid, lam_y=0.05)
+        u0 = shock_bubble_init(grid, grid, device="cpu")
+
+        def make(ex, s):
+            noise = rng(s).standard_normal(tuple(u0.shape), dtype=np.float32)
+            return ex.init_state(u=u0 + 0.01 * torch.from_numpy(noise))
+
+        return g, make, lambda ex, st: ex.run(st, 3), (flux_difference_cuda,)
+    g, _, _ = workloads.build_eikonal_graph(grid, block=(8, 128),
+                                            max_iters=4 * grid)
+    inp = workloads.eikonal_inputs(grid)
+
+    def make(ex, s):
+        phi = np.where(inp["mask"], 0.0,
+                       1e3 * rng(s).uniform(0.5, 1.0, inp["phi"].shape))
+        return ex.init_state(phi=phi.astype(np.float32), mask=inp["mask"])
+
+    return g, make, lambda ex, st: ex(st), (eikonal_fim_cuda,)
+
+
+def _bitwise(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("graph", ["saxpy", "particle", "flux", "eikonal"])
+def test_region_graphs_replay_the_kernels(dev, graph, donate):
+    """The first call runs the region eagerly and captures it; later calls
+    replay the graph — the kernels' wrappers are not called, yet a state
+    from another seed gives the eager result on it, so the ctypes launches
+    were recorded, not just run once.  Steady state and a second executor
+    make no capture."""
+    from repro_torch.core import clear_executable_cache
+
+    clear_executable_cache()
+    g, make, run, wrappers = _region_case(graph, dev)
+    eager = Executor(g)
+    ex = Executor(g, regions=True, donate=donate)
+    _bitwise(run(ex, make(ex, 0)), run(eager, make(eager, 0)))
+    stats = ex.cache_stats()
+    assert stats["trace_events"] >= 1
+    for seed in (1, 2):
+        want = run(eager, make(eager, seed))
+        before = [w.launches for w in wrappers]
+        got = run(ex, make(ex, seed))
+        assert [w.launches for w in wrappers] == before
+        _bitwise(got, want)
+    assert ex.cache_stats() == stats
+    del ex, got           # a donating executor's lease ends with it
+    second = Executor(g, regions=True, donate=donate)
+    _bitwise(run(second, make(second, 1)), run(eager, make(eager, 1)))
+    assert second.cache_stats()["trace_events"] == stats["trace_events"]
+    clear_executable_cache()
+
+
+def test_host_syncing_node_fails_at_capture_with_its_name(dev):
+    from repro_torch.core import DistTensor, Graph, clear_executable_cache
+
+    u = DistTensor("u", (1024,))
+    g = Graph(name="sync_inside")
+    g.split(lambda x: x * float(x.sum()), u, writes=(0,))
+    name = g.levels[0][0].name
+    ex = Executor(g, regions=True)
+    with pytest.raises(RuntimeError, match=f"capture failed in node "
+                                           f"'{name}'"):
+        ex(ex.init_state(u=torch.ones(1024)))
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    x = torch.ones(4, device=dev)
+    assert float((x + 1).sum()) == 8.0
+    clear_executable_cache()
+
+
+@pytest.mark.parametrize("shape", ["one piece", "two regions"])
+def test_donated_buffers_passed_back_swapped_on_the_card(dev, shape):
+    """A donated state's buffers handed back under each other's keys, and
+    one of them beside a fresh tensor: the captured graphs read the values
+    given, as the eager executor does."""
+    from repro_torch.core import DistTensor, Graph, clear_executable_cache
+
+    clear_executable_cache()
+    a, b = DistTensor("a", (4096,)), DistTensor("b", (4096,))
+    g = Graph(name=f"two keys {shape}")
+    if shape == "one piece":
+        g.then(lambda x, y: (x - 3.0, y * 2.0 + 1.0), args=(a, b),
+               writes=(0, 1))
+    else:
+        g.split(lambda y: y * 2.0 + 1.0, b, writes=(0,))
+        g.sync()
+        g.split(lambda x: x - 3.0, a, writes=(0,))
+    ex = Executor(g, regions=True, donate=True)
+    eager = Executor(g)
+    x0 = torch.arange(4096.0, device=dev)
+    st = ex(ex.init_state(a=x0, b=-x0))
+    for inp in ({"a": st["b"], "b": st["a"]},
+                {"a": st["b"], "b": torch.full_like(x0, 7.0)}):
+        want = eager({k: v.clone() for k, v in inp.items()})
+        st = ex(inp)
+        _bitwise(st, want)
+    clear_executable_cache()

@@ -138,3 +138,37 @@ def test_submit_validation(served):
         b.submit([])
     with pytest.raises(ValueError, match="max_seq"):
         b.submit(np.ones(MAX_SEQ, np.int32))
+
+
+def test_regions_batcher_gives_the_same_streams_and_frees_its_entry(served):
+    """The decode executor under ``regions=True, donate=True`` (admission
+    writes into its static buffers) serves the reference's streams; a
+    batcher dropped and rebuilt with new weights leaves one cache entry,
+    and the old weights go with the old batcher."""
+    import copy
+    import gc
+    import weakref
+
+    import repro_torch.core as tcore
+
+    tc, tp, _, _, prompts, refs = served
+    tcore.clear_executable_cache()
+    old = None
+    try:
+        for _ in range(2):
+            params = copy.deepcopy(tp)
+            b = Batcher(tc, params, batch=2, max_seq=MAX_SEQ,
+                        executor_opts={"regions": True, "donate": True})
+            assert [r.generated for r in _serve(b, prompts, WANT)] == refs
+            stats = tcore.executable_cache_stats()
+            assert stats["entries"] == 1
+            assert b.cache_stats()["decode"]["trace_events"] >= 1
+            if old is not None:
+                assert old() is None
+            old = weakref.ref(next(params.parameters()))
+            del b, params
+            gc.collect()
+        assert old() is None
+        assert tcore.executable_cache_stats()["entries"] == 0
+    finally:
+        tcore.clear_executable_cache()
