@@ -1109,6 +1109,265 @@ def serve_regions(arch: str, card: str, zero_counts, counts_now) -> dict:
     return runs
 
 
+# phase 3c: the particle step with a host diagnostic; async against sync.
+# The gate is the JAX package's benchmarks/overlap_gain.py's: with the host
+# time a step calibrated to the synchronous step's own time, async regions
+# must be at least this much faster
+ASYNC_GATE = 1.3
+ASYNC_REPS = 3          # timed runs of PARTICLE_STEPS steps each way
+ASYNC_PROFILED = 10     # steps of the profiled run of each way
+HOST_TIMEOUT_S = 0.5    # the watchdog's limit, and its delay fault's 2 s
+HUNG_S = 2.0
+
+
+class Diagnostic:
+    """The host node's callable: keeps each step's ``(t, vmax)`` and the
+    threads it ran on, and sleeps ``host_s`` a call (logging or metrics
+    I/O), keeping how long each sleep took on the host clock.  An object,
+    so the plan signature keys it by identity."""
+
+    def __init__(self):
+        self.log: list = []
+        self.threads: set = set()
+        self.slept: list = []
+        self.host_s = 0.0
+
+    def reset(self) -> None:
+        self.log = []
+        self.threads = set()
+        self.slept = []
+
+    def __call__(self, t: float, vmax: float) -> None:
+        import threading
+
+        self.log.append((t, vmax))
+        self.threads.add(threading.current_thread().name)
+        if self.host_s:
+            t0 = time.perf_counter()
+            time.sleep(self.host_s)
+            self.slept.append(time.perf_counter() - t0)
+
+
+def async_phase(card: str, zero_counts, counts_now) -> dict:
+    """Async regions on the card, over the particle step with a host
+    diagnostic at 2^24 particles per species.  Equality: eager, and
+    ``regions=True`` with ``async_regions`` True and False under both
+    ``donate``s, each regions run from a cold executable cache: final
+    states bit for bit, equal ``(t, vmax)`` logs, callbacks on the pool or
+    on the main thread.  Overlap: ms per step sync and async, without and
+    with a host time calibrated to the sync step, the device busy share,
+    the gate.  Faults: the ladder down to ``sequential`` and back with
+    zero new captures, and the watchdog.  Returns the numbers."""
+    import threading
+
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import (Executor, HostTimeoutError,
+                                  clear_executable_cache,
+                                  executable_cache_stats)
+    from repro_torch.runtime.faults import (Fault, FaultPlan, RetryPolicy,
+                                            fault_scope)
+
+    diag = Diagnostic()
+    g, _, _ = workloads.build_particle_diagnostic_graph(PARTICLE_N, diag)
+    _, inp, _, _ = regions_graph("particle_step", 0)
+    steps = PARTICLE_STEPS
+    per_step = {"particle_update": 2, "saxpy_record": 1}
+    regions = [r.kind for r in Executor(g, regions=True).plan.regions]
+    if regions != ["device", "host", "device"]:
+        raise AssertionError(f"async: the plan's regions are {regions}")
+
+    def whole(ex):
+        """One ``run(state, steps)``: the state and wall ms per step."""
+        state = ex.init_state(**inp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ex.run(state, steps)
+        torch.cuda.synchronize()
+        return state, (time.perf_counter() - t0) * 1e3 / steps
+
+    # -- equality, each regions run from a cold cache
+    eager = Executor(g)
+    diag.reset()
+    zero_counts()
+    want, _ = whole(eager)
+    check_counts("async eager wrapper calls", counts_now(),
+                 {k: n * steps for k, n in per_step.items()})
+    want_log = diag.log
+    if diag.threads != {"MainThread"} or len(want_log) != steps:
+        raise AssertionError(f"async eager: {len(want_log)} callbacks on "
+                             f"{diag.threads}")
+    del eager
+    keep = {}
+    for donate in (False, True):
+        for mode in (True, False):
+            tag = f"{'async' if mode else 'sync'} donate={donate}"
+            clear_executable_cache()
+            ex = Executor(g, regions=True, donate=donate,
+                          async_regions=mode)
+            diag.reset()
+            zero_counts()
+            got, first_ms = whole(ex)
+            # the build: each piece's eager warm-up and its capture
+            check_counts(f"async {tag} wrapper calls", counts_now(),
+                         {k: 2 * n for k, n in per_step.items()})
+            check_bits(f"async {tag}", got, want)
+            if diag.log != want_log:
+                raise AssertionError(f"async {tag}: the logged (t, vmax) "
+                                     f"differ from the eager run's")
+            placed = (all(t.startswith("ripple-host") for t in diag.threads)
+                      if mode else diag.threads == {"MainThread"})
+            if not placed:
+                raise AssertionError(f"async {tag}: callbacks ran on "
+                                     f"{sorted(diag.threads)}")
+            stats = dict(ex.async_stats)
+            log(f"async {tag}: bit for bit equal to the eager run, "
+                f"{steps} logged (t, vmax) equal, callbacks on "
+                f"{sorted(diag.threads)}; captures "
+                f"{ex.cache_stats()['trace_events']} from a cold cache; "
+                f"first run {first_ms:.3f} ms per step; {json.dumps(stats)}")
+            del got
+            if donate:
+                keep[mode] = ex
+            del ex
+    # -- overlap: ms per step both ways, without and with the host time
+    times = {}
+    for host in ("no host time", "host time"):
+        if host == "host time":
+            # the host time a step: the synchronous step's own
+            diag.host_s = times[("no host time", False)] / 1e3
+        for mode in (False, True):
+            ex = keep[mode]
+            runs = []
+            diag.reset()
+            before = dict(ex.async_stats)
+            for _ in range(ASYNC_REPS):
+                got, ms = whole(ex)
+                runs.append(ms)
+                del got
+            times[(host, mode)] = statistics.median(runs)
+            # the dispatcher's own time a step: the wall less its waits
+            # on callbacks (the in-flight cap of 32, the final drain)
+            waited = (ex.async_stats["wait_s"] - before["wait_s"]) * 1e3 \
+                / (ASYNC_REPS * steps)
+            snap = (ex.async_stats["snapshot_bytes"]
+                    - before["snapshot_bytes"]) / (ASYNC_REPS * steps)
+            state = ex.init_state(**inp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            by_kernel = device_time_by_kernel(
+                lambda: ex.run(state, ASYNC_PROFILED))
+            prof_ms = (time.perf_counter() - t0) * 1e3 / ASYNC_PROFILED
+            dev_ms = sum(us for us, _ in by_kernel.values()) / 1e3 \
+                / ASYNC_PROFILED
+            busy = ("not measured" if dev_ms == 0.0 else
+                    f"{dev_ms:.4f} ms a step of {times[(host, mode)]:.3f} "
+                    f"({100 * dev_ms / times[(host, mode)]:.1f} %; the "
+                    f"profiled run {prof_ms:.3f} ms a step)")
+            times[(host, mode, "busy")] = dev_ms
+            slept = ("" if not diag.slept else
+                     f"; a sleep of {1e3 * diag.host_s:.3f} ms took "
+                     f"{1e3 * statistics.median(diag.slept):.3f} ms "
+                     f"(median) on the callback's thread")
+            waits = (f"; the dispatcher waited {waited:.3f} ms a step on "
+                     f"callbacks, snapshots {snap:.0f} bytes a step, "
+                     f"{ex.async_stats['peak_inflight']} in flight at most"
+                     if mode else "")
+            log(f"async overlap {'async' if mode else 'sync'}, {host} "
+                f"({1e3 * diag.host_s:.3f} ms a callback): ms per step "
+                f"{times[(host, mode)]:.3f} (runs "
+                f"{', '.join(f'{ms:.3f}' for ms in runs)}); device busy "
+                f"{busy}{slept}{waits} ({card})")
+    diag.host_s = 0.0
+    gain = times[("host time", False)] / times[("host time", True)]
+    log(f"async overlap: sync/async with the host time {gain:.2f}x "
+        f"(gate {ASYNC_GATE}x), without "
+        f"{times[('no host time', False)] / times[('no host time', True)]:.2f}x"
+        f" ({card})")
+    for mode, ex in keep.items():
+        if ex.ladder_level != 0 or ex.plan.degradations:
+            raise AssertionError(f"async: a timed executor ended at ladder "
+                                 f"level {ex.ladder_level}: "
+                                 f"{ex.plan.describe_degradations()}")
+    if gain < ASYNC_GATE:
+        raise AssertionError(f"async overlap: {gain:.2f}x, under the "
+                             f"{ASYNC_GATE}x gate")
+    del keep
+    # -- faults and the ladder: down to sequential, back with no capture
+    clear_executable_cache()
+    ex = Executor(g, regions=True, donate=True, demote_after=1,
+                  promote_after=2)
+    check_bits("async ladder level 0", whole(ex)[0], want)
+    caps0 = executable_cache_stats()["trace_events"]
+    plan = FaultPlan([Fault("executor.region", nth=0, times=2)])
+    retry = RetryPolicy(max_retries=4, base_delay=0.0, sleep=lambda d: None)
+    with fault_scope(plan):
+        got = retry.call(lambda: whole(ex)[0])
+    moves = [(e.action, e.frm, e.to, e.site) for e in ex.plan.degradations]
+    if not plan.exhausted() or ex.ladder_level != 2 \
+            or ex.schedule != "sequential" or moves != [
+                ("demote", "async_regions", "sync", "executor.region"),
+                ("demote", "sync", "sequential", "executor.region")]:
+        raise AssertionError(f"async ladder: level {ex.ladder_level}, "
+                             f"{moves}; {plan.report()}")
+    check_bits("async ladder at sequential", got, want)
+    del got
+    caps_seq = executable_cache_stats()["trace_events"] - caps0
+    for n in range(3):
+        got, _ = whole(ex)
+        check_bits(f"async ladder clean pass {n + 1}", got, want)
+        del got
+    caps_back = executable_cache_stats()["trace_events"] - caps0 - caps_seq
+    if ex.ladder_level != 0 or caps_back or not ex.async_regions:
+        raise AssertionError(f"async ladder: level {ex.ladder_level} after "
+                             f"the clean passes, {caps_back} captures")
+    text = ex.plan.describe()
+    lines = [ln for ln in text.splitlines() if ln.startswith("ladder ")]
+    if len(lines) != 4:
+        raise AssertionError(f"async ladder: plan.describe() shows {lines}")
+    log(f"async ladder: demoted async_regions -> sync -> sequential "
+        f"({plan.report().splitlines()[1:]}), bit for bit equal; the "
+        f"sequential plan took {caps_seq} captures; back at level 0 with "
+        f"{caps_back} new captures; plan.describe():")
+    for ln in lines:
+        log(f"  {ln}")
+    del ex
+    # -- the watchdog: a hung callback past host_timeout
+    wd = Executor(g, regions=True, donate=True, host_timeout=HOST_TIMEOUT_S)
+    check_bits("async watchdog warm", whole(wd)[0], want)
+    caps = executable_cache_stats()["trace_events"]
+    plan = FaultPlan([Fault("executor.host", nth=0, kind="delay",
+                            delay_s=HUNG_S)])
+    t0 = time.perf_counter()
+    raised = None
+    with fault_scope(plan):
+        try:
+            wd.run(wd.init_state(**inp), steps)
+        except HostTimeoutError as exc:
+            raised = exc
+    dt = time.perf_counter() - t0
+    if raised is None or dt >= 1.0:
+        raise AssertionError(f"async watchdog: {raised!r} after {dt:.3f} s")
+    got, _ = whole(wd)
+    check_bits("async watchdog next call", got, want)
+    new_caps = executable_cache_stats()["trace_events"] - caps
+    if new_caps or wd.ladder_level:
+        raise AssertionError(f"async watchdog: {new_caps} captures, level "
+                             f"{wd.ladder_level} on the next call")
+    log(f"async watchdog: HostTimeoutError after {dt:.3f} s (host_timeout "
+        f"{HOST_TIMEOUT_S} s, callback hung {HUNG_S} s); the next call bit "
+        f"for bit equal with {new_caps} new captures")
+    del got, wd, want
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"times": {f"{h} {'async' if m else 'sync'}": v
+                      for (h, m, *rest), v in times.items() if not rest},
+            "gain": gain, "ladder_captures": caps_seq}
+
+
+
 def main() -> int:
     import torch
 
@@ -1629,6 +1888,9 @@ def main() -> int:
     lm_reg = {arch: serve_regions(arch, card, zero_counts, counts_now)
               for arch in ("qwen3-8b", "mamba2-130m")}
 
+    # -- 3c. async regions over the particle step with a host diagnostic --
+    asy = async_phase(card, zero_counts, counts_now)
+
     # -- 4. times -----------------------------------------------------------
     results = {}
     x, y = randn(SAXPY_N), randn(SAXPY_N)
@@ -1818,6 +2080,9 @@ def main() -> int:
             f"{row['donate=True']['ms']:.3f}; device busy eager "
             f"{row['eager_busy_ms']:.4f} ms, regions "
             f"{row['donate=True']['busy_ms']:.4f} ms ({card})")
+    log(f"async particle_step_diagnostic: ms per step "
+        f"{json.dumps({k: round(v, 4) for k, v in asy['times'].items()})}, "
+        f"sync/async with the host time {asy['gain']:.2f}x ({card})")
     for arch, runs in lm_reg.items():
         log(f"regions serve {arch}: tokens/s eager "
             f"{runs['eager']['tok_s']:.1f}, regions "

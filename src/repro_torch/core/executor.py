@@ -15,7 +15,7 @@ The single-process counterpart of the JAX package's ``Executor``:
 * padded (halo) accesses get their halo cells from the tensor's boundary
   policy (``core/halo.py``) before the node runs;
 * host (Cpu) nodes and ``sync()`` wait for the device, then run their
-  callback.
+  callback — under ``regions=True`` on the host pool by default (below).
 
 With ``regions=False`` (the default) every segment runs eagerly: node
 functions are called in wave order, each wave against a snapshot of the
@@ -61,7 +61,8 @@ capture.  Either way:
 * nothing falls back: a capture that fails (a node that syncs the host,
   ``.item()`` or ``bool()`` of a CUDA tensor, inside a device region)
   raises an error naming the piece and the node.  Host regions run
-  eagerly between graphs, after the device is idle.
+  between graphs: on the host pool (async regions, below) or, with
+  ``async_regions=False``, on the caller after the device is idle.
 
 The **executable cache** is process-wide, keyed by :func:`plan_signature`
 and the device (a captured graph belongs to one device): a second
@@ -91,11 +92,47 @@ closures, shapes, dtypes, layouts, schedule, donation, device type,
 overrides, tiles), so a second process over an identical graph loads the
 decision with zero measurements.
 
+**Async regions** (``async_regions=True``, the default; it applies under
+``regions=True`` when the plan has a host region).  Device regions are
+issued without waiting for the card, and each non-barrier host region's
+callback is queued for a process-wide pool of 4 ``ripple-host`` threads,
+where one task at a time runs a call's queue in program order: a
+callback waits for a CUDA event recorded after its arguments on the
+dispatching stream (never for the whole device), then runs on a side
+stream of its thread.
+Every argument that lies in a static buffer is cloned on the dispatching
+stream at submit time, whatever ``donate`` says: the next replay
+overwrites the buffer while the callback may still read.  A barrier host
+region (``sync()``, a callback without tensor args) and a ``host_loop``
+drain the pool first; so does a piece's build on the card (a capture must
+not see another thread's device-to-host read).  ``run()`` drains before
+it returns and re-raises the first failure in program order, its
+successors cancelled.  ``host_timeout`` (seconds) bounds every wait on a
+callback: past it the call raises :class:`HostTimeoutError` (transient)
+and cancels the callbacks not yet started; a hung thread keeps its pool
+slot until it returns, and the executor stays usable.  Results equal
+``async_regions=False``'s bit for bit; the flag is not in the plan
+signature (both modes replay the same graphs).
+
+**Fault sites and the degradation ladder.**  ``executor.dispatch`` trips
+at a callback's submission, ``executor.region`` before each device region
+(``region{i}``) or eager device segment (``segment{i}``), and
+``executor.host`` before each host callback (``runtime/faults.py``), each
+before the call writes a static buffer, so retrying a ``donate=False``
+call is safe.  A :class:`TransientError` counts against its site;
+``demote_after`` of them at one site move the executor one level down
+:attr:`Executor.LADDER` (async regions, then synchronous host regions,
+then the sequential schedule, then the heuristic layouts and tiles), and
+``promote_after`` clean calls in a row move it one level back up.  Every
+move is a :class:`DegradationEvent` in ``plan.degradations``
+(``plan.describe()``); a deterministic error moves nothing.  A level's
+plan keeps its executable-cache entry leased to this executor, so coming
+back to a level captures nothing.
+
 Not in this executor yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``mesh=`` and partitioned tensors (item 8) and async
-region dispatch (``async_regions=True``, item 7(c)).  The defaults stay
-``regions=False`` and ``donate=False`` (the reference's are True);
-flipping them is a ROADMAP item of its own.
+its ROADMAP item: ``mesh=`` and partitioned tensors (item 8).  The
+defaults stay ``regions=False`` and ``donate=False`` (the reference's are
+True); flipping them is a ROADMAP item of its own.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -108,15 +145,22 @@ import enum as enum_lib
 import functools
 import hashlib
 import sys
+import threading
+import time
 import types
 import weakref
-from contextlib import contextmanager
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor, \
+    TimeoutError as FuturesTimeout
+from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass, field as dfield
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..runtime.faults import (HostTimeoutError, TransientError,
+                              trip as _fault_trip)
 from ..tuning.tiles import note_tile_uses, record_tile_use, tile_scope
 from . import halo as halo_lib
 from . import schedule as schedule_lib
@@ -127,14 +171,14 @@ from .layout import (Layout, RecordArray, _as_tensor, relayout,
 from .schedule import ScheduleDag
 from .tensor import DistTensor, ReductionResult
 
-__all__ = ["Executor", "execute", "ExecutableCacheEntry", "LayoutPlan",
-           "RelayoutStep", "clear_executable_cache", "drop_executables",
+__all__ = ["Executor", "execute", "DegradationEvent", "ExecutableCacheEntry",
+           "HostTimeoutError", "LayoutPlan", "RelayoutStep",
+           "clear_executable_cache", "drop_executables",
            "executable_cache_stats", "layout_candidates", "plan_signature",
            "solve_layouts"]
 
 _ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
               "executor)")
-_ITEM_ASYNC = "ROADMAP item 7(c) (async regions)"
 
 
 def _apply_halo(data: torch.Tensor, t: DistTensor) -> torch.Tensor:
@@ -148,6 +192,262 @@ def _apply_halo(data: torch.Tensor, t: DistTensor) -> torch.Tensor:
                                    constant=t.boundary_constant)
 
 
+# -- event-driven async region runtime ----------------------------------------
+
+class _HostTaskCancelled(Exception):
+    """The outcome of a queued callback that never ran: one before it
+    failed, or its call gave up on it.  The drain skips it."""
+
+
+_HOST_POOL: Optional[ThreadPoolExecutor] = None
+_HOST_POOL_LOCK = threading.Lock()
+
+
+def _host_pool() -> ThreadPoolExecutor:
+    """The process-wide pool of host callbacks, made on first use (one
+    pool for every executor, so many executors never leak threads).  No
+    deadlock: a pool task runs one call's callbacks and waits on nothing
+    but the card."""
+    global _HOST_POOL
+    with _HOST_POOL_LOCK:
+        if _HOST_POOL is None:
+            _HOST_POOL = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="ripple-host")
+        return _HOST_POOL
+
+
+_POOL_THREAD = threading.local()
+
+
+def _side_stream(device: torch.device):
+    """The calling pool thread's own stream on ``device``: a callback's
+    device work (a ``.cpu()``, a ``float()``) goes there, not behind every
+    later step on the dispatching stream."""
+    streams = getattr(_POOL_THREAD, "streams", None)
+    if streams is None:
+        streams = _POOL_THREAD.streams = {}
+    stream = streams.get(device)
+    if stream is None:
+        stream = streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _tensor_of(v):
+    data = v.data if isinstance(v, RecordArray) else v
+    return data if isinstance(data, torch.Tensor) else None
+
+
+def _snapshot_for_host(v, storages: set):
+    """One resolved host argument as its callback reads it, and the bytes
+    cloned for it: a tensor that lies in a static buffer is cloned on the
+    dispatching stream (the next replay overwrites the buffer while the
+    callback may still read it, whatever ``donate`` says); any other value
+    is passed as it is (nothing writes it)."""
+    data = _tensor_of(v)
+    if data is None or _storage(data) not in storages:
+        return v, 0
+    copy = data.clone()
+    nbytes = copy.numel() * copy.element_size()
+    if isinstance(v, RecordArray):
+        return RecordArray(copy, v.spec, v.layout), nbytes
+    return copy, nbytes
+
+
+class _AsyncRun:
+    """The in-flight host callbacks of ONE ``run()`` (the event-driven
+    dispatcher's state).
+
+    Each non-barrier host region is queued instead of blocking the
+    dispatcher, with a future the dispatcher holds.  One pool task at a
+    time runs the queue in order (program order of side effects), so
+    consecutive callbacks run on one thread without a hand-off between
+    threads; it is submitted when a callback is queued and none runs, and
+    ends when the queue is empty.  A callback waits, on the card, for a
+    CUDA event recorded after its arguments' snapshots on the dispatching
+    stream (its only data dependency: never ``torch.cuda.synchronize``,
+    which would wait for every step dispatched behind it), then runs under
+    the device on its thread's side stream.  After a failure the callbacks
+    queued behind it are cancelled.  ``max_inflight`` bounds the
+    pipeline's depth.
+
+    ``host_timeout`` (seconds, None: no watchdog) bounds every wait on a
+    callback — the in-flight cap, a drain: past it the wait raises
+    :class:`HostTimeoutError` (transient) and every callback not yet
+    started is cancelled.  A Python thread cannot be killed, so a hung
+    callback keeps its pool slot until it returns (its own callback is
+    skipped if it was still waiting to start), but the dispatcher and the
+    executor stay live.  ``stats`` is the executor's ``async_stats``,
+    which this adds to."""
+
+    max_inflight = 32
+
+    def __init__(self, device: torch.device, host_timeout: Optional[float],
+                 storages, stats: dict):
+        self.device = device
+        self.host_timeout = host_timeout
+        self._storages = storages      # () -> the static buffers' storages
+        self.stats = stats
+        self.tasks: deque = deque()    # (region index, Future), in order
+        self._queue: deque = deque()   # the callbacks not started yet
+        self._lock = threading.Lock()  # guards _queue and _running
+        self._running = False          # a pool task is running the queue
+        self._failed = False           # a callback failed: cancel the rest
+        self._cancelled = threading.Event()
+        self._hung: set = set()        # futures the watchdog gave up on
+
+    def submit(self, region_index: int, fn, vals) -> None:
+        self.check()
+        _fault_trip("executor.dispatch", detail=f"region{region_index}")
+        if len(self.tasks) >= self.max_inflight:
+            self._wait_oldest()
+        storages = self._storages()
+        snapped = []
+        for v in vals:
+            v, nbytes = _snapshot_for_host(v, storages)
+            snapped.append(v)
+            self.stats["snapshot_bytes"] += nbytes
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        fut: Future = Future()
+        with self._lock:
+            self._queue.append((region_index, fn, snapped, event, fut))
+            start = not self._running
+            self._running = True
+        if start:
+            _host_pool().submit(self._run_queue)
+        self.tasks.append((region_index, fut))
+        self.stats["callbacks"] += 1
+        self.stats["peak_inflight"] = max(self.stats["peak_inflight"],
+                                          len(self.tasks))
+
+    def _run_queue(self) -> None:
+        """The pool task: run the queued callbacks in order until none is
+        left."""
+        while True:
+            with self._lock:
+                if not self._queue:
+                    self._running = False
+                    return
+                item = self._queue.popleft()
+            self._run_one(*item)
+
+    def _run_one(self, region_index: int, fn, vals, event, fut) -> None:
+        try:
+            if self._failed or self._cancelled.is_set():
+                raise _HostTaskCancelled()
+            if event is not None:
+                event.synchronize()
+            _fault_trip("executor.host", detail=f"region{region_index}")
+            if self._cancelled.is_set():   # the watchdog gave up meanwhile
+                raise _HostTaskCancelled()
+            if fn is not None and event is None:
+                fn(*vals)
+            elif fn is not None:
+                side = _side_stream(self.device)
+                side.wait_event(event)
+                for v in vals:
+                    data = _tensor_of(v)
+                    if data is not None and data.is_cuda:
+                        # the allocator must not reuse the block before
+                        # the side stream's reads of it are done
+                        data.record_stream(side)
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(side):
+                    fn(*vals)
+        except BaseException as exc:
+            if not isinstance(exc, _HostTaskCancelled):
+                self._failed = True
+            fut.set_exception(exc)
+        else:
+            fut.set_result(None)
+
+    def _cancel_queued(self) -> None:
+        """Every callback not started yet ends as cancelled."""
+        self._cancelled.set()
+        with self._lock:
+            queued = list(self._queue)
+            self._queue.clear()
+        for *_, fut in queued:
+            fut.set_exception(_HostTaskCancelled())
+
+    def _timed_result(self, region_index: int, fut):
+        """``fut.result`` under the watchdog; a timeout cancels every
+        callback not yet started and raises :class:`HostTimeoutError`."""
+        try:
+            return fut.result(timeout=self.host_timeout)
+        except FuturesTimeout:
+            self._hung.add(fut)
+            self._cancel_queued()
+            err = HostTimeoutError(
+                f"host callback of region {region_index} still running "
+                f"after {self.host_timeout}s — cancelling its successors")
+            err.site = "executor.host"
+            raise err from None
+
+    def _wait_oldest(self) -> None:
+        region_index, fut = self.tasks[0]
+        t0 = time.perf_counter()
+        try:
+            self._timed_result(region_index, fut)
+        except _HostTaskCancelled:
+            pass
+        finally:
+            self.stats["wait_s"] += time.perf_counter() - t0
+        self.tasks.popleft()
+
+    def check(self) -> None:
+        """Raise the failure of a callback that already failed, without
+        waiting on the rest: the dispatcher calls this before each region,
+        so a failure stops new work promptly.  Callbacks finish in
+        dispatch order, so the finished ones lead: they are taken off
+        here, and the first unfinished ends the scan."""
+        while self.tasks and self.tasks[0][1].done():
+            _, fut = self.tasks.popleft()
+            exc = fut.exception()
+            if exc is not None and not isinstance(exc, _HostTaskCancelled):
+                raise exc
+
+    def drain(self, barrier: bool = False) -> None:
+        """Wait for every in-flight callback and re-raise the FIRST failure
+        in dispatch order (cancelled successors are skipped): the error a
+        synchronous run would have raised.  ``barrier`` counts the drain
+        as a wait inside the call (a barrier, a host loop, a build) when a
+        callback is still running."""
+        if barrier and any(not fut.done() for _, fut in self.tasks):
+            self.stats["barrier_drains"] += 1
+        first = None
+        t0 = time.perf_counter()
+        for region_index, fut in self.tasks:
+            try:
+                self._timed_result(region_index, fut)
+            except _HostTaskCancelled:
+                pass
+            except BaseException as exc:
+                if first is None:
+                    first = exc
+        self.stats["wait_s"] += time.perf_counter() - t0
+        self.tasks.clear()
+        if first is not None:
+            raise first
+
+    def abort(self) -> None:
+        """Clean-up on an exception: cancel what has not started and wait
+        out the rest, swallowing their errors (another one is already on
+        its way).  A callback the watchdog gave up on is left to the pool
+        instead of being waited for again."""
+        self._cancel_queued()
+        for _, fut in self.tasks:
+            if fut in self._hung:
+                continue
+            try:
+                fut.result(timeout=self.host_timeout)
+            except BaseException:
+                pass
+        self.tasks.clear()
+
+
 @dataclass(frozen=True)
 class RelayoutStep:
     """An explicit layout conversion the executor inserts at a segment
@@ -157,6 +457,28 @@ class RelayoutStep:
     tensor: str
     src: Layout
     dst: Layout
+
+
+@dataclass(frozen=True)
+class DegradationEvent:
+    """One move of the executor's degradation ladder (rendered by
+    ``plan.describe()``).  ``action`` is ``"demote"`` or ``"promote"``;
+    ``frm``/``to`` are level names of :attr:`Executor.LADDER`; ``site``
+    names the fault site whose failures drove a demotion (``""`` for a
+    promotion); ``passes`` is the executor's count of clean calls at the
+    move."""
+
+    passes: int
+    action: str
+    frm: str
+    to: str
+    site: str
+    reason: str
+
+    def describe(self) -> str:
+        """One line: what moved, which way, and why."""
+        return (f"pass {self.passes}: {self.action} {self.frm} -> "
+                f"{self.to} — {self.reason}")
 
 
 @dataclass
@@ -170,11 +492,13 @@ class LayoutPlan:
     each device region runs as under ``regions=True`` (filled by
     :meth:`Executor.describe_dag`), ``signature`` the 12-hex digest of
     the :func:`plan_signature`, ``cache`` the executable-cache entry once
-    a region ran (None with ``regions=False``) and ``tuning`` the
+    a region ran (None with ``regions=False``), ``tuning`` the
     measured autotuner's
     :class:`~repro_torch.tuning.search.TuningDecision` when the Executor
     was constructed with ``tune="load"``/``"auto"`` (None when tuning is
-    off)."""
+    off) and ``degradations`` the executor's ladder moves
+    (:class:`DegradationEvent`, kept across the plans a move rebuilds).
+    :meth:`describe` renders all of it."""
 
     per_segment: list[dict[str, Layout]] = dfield(default_factory=list)
     initial: dict[str, Layout] = dfield(default_factory=dict)
@@ -185,6 +509,7 @@ class LayoutPlan:
     signature: str = ""
     cache: Optional["ExecutableCacheEntry"] = None
     tuning: Optional[Any] = None
+    degradations: list[DegradationEvent] = dfield(default_factory=list)
 
     def describe_dag(self) -> str:
         """Render the dependency DAG with its segment/wave placement, the
@@ -204,6 +529,21 @@ class LayoutPlan:
                     "default kernel tiles — construct the Executor with "
                     "tune=\"auto\" to measure)")
         return self.tuning.describe()
+
+    def describe_degradations(self) -> str:
+        """One line per ladder move (a demotion with its site and reason,
+        a promotion after clean calls); says so when there was none."""
+        if not self.degradations:
+            return "(no degradation-ladder transitions)"
+        return "\n".join("ladder " + d.describe() for d in self.degradations)
+
+    def describe(self) -> str:
+        """The whole plan: the DAG, regions and cache
+        (:meth:`describe_dag`), the ladder's moves
+        (:meth:`describe_degradations`), then the tuning
+        (:meth:`describe_tuning`)."""
+        return (f"{self.describe_dag()}\n{self.describe_degradations()}\n"
+                f"{self.describe_tuning()}")
 
 
 def _segment_nodes(kind: str, payload):
@@ -588,7 +928,9 @@ class ExecutableCacheEntry:
     keyed by ``id`` in the signature, so it must outlive every graph that
     reads it), ``pins`` those graphs held while ``users`` (live executors
     that fetched the entry) is above 0.  Under ``donate=True`` an entry
-    with a user is leased to it."""
+    with a user is leased to it.  ``lock`` is held by a call for as
+    long as it uses the buffers: two executors that share the entry on
+    two threads take turns."""
 
     key: tuple
     executables: dict = dfield(default_factory=dict)
@@ -602,6 +944,7 @@ class ExecutableCacheEntry:
     graphs: list = dfield(default_factory=list)
     pins: list = dfield(default_factory=list)
     users: int = 0
+    lock: Any = dfield(default_factory=threading.RLock)
 
     def buffer(self, name: str, like: torch.Tensor) -> torch.Tensor:
         """The static buffer of ``name`` in ``like``'s storage shape and
@@ -695,15 +1038,17 @@ class _CallState:
     every key to its current value — a static buffer once a piece has
     read or written it; ``origin`` the value a key held when it was
     copied into its buffer; ``written`` the keys a piece wrote;
-    ``buffers`` the ids of the static buffers handed out."""
+    ``buffers`` the ids of the static buffers handed out; ``ctx`` the
+    async dispatcher of the regions running now (None: synchronous)."""
 
-    __slots__ = ("state", "origin", "written", "buffers")
+    __slots__ = ("state", "origin", "written", "buffers", "ctx")
 
-    def __init__(self, state: dict):
+    def __init__(self, state: dict, ctx: Optional[_AsyncRun] = None):
         self.state = dict(state)
         self.origin: dict = {}
         self.written: set = set()
         self.buffers: set = set()
+        self.ctx = ctx
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -764,6 +1109,10 @@ class _Piece:
     def run(self, ex: "Executor", entry: ExecutableCacheEntry,
             st: _CallState) -> None:
         if self.in_bufs is None:
+            if st.ctx is not None and ex.device.type == "cuda":
+                # a capture fails on another thread's device-to-host
+                # read: no callback of this call runs while it builds
+                st.ctx.drain(barrier=True)
             self._build(ex, entry, st)
         else:
             self._stage(entry, st, self.in_bufs)
@@ -928,6 +1277,17 @@ class Executor:
     fields) and ``tune_inputs`` are the ``init_state`` overrides every
     candidate is timed on.
 
+    ``async_regions`` (default True) runs host regions on the host pool
+    under ``regions=True`` (False: on the calling thread, after the
+    device is idle); ``host_timeout`` bounds each wait on a pooled
+    callback; ``degrade``, ``demote_after`` and ``promote_after`` drive
+    the degradation ladder (see the module docstring; ``ladder_level``,
+    ``plan.degradations``).  ``async_stats`` counts, over the executor's
+    life, the callbacks submitted, the bytes their snapshots cloned, the
+    drains inside a call (barriers, host loops, builds), the most
+    callbacks in flight at once and the seconds the dispatcher waited on
+    callbacks (``wait_s``: the in-flight cap and the drains).
+
     Example::
 
         ex = Executor(graph)                  # on the GPU
@@ -937,7 +1297,16 @@ class Executor:
         print(ex.describe_dag(), ex.cache_stats())
         ex = Executor(graph, tune="auto")     # measures once, persists
         print(ex.describe_tuning())           # what won, and why
+        print(ex.plan.describe())             # DAG, regions, ladder, tuning
     """
+
+    #: Ladder levels, fastest first: the configured operating point, then
+    #: synchronous host regions, then the sequential schedule, then the
+    #: heuristic (untuned) layouts and tiles.  ``demote_after`` transient
+    #: failures at one site move one level down, ``promote_after`` clean
+    #: calls in a row one level up; each move is a DegradationEvent in
+    #: ``plan.degradations``.
+    LADDER = ("async_regions", "sync", "sequential", "heuristic")
 
     def __init__(self, graph: Graph, device: Any = None, *,
                  layout_overrides: Optional[dict[str, Layout]] = None,
@@ -949,7 +1318,10 @@ class Executor:
                  tune_budget: Optional[Any] = None,
                  tune_inputs: Optional[dict[str, Any]] = None,
                  regions: bool = False, donate: bool = False,
-                 async_regions: bool = False):
+                 async_regions: bool = True,
+                 host_timeout: Optional[float] = None,
+                 degrade: bool = True, demote_after: int = 2,
+                 promote_after: int = 8):
         if schedule not in ("dag", "sequential"):
             raise ValueError(
                 f"schedule must be 'dag' or 'sequential', got {schedule!r}")
@@ -958,16 +1330,24 @@ class Executor:
                 f"tune must be 'off', 'load' or 'auto', got {tune!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh= is {_ITEM_MESH}")
-        if async_regions:
-            raise NotImplementedError(
-                f"async_regions=True is {_ITEM_ASYNC}")
         self.graph = graph
         self.device = resolve_device(device)
-        self.schedule = schedule
         self.regions = bool(regions)
         self.donate = bool(donate)
+        # not in the plan signature: both modes replay the same graphs
+        self.async_regions = bool(async_regions)
+        self.host_timeout = host_timeout
+        self.degrade = bool(degrade)
+        self.demote_after = int(demote_after)
+        self.promote_after = int(promote_after)
+        self.async_stats = {"callbacks": 0, "snapshot_bytes": 0,
+                            "barrier_drains": 0, "peak_inflight": 0,
+                            "wait_s": 0.0}
         self._cache: Optional[ExecutableCacheEntry] = None
-        self._release: Optional[weakref.finalize] = None
+        # cache key -> (entry, finalizer): every plan this executor ran,
+        # each entry leased until the executor goes (a ladder move back
+        # finds its entry, graphs and buffers again)
+        self._leases: dict = {}
         self._running: Optional[str] = None    # the node being lowered
         self.tensors = graph.all_tensors()
         self.results = graph.all_results()
@@ -977,16 +1357,25 @@ class Executor:
                     f"{t.name}: partitioned axis {t.partition} on a "
                     f"single-process executor — {_ITEM_MESH}")
         self.dag = schedule_lib.build_dag(graph)
-        if schedule == "dag":
-            self._segments = schedule_lib.dag_segments(self.dag)
-        else:
-            self._segments = schedule_lib.sequential_segments(graph)
-            schedule_lib.place_units(self.dag, self._segments)
-        self._layout_overrides = dict(layout_overrides or {})
-        self._segment_overrides = {
+        # the configured operating point: level 0 of the ladder
+        self._cfg_schedule = schedule
+        self._cfg_async = self.async_regions
+        self._user_layout_overrides = dict(layout_overrides or {})
+        self._user_segment_overrides = {
             int(i): dict(v)
             for i, v in (segment_layout_overrides or {}).items()}
-        self._tile_config = dict(tile_overrides or {})
+        self._user_tile_config = dict(tile_overrides or {})
+        self._tuned: Optional[tuple] = None   # what level 3 set aside
+        self.ladder_level = 0
+        self._site_failures: dict[str, int] = {}
+        self._clean_passes = 0
+        self._pass_counter = 0
+        self._degradations: list[DegradationEvent] = []
+        self._apply_schedule(schedule)
+        self._layout_overrides = dict(self._user_layout_overrides)
+        self._segment_overrides = {
+            i: dict(v) for i, v in self._user_segment_overrides.items()}
+        self._tile_config = dict(self._user_tile_config)
         self._tune_inputs = dict(tune_inputs or {})
         self._build_plan()
         if tune != "off":
@@ -1005,20 +1394,122 @@ class Executor:
                 self._build_plan()
             self.plan.tuning = decision
 
+    def _apply_schedule(self, schedule: str) -> None:
+        """(Re)build the segment schedule: at construction, and when the
+        ladder moves to or from ``"sequential"``."""
+        self.schedule = schedule
+        if schedule == "dag":
+            self._segments = schedule_lib.dag_segments(self.dag)
+        else:
+            self._segments = schedule_lib.sequential_segments(self.graph)
+            schedule_lib.place_units(self.dag, self._segments)
+
+    def _apply_ladder_level(self, level: int) -> None:
+        """Configure the executor for one ladder level.  Level 0 is the
+        configured operating point; deeper levels stack: 1 runs host
+        regions synchronously, 2 also takes the sequential schedule, 3
+        also sets the tuned layouts and tiles aside for the heuristics
+        (a promotion to 2 restores them).  A rebuilt plan keys the
+        executable cache by its own signature, and the executor keeps its
+        lease on every entry it ran, so a level visited before captures
+        nothing."""
+        self.ladder_level = level
+        self.async_regions = self._cfg_async and level < 1
+        schedule = self._cfg_schedule if level < 2 else "sequential"
+        layouts = self._layout_overrides
+        tiles = self._tile_config
+        segs = self._segment_overrides
+        if level >= 3 and self._tuned is None:
+            self._tuned = (layouts, tiles, segs)
+            layouts = dict(self._user_layout_overrides)
+            tiles = dict(self._user_tile_config)
+            segs = {i: dict(v)
+                    for i, v in self._user_segment_overrides.items()}
+        elif level < 3 and self._tuned is not None:
+            layouts, tiles, segs = self._tuned
+            self._tuned = None
+        if (schedule, layouts, tiles, segs) == (
+                self.schedule, self._layout_overrides, self._tile_config,
+                self._segment_overrides):
+            return
+        tuning = self.plan.tuning
+        self._apply_schedule(schedule)
+        self._layout_overrides = layouts
+        self._tile_config = tiles
+        self._segment_overrides = segs
+        self._build_plan()
+        self.plan.tuning = tuning
+
+    def record_failure(self, exc: BaseException, site: str = "") -> bool:
+        """The ladder's account of one failed call: a
+        :class:`TransientError` (an injected fault, the watchdog's
+        timeout) counts against ``site`` (default: the error's own), and
+        the ``demote_after``-th at one site moves the executor one level
+        down.  Any other error moves nothing.  Returns True on a
+        demotion.  ``run()`` calls it; a driver that catches failures
+        itself may too."""
+        if not self.degrade or not isinstance(exc, TransientError):
+            return False
+        site = site or getattr(exc, "site", "") or "executor"
+        self._clean_passes = 0
+        n = self._site_failures.get(site, 0) + 1
+        self._site_failures[site] = n
+        if n < self.demote_after \
+                or self.ladder_level >= len(self.LADDER) - 1:
+            return False
+        frm = self.LADDER[self.ladder_level]
+        self._apply_ladder_level(self.ladder_level + 1)
+        self._site_failures[site] = 0
+        self._degradations.append(DegradationEvent(
+            self._pass_counter, "demote", frm,
+            self.LADDER[self.ladder_level], site,
+            f"{n} transient failures at {site} ({exc})"))
+        return True
+
+    def _note_clean_pass(self) -> None:
+        """One call that succeeded: after ``promote_after`` in a row at a
+        degraded level, move one level back up."""
+        self._pass_counter += 1
+        if self.ladder_level == 0:
+            return
+        self._clean_passes += 1
+        if self._clean_passes < self.promote_after:
+            return
+        frm = self.LADDER[self.ladder_level]
+        self._apply_ladder_level(self.ladder_level - 1)
+        self._clean_passes = 0
+        self._site_failures.clear()
+        self._degradations.append(DegradationEvent(
+            self._pass_counter, "promote", frm,
+            self.LADDER[self.ladder_level], "",
+            f"{self.promote_after} clean passes"))
+
     def _build_plan(self) -> None:
         """Solve layouts under the current overrides and derive what
-        depends on them: the regions, the plan signature and the loop
-        sub-executors.  Run once at construction, and a second time when
-        the autotuner commits a configuration that differs from the
-        heuristics."""
+        depends on them: the regions and their footprints, the plan
+        signature and the loop sub-executors.  Run once at construction,
+        again when the autotuner commits a configuration that differs
+        from the heuristics, and at each ladder move that changes the
+        schedule or the overrides."""
         self.plan = solve_layouts(self._segments, self.tensors,
                                   overrides=self._layout_overrides,
                                   segment_overrides=self._segment_overrides)
         self.plan.dag = self.dag
         self.plan.regions = schedule_lib.group_regions(
             [k for k, _ in self._segments])
+        # the barrier bit per region: a barrier host region drains the pool
+        self._region_access = schedule_lib.region_access(self.dag,
+                                                         self.plan.regions)
+        # the ladder's log outlives the plans its moves rebuild
+        self.plan.degradations = self._degradations
+        # the layouts a state is in outside a call: the configured plan's
+        # initial layouts, kept while the ladder runs another plan (whose
+        # first piece or segment converts from them, and whose exit
+        # converts back)
+        if self.ladder_level == 0:
+            self._io_layouts = dict(self.plan.initial)
         # physical layout of each record tensor's state entry right now
-        self._state_layouts: dict[str, Layout] = dict(self.plan.initial)
+        self._state_layouts: dict[str, Layout] = dict(self._io_layouts)
         self._layout_keys = tuple(sorted(self.plan.initial))
         self._plan_sig = plan_signature(self)
         self.plan.signature = hashlib.sha1(
@@ -1027,10 +1518,7 @@ class Executor:
         # included), and under regions=True at host regions and on exit
         self.eager_relayouts = 0
         self._sub_execs: dict[int, Executor] = {}   # loop segment -> body
-        if self._release is not None:
-            self._release()               # the old signature's entry
         self._cache = None
-        self._release = None
         self._fetched: set = set()
 
     # -- executable cache --------------------------------------------------
@@ -1042,24 +1530,26 @@ class Executor:
 
     def _entry(self) -> ExecutableCacheEntry:
         """This plan's executable-cache entry, fetched on first use and
-        used until this executor is collected or re-plans.  Under
+        leased to this executor until it is collected.  Under
         ``donate=True`` an entry another live executor uses is never
         shared."""
         if self._cache is not None:
             return self._cache
         key = self._cache_key()
-        entries = _EXECUTABLE_CACHE.setdefault(key, [])
-        entry = None
-        if self.donate:
-            entry = next((e for e in entries if e.users == 0), None)
-        elif entries:
-            entry = entries[0]
-        if entry is None:
-            entry = ExecutableCacheEntry(key)
-            entries.append(entry)
-        self._release = entry.acquire(self)
-        self._cache = self.plan.cache = entry
-        return entry
+        lease = self._leases.get(key)
+        if lease is None:
+            entries = _EXECUTABLE_CACHE.setdefault(key, [])
+            entry = None
+            if self.donate:
+                entry = next((e for e in entries if e.users == 0), None)
+            elif entries:
+                entry = entries[0]
+            if entry is None:
+                entry = ExecutableCacheEntry(key)
+                entries.append(entry)
+            lease = self._leases[key] = (entry, entry.acquire(self))
+        self._cache = self.plan.cache = lease[0]
+        return self._cache
 
     def _entries(self):
         """The entries whose buffers a call may write: this plan's, and
@@ -1125,8 +1615,8 @@ class Executor:
 
     def _restore_initial_layouts(self, state: dict) -> dict:
         """Undo trailing conversions so that outside a call every state
-        dict is in the plan's initial layouts."""
-        return self._convert_layouts(state, self.plan.initial)
+        dict is in the configured plan's initial layouts."""
+        return self._convert_layouts(state, self._io_layouts)
 
     def _convert_layouts(self, state: dict,
                          targets: dict[str, Layout]) -> dict:
@@ -1145,9 +1635,10 @@ class Executor:
     def init_state(self, **overrides) -> dict[str, Any]:
         """Allocate all tensors/results on the executor's device (zeros
         unless overridden).  Record tensors are materialized in the layout
-        the solver chose for their first consuming segment; an override in
-        another layout is relayouted on the way in."""
-        self._state_layouts = dict(self.plan.initial)
+        the solver chose for their first consuming segment (of the
+        configured plan, whatever the ladder runs); an override in another
+        layout is relayouted on the way in."""
+        self._state_layouts = dict(self._io_layouts)
         state: dict[str, Any] = {}
         for name, t in self.tensors.items():
             eff = self._eff(t)
@@ -1180,7 +1671,7 @@ class Executor:
                 t.spec, t.space, lay)
 
         preferred = list(dict.fromkeys(
-            [self.plan.initial.get(t.name, t.layout), t.layout]))
+            [self._io_layouts.get(t.name, t.layout), t.layout]))
         matches = [lay for lay in preferred if fits(lay)]
         if len(matches) == 1:
             return matches[0]
@@ -1215,7 +1706,7 @@ class Executor:
         the executable-cache counters."""
         if self.regions:
             self._entry()
-            entry = {n: self.plan.initial[n] for n in self._layout_keys}
+            entry = {n: self._io_layouts[n] for n in self._layout_keys}
             self.plan.region_graphs = {
                 r.index: _count_graphs(self._plan_steps(
                     r.segments, entry, "")[0])
@@ -1334,14 +1825,18 @@ class Executor:
     def _sub_executor(self, i: int) -> "Executor":
         """The executor of loop segment ``i``'s body, built once per
         segment with the layouts the enclosing plan solved for it and the
-        enclosing ``regions`` and ``donate``."""
+        enclosing ``regions``, ``donate`` and ``host_timeout``.  The
+        enclosing executor's ladder governs it: its own is off, and its
+        host regions run asynchronously as the enclosing executor's do."""
         sub = self._sub_execs.get(i)
         if sub is None:
             sub = self._sub_execs[i] = Executor(
                 self._segments[i][1], self.device,
                 layout_overrides=self.plan.per_segment[i],
                 schedule=self.schedule, tile_overrides=self._tile_config,
-                regions=self.regions, donate=self.donate)
+                regions=self.regions, donate=self.donate,
+                async_regions=self.async_regions,
+                host_timeout=self.host_timeout, degrade=False)
         return sub
 
     # -- region compile ------------------------------------------------------
@@ -1408,13 +1903,39 @@ class Executor:
         self._fetched.add(key)
         return prog
 
+    def _async_ctx(self, enabled: Optional[bool] = None) \
+            -> Optional[_AsyncRun]:
+        """A fresh dispatcher for one call when the async runtime applies
+        (``enabled``, default ``async_regions``; ``regions=True``; a host
+        region in the plan), else None: the call runs synchronously."""
+        if enabled is None:
+            enabled = self.async_regions
+        if not (enabled and self.regions):
+            return None
+        if not any(r.kind == "host" for r in self.plan.regions):
+            return None
+
+        def storages():
+            return {s for e in self._entries() for s in e.storages}
+
+        return _AsyncRun(self.device, self.host_timeout, storages,
+                         self.async_stats)
+
     def _run_regions(self, st: _CallState) -> None:
         """One pass over the regions: each device region's pieces and
-        loops on the static buffers; host work eagerly between them,
-        after the device is idle."""
+        loops on the static buffers; host work between them, eagerly after
+        the device is idle or, with a dispatcher (``st.ctx``), submitted
+        to the host pool (barriers and host loops drain it first)."""
         entry = self._entry()
+        ctx = st.ctx
         for region in self.plan.regions:
+            if ctx is not None:
+                ctx.check()
             if region.kind == "device":
+                # before the region writes any buffer: a retry of a
+                # donate=False call starts from the caller's tensors
+                _fault_trip("executor.region",
+                            detail=f"region{region.index}")
                 prog = self._region_program(entry, region)
                 for step in prog.steps:
                     step.run(self, entry, st)
@@ -1424,20 +1945,42 @@ class Executor:
             payload = self._segments[i][1]
             self._apply_segment_layouts(st.state, i)
             if region.kind == "host":
+                barrier = self._region_access[region.index][2]
+                if ctx is not None and not barrier:
+                    vals = self._resolve_args(
+                        payload, st.state, self._state_layouts) \
+                        if payload.args else []
+                    ctx.submit(region.index, payload.fn, vals)
+                    continue
+                if ctx is not None:
+                    ctx.drain(barrier=True)   # side effects keep order
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                _fault_trip("executor.host", detail=f"region{region.index}")
                 if payload.fn is not None:
                     vals = self._resolve_args(
                         payload, st.state, self._state_layouts) \
                         if payload.args else []
                     payload.fn(*vals)
             else:   # host_loop: the body's regions, on the same call state
+                if ctx is not None:
+                    ctx.drain(barrier=True)   # the predicate reads state
                 sub = self._sub_executor(i)
                 before = sub.eager_relayouts
                 while bool(payload.condition(st.state)):
-                    with sub._layout_epoch():
-                        sub._run_regions(st)
-                        sub._restore_initial_layouts(st.state)
+                    st.ctx = sub._async_ctx(self.async_regions)
+                    try:
+                        with sub._layout_epoch():
+                            sub._run_regions(st)
+                            sub._restore_initial_layouts(st.state)
+                        if st.ctx is not None:
+                            st.ctx.drain()
+                    except BaseException:
+                        if st.ctx is not None:
+                            st.ctx.abort()
+                        raise
+                    finally:
+                        st.ctx = ctx
                 self.eager_relayouts += sub.eager_relayouts - before
 
     def _finish(self, st: _CallState) -> dict:
@@ -1460,6 +2003,7 @@ class Executor:
         for i, (kind, payload) in enumerate(self._segments):
             state = self._apply_segment_layouts(state, i)
             if kind == "device":
+                _fault_trip("executor.region", detail=f"segment{i}")
                 with tile_scope(self._tile_config):
                     state = self._lower_levels(payload, state,
                                                dict(self._state_layouts))
@@ -1467,6 +2011,7 @@ class Executor:
                 node: Node = payload
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                _fault_trip("executor.host", detail=f"segment{i}")
                 if node.fn is not None:
                     vals = self._resolve_args(
                         node, state, self._state_layouts) \
@@ -1484,14 +2029,14 @@ class Executor:
 
     @contextmanager
     def _layout_epoch(self):
-        """Incoming states are in the plan's initial layouts, and whatever
-        happens inside (an exception included), the bookkeeping ends at
-        initial again."""
-        self._state_layouts = dict(self.plan.initial)
+        """Incoming states are in the configured plan's initial layouts,
+        and whatever happens inside (an exception, a ladder move
+        included), the bookkeeping ends at them again."""
+        self._state_layouts = dict(self._io_layouts)
         try:
             yield
         finally:
-            self._state_layouts = dict(self.plan.initial)
+            self._state_layouts = dict(self._io_layouts)
 
     def __call__(self, state: dict) -> dict:
         """Execute the graph once; returns the new state dict."""
@@ -1502,20 +2047,38 @@ class Executor:
         executed many — paper §5.3).  Under ``regions=True`` a device-only
         graph replays its captured step ``steps`` times, copying in once
         and cloning out once (unless ``donate=True``); every step count
-        shares that one capture."""
+        shares that one capture.  Pooled host callbacks have all run when
+        it returns (the first failure re-raises here).  A failure is
+        reported to the ladder (:meth:`record_failure`), a success counts
+        as a clean pass."""
         if steps <= 0:
             return state
         with self._layout_epoch():
-            if not self.regions:
-                state = dict(state)
-                for _ in range(steps):
-                    state = self._call_segments(state)
-                return self._restore_initial_layouts(dict(state))
-            st = _CallState(self._unalias(state))
-            for _ in range(steps):
-                self._run_regions(st)
-            self._restore_initial_layouts(st.state)
-            return self._finish(st)
+            ctx = self._async_ctx()
+            try:
+                if not self.regions:
+                    state = dict(state)
+                    for _ in range(steps):
+                        state = self._call_segments(state)
+                    out = self._restore_initial_layouts(dict(state))
+                else:
+                    with ExitStack() as held:
+                        for entry in self._entries():
+                            held.enter_context(entry.lock)
+                        st = _CallState(self._unalias(state), ctx)
+                        for _ in range(steps):
+                            self._run_regions(st)
+                        self._restore_initial_layouts(st.state)
+                        if ctx is not None:
+                            ctx.drain()
+                        out = self._finish(st)
+            except BaseException as exc:
+                if ctx is not None:
+                    ctx.abort()
+                self.record_failure(exc)
+                raise
+            self._note_clean_pass()
+            return out
 
 
 def execute(graph: Graph, device: Any = None, steps: int = 1,

@@ -398,17 +398,19 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
                     for si, d in executor._segment_overrides.items()}
         for si, d in (seg_layouts or {}).items():
             seg_over.setdefault(si, {}).update(d)
-        # timed as the caller will run: regions and donation included.
-        # The caller's state is never modified either way (a donating
-        # executor copies it into its buffers), so every call starts
-        # from it
+        # timed as the caller will run: regions, donation and async
+        # host regions included.  The caller's state is never modified
+        # either way (a donating executor copies it into its buffers), so
+        # every call starts from it.  The ladder is off: a transient
+        # failure while timing must not demote a candidate mid-search
         ex = Executor(graph, executor.device,
                       layout_overrides={**executor._layout_overrides,
                                         **layouts},
                       schedule=executor.schedule,
                       tile_overrides={**executor._tile_config, **tiles},
                       segment_layout_overrides=seg_over,
-                      regions=executor.regions, donate=executor.donate)
+                      regions=executor.regions, donate=executor.donate,
+                      async_regions=executor.async_regions, degrade=False)
         candidate_sigs.append(ex._plan_sig)
         state = ex.init_state(**executor._tune_inputs)
 

@@ -7,6 +7,9 @@
   field (SoA) updated by the record SAXPY, and a NaN-ignoring max over the
   ions' velocities.  The three pushers share no tensor, so the DAG
   schedule runs them as one antichain.
+* :func:`build_particle_diagnostic_graph` — that step with the host
+  diagnostic a particle code logs every step (the time and ``vmax``),
+  so that the plan runs device -> host -> device.
 * :func:`build_flux_graph` — the Table 4 FORCE flux difference on a
   haloed 2-D Euler record (transmissive boundary).
 * :func:`build_eikonal_graph` — the Table 5 eikonal solve: the paper's
@@ -22,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core import (Boundary, DistTensor, Graph, Layout, MaxReducer,
-                   ReductionResult, make_reduction_result)
+from .core import (Boundary, DistTensor, ExecutionKind, Graph, Layout,
+                   MaxReducer, ReductionResult, make_reduction_result)
 from .kernels.eikonal.ops import make_eikonal_graph
 from .kernels.particle.ops import PARTICLE_SPEC, particle_update
 from .kernels.saxpy.ops import SAXPY_SPEC, saxpy, saxpy_record
@@ -31,7 +34,7 @@ from .kernels.stencil.ops import make_flux_difference_graph
 from .physics.euler import EULER_SPEC
 
 __all__ = ["DT", "build_saxpy_graph", "build_particle_graph",
-           "particle_fields", "build_flux_graph", "Converging",
+           "build_particle_diagnostic_graph", "particle_fields", "build_flux_graph", "Converging",
            "build_eikonal_graph", "eikonal_inputs", "eikonal_distance"]
 
 DT = 0.01
@@ -73,6 +76,49 @@ def build_particle_graph(n: int, *, block: int = 512, dt: float = DT,
                  field, writes=(0,))
     g.then_reduce(ions, vmax, MaxReducer(), field="v")
     return g, (ions, electrons, field), vmax
+
+
+def build_particle_diagnostic_graph(n: int, record, *, block: int = 512,
+                                    dt: float = DT, use_kernel: bool = True):
+    """The particle step with a host diagnostic: the pushes and the max
+    over the ions' velocities, then a host (Cpu) node that reads the
+    step's time ``t`` and ``vmax`` and calls ``record(t, vmax)`` with both
+    as Python floats (a particle code logs them every step; ``record`` may
+    also stand in for slow I/O), then the field update (K2), which also
+    advances the clock, ``t += dt``.
+
+    The field update does not need ``vmax``, and the DAG schedule would
+    hoist it into the pushes' segment.  It writes ``t``, which the
+    diagnostic reads before it, and that anti-dependency keeps it behind
+    the host node: the plan runs device -> host -> device, so that a
+    callback is in flight while the next device region runs.  Pass
+    ``record`` as a function or an object: a bound method of a list (its
+    ``append``) is keyed by the list's contents in the plan signature.
+    Returns ``(graph, (ions, electrons, field, t), vmax)``."""
+    ions = DistTensor("ions", (n,), spec=PARTICLE_SPEC, layout=Layout.AOS)
+    electrons = DistTensor("electrons", (n,), spec=PARTICLE_SPEC,
+                           layout=Layout.AOSOA)
+    field = DistTensor("field", (n,), spec=SAXPY_SPEC, layout=Layout.SOA)
+    t = DistTensor("t", (1,))
+    vmax = make_reduction_result("vmax")
+
+    def push(r):
+        return particle_update(r, dt, block=block, use_kernel=use_kernel)
+
+    def diagnostic(v, clock):
+        record(float(clock[0]), float(v))
+
+    def advance(r, clock):
+        return (saxpy_record(r, dt, block=block, use_kernel=use_kernel),
+                clock + dt)
+
+    g = Graph(name="particle_step_diagnostic")
+    g.split(push, ions, writes=(0,))
+    g.then_split(push, electrons, writes=(0,))
+    g.then_reduce(ions, vmax, MaxReducer(), field="v")
+    g.then(diagnostic, exec_kind=ExecutionKind.Cpu, args=(vmax, t))
+    g.then_split(advance, field, t, writes=(0, 1))
+    return g, (ions, electrons, field, t), vmax
 
 
 def particle_fields(n: int, seed: int = 0) -> dict[str, dict[str, np.ndarray]]:

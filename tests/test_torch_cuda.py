@@ -707,3 +707,133 @@ def test_donated_buffers_passed_back_swapped_on_the_card(dev, shape):
         st = ex(inp)
         _bitwise(st, want)
     clear_executable_cache()
+
+
+# -- async regions: host callbacks on the pool beside captured graphs ----------
+
+def _read_then_double(seen, sleep_s=0.0):
+    """x += 1; a host read of x (sleeping first, so that later steps are
+    dispatched meanwhile); x *= 2: each callback must see its own step."""
+    import threading
+    import time
+
+    from repro_torch.core import DistTensor, ExecutionKind, Graph
+
+    def read(v):
+        time.sleep(sleep_s)
+        seen.append((float(v[0]), threading.current_thread().name,
+                     torch.cuda.current_stream()))
+
+    x = DistTensor("x", (1 << 20,))
+    g = Graph(name="async_read")
+    g.split(lambda v: v + 1.0, x, writes=(0,))
+    g.then(read, exec_kind=ExecutionKind.Cpu, args=(x,))
+    g.then_split(lambda v: v * 2.0, x, writes=(0,))
+    return g
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_async_callbacks_read_snapshots_of_their_step(dev, donate):
+    """The next replay overwrites the argument's static buffer in place
+    while a callback still sleeps: the callback reads the clone made at
+    submit time, under either ``donate``."""
+    from repro_torch.core import clear_executable_cache
+
+    clear_executable_cache()
+    seen = []
+    ex = Executor(_read_then_double(seen, sleep_s=0.01), regions=True,
+                  donate=donate)
+    st = ex.run(ex.init_state(), 5)
+    assert [v for v, _, _ in seen] == [1.0, 3.0, 7.0, 15.0, 31.0]
+    assert torch.equal(st["x"], torch.full((1 << 20,), 62.0, device=dev))
+    assert ex.async_stats["snapshot_bytes"] == 5 * 4 * (1 << 20)
+    assert ex.async_stats["peak_inflight"] >= 2
+    clear_executable_cache()
+
+
+def test_async_callback_reads_on_its_threads_side_stream(dev):
+    """A callback runs on a ``ripple-host`` thread under the executor's
+    device, on that thread's own stream: not the dispatching stream, not
+    the legacy default stream, so its read does not queue behind later
+    steps."""
+    from repro_torch.core import clear_executable_cache
+
+    clear_executable_cache()
+    seen = []
+    ex = Executor(_read_then_double(seen), regions=True)
+    ex.run(ex.init_state(), 3)
+    main = torch.cuda.current_stream()
+    for _, thread, stream in seen:
+        assert thread.startswith("ripple-host")
+        assert stream != main and stream != torch.cuda.default_stream()
+    clear_executable_cache()
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_async_capture_with_a_callback_in_flight(dev, donate):
+    """The particle step with a host diagnostic from a cold cache: its
+    second piece is captured while the first callback is in flight (the
+    dispatcher drains it first), and the state and the log equal the
+    synchronous and the eager runs'."""
+    import time
+
+    from repro_torch.core import clear_executable_cache
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+
+    n = 1 << 16
+    f = workloads.particle_fields(n, 0)
+    specs = {"ions": (PARTICLE_SPEC, Layout.AOS),
+             "electrons": (PARTICLE_SPEC, Layout.AOSOA),
+             "field": (SAXPY_SPEC, Layout.SOA)}
+    init = {k: RecordArray.from_fields(
+        sp, {fn: torch.from_numpy(v) for fn, v in f[k].items()}, lay)
+        for k, (sp, lay) in specs.items()}
+    runs = {}
+    for mode in ("async", "sync", "eager"):
+        log = []
+
+        def record(t, v, log=log):
+            time.sleep(0.05)
+            log.append((t, v))
+
+        g, _, _ = workloads.build_particle_diagnostic_graph(n, record)
+        clear_executable_cache()
+        ex = (Executor(g) if mode == "eager" else
+              Executor(g, regions=True, donate=donate,
+                       async_regions=mode == "async"))
+        st = ex.run(ex.init_state(**init), 4)
+        runs[mode] = (st, log, ex)
+    st, log, ex = runs["async"]
+    assert ex.async_stats["barrier_drains"] == 1
+    assert ex.cache_stats()["trace_events"] == 2
+    for mode in ("sync", "eager"):
+        _bitwise(st, runs[mode][0])
+        assert log == runs[mode][1]
+    clear_executable_cache()
+
+
+def test_async_watchdog_on_the_card(dev):
+    """A callback hung past ``host_timeout`` raises HostTimeoutError within
+    the limit and a little; the next call equals the first, with no new
+    capture."""
+    import time
+
+    from repro_torch.core import HostTimeoutError, clear_executable_cache
+    from repro_torch.runtime.faults import Fault, FaultPlan, fault_scope
+
+    clear_executable_cache()
+    seen = []
+    ex = Executor(_read_then_double(seen), regions=True, host_timeout=0.3)
+    want = ex.run(ex.init_state(), 3)
+    caps = ex.cache_stats()["trace_events"]
+    plan = FaultPlan([Fault("executor.host", nth=0, kind="delay",
+                            delay_s=1.5)])
+    t0 = time.perf_counter()
+    with fault_scope(plan):
+        with pytest.raises(HostTimeoutError):
+            ex.run(ex.init_state(), 3)
+    assert time.perf_counter() - t0 < 1.0
+    _bitwise(ex.run(ex.init_state(), 3), want)
+    assert ex.cache_stats()["trace_events"] == caps
+    clear_executable_cache()

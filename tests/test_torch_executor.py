@@ -377,15 +377,12 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
     assert len(calls) == launches
 
 
-@pytest.mark.parametrize("option", ["mesh", "async_regions", "partition"])
+@pytest.mark.parametrize("option", ["mesh", "partition"])
 def test_unported_options_raise_with_their_roadmap_item(option):
     g, _, _ = workloads.build_particle_graph(1024)
-    kw, item = {}, {"mesh": "item 8", "async_regions": "item 7\\(c\\)",
-                    "partition": "item 8"}[option]
+    kw, item = {}, {"mesh": "item 8", "partition": "item 8"}[option]
     if option == "mesh":
         kw["mesh"] = object()
-    elif option == "async_regions":
-        kw[option] = True
     else:
         t = port.DistTensor("p", (64,), partition=("d",))
         g = port.Graph(name="part").split(lambda x: x, t)
