@@ -74,6 +74,25 @@ result line):
    requests' prefills launch K6 and K7 as in phase 3.  These counts are
    checked and not added to the kernels line, whose ``launches`` are
    phase 3's;
+3d. mesh — partitioned tensors on a mesh of four shards on the one card
+   (``make_mesh(..., devices=["cuda:0"] * k)``; one card cannot show
+   scaling): the flux graph at 4096 x 4096 (SoA float32 shock-bubble,
+   transmissive halo (1, 1)) unsharded, on a (2, 2) mesh ("gx", "gy")
+   with the synchronous lowering and with ``overlap=True``, 20 steps each
+   from the same inputs: ``du`` of both mesh runs bit for bit the
+   unsharded K4 run's, K4's launches as designed (sync: one per shard a
+   step; overlap: the interior and four strips per shard), the overlap
+   plan's blocks overlapped on both axes with corners and no fallback;
+   the eikonal solve at 4096 x 4096 (inner 4, (8, 128) tiles) on the
+   (2, 2) mesh, synchronous: the unsharded solve's iterations, ``phi`` bit
+   for bit, K5 once per shard an iteration; the Euler solver
+   (``workloads.build_euler_solver``, 1024 x 512, 20 steps) unsharded, on
+   (4,) over "gy" and on (2, 2) with ``overlap=True``, split and unsplit:
+   states within rtol 1e-5, atol 1e-6 of the unsharded run, ``smax``
+   equal, the mass drift printed.  Printed, not gated: ms per step of the
+   three flux runs, the halo bytes copied per step, the device busy share
+   of one profiled step, the eikonal solve's seconds both ways.  The
+   mesh runs' K4/K5 launches join the kernels line's;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -120,6 +139,9 @@ FLUX_N, FLUX_STEPS, FLUX_LAM = 4096, 20, 0.1
 # λx, λy of the flux kernel's parity: distinct, so that an x/y swap shows
 FLUX_PARITY_LAM = (0.1, 0.05)
 EIK_N, EIK_INNER, EIK_BLOCK, EIK_WARM = 4096, 4, (8, 128), 50
+# phase 3d: the Euler solver's grid and steps (paper §8's shock-bubble at
+# a size that keeps the phase short)
+EULER_NX, EULER_NY, EULER_STEPS = 1024, 512, 20
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # eikonal, as (atol, rtol): float32 uncontracted, so equal to the plain
 # version; bfloat16 a few bfloat16 steps at the fronts' magnitude (the
@@ -1368,6 +1390,187 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
 
 
 
+def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
+    """Phase 3d: the flux graph, the eikonal solve and the Euler solver on
+    a mesh of shards on cuda:0, against their unsharded runs.  Returns the
+    numbers and the K4/K5 launches of the mesh runs."""
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import Executor, halo as halo_lib, make_mesh
+    from repro_torch.physics.euler import RHO, shock_bubble_init
+
+    dev = torch.device("cuda")
+    mesh22 = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
+    mesh4 = make_mesh((4,), ("gy",), devices=["cuda:0"] * 4)
+    out = {"launches": {"flux_difference": 0, "eikonal_fim": 0}}
+
+    copied = []
+    transfer = halo_lib._transfer
+
+    def counting_transfer(x, device):
+        copied.append(x.numel() * x.element_size())
+        return transfer(x, device)
+
+    # -- flux: unsharded, mesh sync, mesh overlap --------------------------
+    u0 = shock_bubble_init(FLUX_N, FLUX_N, device=dev)
+    flux = {}
+    for tag, mesh, overlap in (("unsharded", None, False),
+                               ("mesh sync", mesh22, False),
+                               ("mesh overlap", mesh22, True)):
+        g, (_, f_t) = workloads.build_flux_graph(
+            FLUX_N, FLUX_N, lam_x=FLUX_LAM, lam_y=FLUX_LAM, mesh=mesh,
+            overlap=overlap)
+        ex = Executor(g, mesh=mesh)
+        state = ex.init_state(u=u0)
+        zero_counts()
+        state, ms = run_steps(ex, state, FLUX_STEPS)
+        per_step = 1 if mesh is None else 4 * (5 if overlap else 1)
+        check_counts(f"mesh flux {tag} launches", counts_now(),
+                     {"flux_difference": FLUX_STEPS * per_step})
+        if mesh is not None:
+            out["launches"]["flux_difference"] += FLUX_STEPS * per_step
+            ht = ex.plan.halo_transfers
+            if ex.plan.overlap_fallbacks:
+                raise AssertionError(f"mesh flux {tag}: fallbacks "
+                                     f"{ex.plan.overlap_fallbacks}")
+            for axis in ("gx", "gy"):
+                if not any(h.mesh_axis == axis and h.overlapped == overlap
+                           for h in ht):
+                    raise AssertionError(f"mesh flux {tag}: no "
+                                         f"{'overlapped ' if overlap else ''}"
+                                         f"block over {axis}")
+            if not any(len(h.block) == 2 and h.overlapped == overlap
+                       for h in ht):
+                raise AssertionError(f"mesh flux {tag}: no corner block")
+        # one more step: the halo bytes copied, then its device time
+        copied.clear()
+        halo_lib._transfer = counting_transfer
+        try:
+            ex.run(state, 1)
+        finally:
+            halo_lib._transfer = transfer
+        torch.cuda.synchronize()
+        by_kernel = device_time_by_kernel(lambda: ex.run(state, 1),
+                                          warmup=1)
+        busy = sum(us for us, _ in by_kernel.values()) / 1e3
+        du = ex.read(state, f_t).data
+        flux[tag] = dict(ms=ms, busy_ms=busy, copied=sum(copied),
+                         copies=len(copied), du=du)
+        log(f"mesh flux {tag}: {ms:.3f} ms per step (median of "
+            f"{FLUX_STEPS}), K4 {per_step} launches a step, halo copies "
+            f"{len(copied)} of {sum(copied)} bytes a step; device "
+            f"{busy:.4f} ms in a step, busy {100 * busy / ms:.1f} % "
+            f"({card})")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        for name, (us, count) in top:
+            log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
+        del ex, state, g
+    want = flux["unsharded"]["du"]
+    for tag in ("mesh sync", "mesh overlap"):
+        got = flux[tag]["du"]
+        if bits_equal(got, want):
+            log(f"mesh flux {tag}: du bit for bit the unsharded K4 run's")
+        else:
+            err = max_err(got, want, FLUX_TOL["float32"],
+                          f"mesh flux {tag} vs unsharded")
+            log(f"mesh flux {tag}: du NOT bit for bit; max |diff| "
+                f"{err:.3e} within {FLUX_TOL['float32']}")
+    out["flux"] = {k: {f: v for f, v in r.items() if f != "du"}
+                   for k, r in flux.items()}
+    del flux, want, u0
+    torch.cuda.empty_cache()
+
+    # -- eikonal: unsharded and on the (2, 2) mesh, synchronous ------------
+    eik_runs = {}
+    for tag, mesh in (("unsharded", None), ("mesh sync", mesh22)):
+        g, (phi_t, _), conv = workloads.build_eikonal_graph(
+            EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
+            mesh=mesh)
+        ex = Executor(g, mesh=mesh)
+        state = ex.init_state(**eik)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ex(state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        iters = conv.iterations
+        per_iter = 1 if mesh is None else 4
+        check_counts(f"mesh eikonal {tag} launches", counts_now(),
+                     {"eikonal_fim": per_iter * iters})
+        if mesh is not None:
+            out["launches"]["eikonal_fim"] += per_iter * iters
+        eik_runs[tag] = (ex.read(state, phi_t), iters, secs)
+        log(f"mesh eikonal {tag}: {iters} iterations, {secs:.3f} s "
+            f"({1e3 * secs / iters:.3f} ms per iteration) ({card})")
+        del ex, state, g
+    (phi, iters, secs), (phi0, iters0, secs0) = (eik_runs["mesh sync"],
+                                                 eik_runs["unsharded"])
+    if not 0 < iters == iters0:
+        raise AssertionError(f"mesh eikonal: {iters} iterations on the "
+                             f"mesh, {iters0} unsharded")
+    if not bits_equal(phi, phi0):
+        err = max_err(phi, phi0, EIK_TOL["float32"][0],
+                      "mesh eikonal vs unsharded",
+                      rtol=EIK_TOL["float32"][1])
+        log(f"mesh eikonal: phi NOT bit for bit; max |diff| {err:.3e}")
+    else:
+        log("mesh eikonal: phi bit for bit the unsharded solve's, "
+            f"{iters} iterations both")
+    out["eikonal"] = {"iterations": iters, "mesh_s": secs,
+                      "unsharded_s": secs0}
+    del eik_runs, phi, phi0
+    torch.cuda.empty_cache()
+
+    # -- the Euler solver: unsharded, (4,) over gy, (2, 2) overlapped ------
+    U0 = shock_bubble_init(EULER_NX, EULER_NY, device=dev)
+    dx, dy = 2.0 / EULER_NX, 1.0 / EULER_NY
+    mass0 = float(U0[RHO].double().sum()) * dx * dy
+    out["euler"] = {}
+    for unsplit in (False, True):
+        runs = {}
+        for tag, mesh, overlap in (("unsharded", None, False),
+                                   ("(4,) gy", mesh4, False),
+                                   ("(2, 2) overlap", mesh22, True)):
+            ex, u = workloads.build_euler_solver(
+                EULER_NX, EULER_NY, mesh=mesh, overlap=overlap,
+                unsplit=unsplit)
+            if ex.plan.overlap_fallbacks:
+                raise AssertionError(f"euler {tag}: fallbacks "
+                                     f"{ex.plan.overlap_fallbacks}")
+            state = ex.init_state(u=U0)
+            state, ms = run_steps(ex, state, EULER_STEPS)
+            U = ex.read(state, u).data
+            drift = abs(float(U[RHO].double().sum()) * dx * dy - mass0) \
+                / mass0
+            runs[tag] = (U, state["smax"], float(state["mass"]), ms)
+            log(f"euler {'unsplit' if unsplit else 'split'} {tag}: "
+                f"{ms:.3f} ms per step (median), smax "
+                f"{float(state['smax']):.6f}, "
+                f"mass drift {drift:.3e} (graph's mass "
+                f"{float(state['mass']):.6f}) ({card})")
+            del ex, state
+        U_ref, smax_ref, mass_ref, _ = runs["unsharded"]
+        for tag in ("(4,) gy", "(2, 2) overlap"):
+            U, smax, mass, ms = runs[tag]
+            err = max_err(U, U_ref, 1e-6, f"euler {tag} vs unsharded",
+                          rtol=1e-5)
+            if not bits_equal(smax, smax_ref):
+                raise AssertionError(f"euler {tag}: smax {float(smax)} "
+                                     f"against {float(smax_ref)}")
+            log(f"euler {'unsplit' if unsplit else 'split'} {tag}: state "
+                f"max |diff| {err:.3e} from unsharded, smax equal, mass "
+                f"{mass:.9g} against {mass_ref:.9g} "
+                f"(sum folded per shard)")
+        out["euler"]["unsplit" if unsplit else "split"] = {
+            tag: r[3] for tag, r in runs.items()}
+        del runs, U_ref
+    del U0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1891,6 +2094,11 @@ def main() -> int:
     # -- 3c. async regions over the particle step with a host diagnostic --
     asy = async_phase(card, zero_counts, counts_now)
 
+    # -- 3d. a mesh of four shards on the card: flux, eikonal, Euler ------
+    msh = mesh_phase(card, zero_counts, counts_now, eik)
+    for k, n in msh["launches"].items():
+        launches[k] += n
+
     # -- 4. times -----------------------------------------------------------
     results = {}
     x, y = randn(SAXPY_N), randn(SAXPY_N)
@@ -2083,6 +2291,13 @@ def main() -> int:
     log(f"async particle_step_diagnostic: ms per step "
         f"{json.dumps({k: round(v, 4) for k, v in asy['times'].items()})}, "
         f"sync/async with the host time {asy['gain']:.2f}x ({card})")
+    log(f"mesh flux ms per step: "
+        f"{json.dumps({k: round(r['ms'], 4) for k, r in msh['flux'].items()})}"
+        f", halo bytes a step "
+        f"{json.dumps({k: r['copied'] for k, r in msh['flux'].items()})}; "
+        f"eikonal solve s: mesh {msh['eikonal']['mesh_s']:.3f}, unsharded "
+        f"{msh['eikonal']['unsharded_s']:.3f}; euler ms per step "
+        f"{json.dumps(msh['euler'])} ({card})")
     for arch, runs in lm_reg.items():
         log(f"regions serve {arch}: tokens/s eager "
             f"{runs['eager']['tok_s']:.1f}, regions "

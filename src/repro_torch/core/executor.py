@@ -12,8 +12,9 @@ The single-process counterpart of the JAX package's ``Executor``:
   the executor converts state at segment boundaries where producer and
   consumer disagree (``plan.relayouts``).  Outside a call every state dict
   is in the plan's *initial* layouts;
-* padded (halo) accesses get their halo cells from the tensor's boundary
-  policy (``core/halo.py``) before the node runs;
+* padded (halo) accesses get their halo cells before the node runs: from
+  the tensor's boundary policy, and on a mesh from the neighbour shards
+  (``core/halo.py``'s transfer schedule; below);
 * host (Cpu) nodes and ``sync()`` wait for the device, then run their
   callback — under ``regions=True`` on the host pool by default (below).
 
@@ -129,10 +130,30 @@ move is a :class:`DegradationEvent` in ``plan.degradations``
 plan keeps its executable-cache entry leased to this executor, so coming
 back to a level captures nothing.
 
-Not in this executor yet, each raising ``NotImplementedError`` that names
-its ROADMAP item: ``mesh=`` and partitioned tensors (item 8).  The
-defaults stay ``regions=False`` and ``donate=False`` (the reference's are
-True); flipping them is a ROADMAP item of its own.
+**A mesh** (``mesh=make_mesh(...)``, ``core/mesh.py``).  One executor
+drives every device of the mesh, as the reference's single controller
+does through ``shard_map``: a tensor that names a mesh axis is a
+:class:`~repro_torch.core.mesh.ShardedArray` in the state (one tensor per
+mesh coordinate, on its device), and a node that touches one runs once
+per shard, each on its shard's device — one program per shard.  Its
+padded args are extended through the halo transfer schedule: edge strips
+and corner blocks copied from the neighbour shards, the boundary policy
+at the global edges.  A reduction folds the shards' local results on the
+mesh's first device, where every unpartitioned tensor and every result
+lives; a loop's predicate reads that folded value.  ``plan.halo_transfers``
+lists the scheduled blocks per segment (fill-only without a mesh) and
+``plan.overlap_fallbacks`` every declined ``overlap=True``, with the
+reference's reasons (the degraded ones warn once).  An ``overlap=True``
+split node over partitioned halos takes the interior/boundary lowering
+(paper Fig. 7): every block's copy starts up front, on the CUDA mesh on
+a copy stream of its shard's device; the interior program runs on the
+compute stream meanwhile, then one boundary program per (axis, side)
+waits for the copies and the outputs are stitched.  Not on a mesh yet,
+each raising ``NotImplementedError`` that names ROADMAP item 8:
+``regions=True`` and ``tune`` other than ``"off"``.
+
+The defaults stay ``regions=False`` and ``donate=False`` (the reference's
+are True); flipping them is a ROADMAP item of its own.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -144,10 +165,12 @@ from __future__ import annotations
 import enum as enum_lib
 import functools
 import hashlib
+import math
 import sys
 import threading
 import time
 import types
+import warnings
 import weakref
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor, \
@@ -168,28 +191,119 @@ from .device import resolve_device
 from .graph import AccessMode, Graph, Node, TensorArg
 from .layout import (Layout, RecordArray, _as_tensor, relayout,
                      relayout_data, storage_candidates)
+from .mesh import Mesh, Placement, ShardedArray
 from .schedule import ScheduleDag
 from .tensor import DistTensor, ReductionResult
 
 __all__ = ["Executor", "execute", "DegradationEvent", "ExecutableCacheEntry",
-           "HostTimeoutError", "LayoutPlan", "RelayoutStep",
+           "HaloTransfer", "HostTimeoutError", "LayoutPlan",
+           "OverlapFallback", "RelayoutStep",
            "clear_executable_cache", "drop_executables",
            "executable_cache_stats", "layout_candidates", "plan_signature",
            "solve_layouts"]
 
-_ITEM_MESH = ("ROADMAP item 8 (halo exchange and the multi-process "
-              "executor)")
+_ITEM_MESH = ("ROADMAP item 8 (what is left of the mesh: region compile "
+              "and measured tuning over a mesh)")
 
 
-def _apply_halo(data: torch.Tensor, t: DistTensor) -> torch.Tensor:
-    """Extend ``data`` by all of ``t``'s halos, filled from its boundary
-    policy, corners included."""
-    axes = [halo_lib.HaloAxis(t.storage_axis(d), w)
-            for d, w in enumerate(t.halo) if w]
-    if not axes:
+@dataclass
+class _HaloEntry:
+    dim: int
+    storage_axis: int
+    width: int
+    mesh_axis: Optional[str]  # None -> boundary fill only
+
+
+def _halo_plan(t: DistTensor, mesh: Optional[Mesh]) -> list[_HaloEntry]:
+    plan = []
+    for d, w in enumerate(t.halo):
+        if w == 0:
+            continue
+        ax = t.partition[d]
+        if mesh is None or ax is None or mesh.shape[ax] == 1:
+            plan.append(_HaloEntry(d, t.storage_axis(d), w, None))
+        else:
+            plan.append(_HaloEntry(d, t.storage_axis(d), w, ax))
+    return plan
+
+
+def _halo_axes(entries: list[_HaloEntry]) -> list[halo_lib.HaloAxis]:
+    return [halo_lib.HaloAxis(e.storage_axis, e.width, e.mesh_axis)
+            for e in entries]
+
+
+def _apply_halo(data, t: DistTensor, mesh: Optional[Mesh] = None):
+    """Extend ``data`` (a tensor, or on a mesh the shards of every mesh
+    coordinate) by all of ``t``'s halos through the transfer schedule,
+    corners included: each result one new contiguous tensor."""
+    entries = _halo_plan(t, mesh)
+    if not entries:
         return data
-    return halo_lib.exchange_multi(data, axes, boundary=t.boundary,
-                                   constant=t.boundary_constant)
+    return halo_lib.exchange_multi(data, _halo_axes(entries),
+                                   boundary=t.boundary,
+                                   constant=t.boundary_constant, mesh=mesh)
+
+
+def _tensor_arg(a) -> tuple[Optional[DistTensor], AccessMode]:
+    """A node arg's tensor handle and access mode (``None`` for a value)."""
+    if isinstance(a, TensorArg):
+        return a.tensor, a.mode
+    if isinstance(a, DistTensor):
+        return a, AccessMode.DEFAULT
+    return None, AccessMode.DEFAULT
+
+
+def _outputs(node: Node, write_tensors: list, out) -> tuple:
+    """A node fn's result as one value per written tensor."""
+    if len(write_tensors) == 1:
+        out = (out,)
+    if len(out) != len(write_tensors):
+        raise ValueError(f"{node.name}: fn returned {len(out)} values for "
+                         f"{len(write_tensors)} writes")
+    return out
+
+
+def _shard_storage_shape(t: DistTensor,
+                         mesh: Optional[Mesh]) -> tuple[int, ...]:
+    """Per-shard storage shape of ``t``'s state entry (for transfer-block
+    byte accounting)."""
+    space = t.space if mesh is None else t.shard_space(mesh)
+    if not t.is_record:
+        return space
+    return RecordArray.storage_shape(t.spec, space, t.layout)
+
+
+# -- copy streams of the overlapped lowering ---------------------------------
+
+_COPY_STREAMS: dict = {}
+
+
+def _copy_stream(device: torch.device):
+    """The process-wide copy stream of ``device`` (halo block copies)."""
+    stream = _COPY_STREAMS.get(device)
+    if stream is None:
+        stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+@contextmanager
+def _on_copy_streams(devices):
+    """Run the work inside on each CUDA device's copy stream, after all
+    that the devices' compute streams have queued (the shards a block is
+    cut from); yields ``{device: compute stream}``, or None on the CPU,
+    where everything runs in order."""
+    devs = list(dict.fromkeys(devices))
+    if devs[0].type != "cuda":
+        yield None
+        return
+    compute = {d: torch.cuda.current_stream(d) for d in devs}
+    with ExitStack() as stack:
+        for d in devs:
+            cs = _copy_stream(d)
+            for c in compute.values():   # a corner hop reads other devices
+                cs.wait_stream(c)
+            stack.enter_context(torch.cuda.stream(cs))
+        yield compute
 
 
 # -- event-driven async region runtime ----------------------------------------
@@ -460,6 +574,48 @@ class RelayoutStep:
 
 
 @dataclass(frozen=True)
+class HaloTransfer:
+    """One scheduled halo block of a segment's exchange (plan introspection).
+
+    ``block`` names which sides of which space dims the block extends —
+    ``((1, 'low'),)`` is an edge strip, ``((0, 'low'), (1, 'high'))`` a
+    corner.  ``mesh_axis`` is the axis the block's final hop crosses, a
+    copy from the neighbour shard (``None`` — a local boundary fill, no
+    transfer); ``phase`` is when the copy starts (1 = up-front edge
+    strips, 2+ = extended-edge corner hops); ``overlapped`` marks blocks
+    whose flight is hidden behind the node's interior program."""
+
+    segment: int
+    node: str
+    tensor: str
+    phase: int
+    block: tuple[tuple[int, str], ...]   # ((space_dim, 'low'|'high'), ...)
+    mesh_axis: Optional[str]
+    width: int
+    overlapped: bool
+    nbytes: int = 0                      # per-shard block payload size
+
+    def describe(self) -> str:
+        """One line: where the block lies, how it arrives, when."""
+        where = "+".join(f"{'-' if s == 'low' else '+'}d{d}"
+                         for d, s in self.block)
+        via = f"copy[{self.mesh_axis}]" if self.mesh_axis else "fill"
+        mode = "overlapped" if self.overlapped else "sync"
+        return (f"seg{self.segment} {self.node}: {self.tensor} {where} "
+                f"w={self.width} via {via} phase{self.phase} ({mode})")
+
+
+@dataclass(frozen=True)
+class OverlapFallback:
+    """A node that asked for ``overlap=True`` but was lowered through the
+    synchronous halo path, and why."""
+
+    segment: int
+    node: str
+    reason: str
+
+
+@dataclass(frozen=True)
 class DegradationEvent:
     """One move of the executor's degradation ladder (rendered by
     ``plan.describe()``).  ``action`` is ``"demote"`` or ``"promote"``;
@@ -498,26 +654,53 @@ class LayoutPlan:
     was constructed with ``tune="load"``/``"auto"`` (None when tuning is
     off) and ``degradations`` the executor's ladder moves
     (:class:`DegradationEvent`, kept across the plans a move rebuilds).
-    :meth:`describe` renders all of it."""
+    ``halo_transfers`` lists every scheduled halo block per segment
+    (:meth:`transfers_for_segment`), ``overlap_fallbacks`` every declined
+    overlap request with its reason, and ``region_edges`` the region-level
+    dependency DAG (:meth:`region_waves`).  :meth:`describe` renders all
+    of it."""
 
     per_segment: list[dict[str, Layout]] = dfield(default_factory=list)
     initial: dict[str, Layout] = dfield(default_factory=dict)
     relayouts: list[RelayoutStep] = dfield(default_factory=list)
+    halo_transfers: list[HaloTransfer] = dfield(default_factory=list)
+    overlap_fallbacks: list[OverlapFallback] = dfield(default_factory=list)
     dag: Optional[ScheduleDag] = None
     regions: list = dfield(default_factory=list)
+    region_edges: list = dfield(default_factory=list)
     region_graphs: Optional[dict[int, int]] = None
     signature: str = ""
     cache: Optional["ExecutableCacheEntry"] = None
     tuning: Optional[Any] = None
     degradations: list[DegradationEvent] = dfield(default_factory=list)
 
+    def transfers_for_segment(self, segment: int) -> list[HaloTransfer]:
+        """The scheduled halo blocks entering one segment (see
+        :class:`HaloTransfer`)."""
+        return [h for h in self.halo_transfers if h.segment == segment]
+
+    def region_waves(self) -> list[list[int]]:
+        """Ready waves of region indices under the region-level DAG:
+        regions sharing a wave have no dependency path between them."""
+        return schedule_lib.region_waves(self.regions, self.region_edges)
+
     def describe_dag(self) -> str:
         """Render the dependency DAG with its segment/wave placement, the
-        relayout steps at each segment entry, the region grouping and the
-        executable-cache counters."""
+        relayout steps and halo blocks at each segment entry, the region
+        grouping and the executable-cache counters."""
         if self.dag is None:
             return "(no dependency DAG recorded)"
         return self.dag.describe(plan=self)
+
+    def describe_transfers(self) -> str:
+        """One line per scheduled halo block plus every declined overlap
+        request with its reason."""
+        if not self.halo_transfers:
+            return "(no scheduled halo transfers)"
+        lines = [h.describe() for h in self.halo_transfers]
+        lines += [f"seg{f.segment} {f.node}: overlap fallback — {f.reason}"
+                  for f in self.overlap_fallbacks]
+        return "\n".join(lines)
 
     def describe_tuning(self) -> str:
         """Render the measured autotuner's decision for this plan: the
@@ -845,20 +1028,26 @@ def _segments_sig(segments):
     return tuple(out)
 
 
+def _mesh_sig(mesh: Optional[Mesh]):
+    if mesh is None:
+        return None
+    return (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices))
+
+
 def plan_signature(executor: "Executor") -> tuple:
     """Structural identity of a plan: graph structure (node kinds, args,
     function code + closures — NOT auto-generated node names), tensor
-    shapes/dtypes/layouts, schedule mode, donation, device type,
+    shapes/dtypes/layouts, mesh, schedule mode, donation, device type,
     per-segment layout decisions, forced per-segment overrides and kernel
     tile overrides.  Two executors with equal signatures compute
     identical values for identical inputs, so their region programs are
     interchangeable.  Tile overrides are part of the key because they
     change the kernels' launches (the autotuner's candidates never
-    alias).  The JAX package's signature also keys the mesh, which the
-    port has not; the executable cache adds the device index."""
+    alias); the executable cache adds the device index."""
     plan = executor.plan
     return ("ripple-torch-plan-v3", executor.schedule, executor.donate,
-            executor.device.type, _segments_sig(executor._segments),
+            executor.device.type, _mesh_sig(executor.mesh),
+            _segments_sig(executor._segments),
             tuple(tuple(sorted((n, l.name) for n, l in seg.items()))
                   for seg in plan.per_segment),
             tuple(sorted((n, l.name) for n, l in plan.initial.items())),
@@ -878,8 +1067,9 @@ def layout_candidates(executor: "Executor") -> dict[str, tuple[Layout, ...]]:
     forced by a layout override: the halo-feasible storage layouts
     (``core/layout.py``'s :func:`storage_candidates`, additionally
     clamped by every *access* of the key — any haloed access vetoes
-    AoSoA for the shared storage, the solver's rule).  Keys with a single
-    feasible layout are omitted: there is nothing to search."""
+    AoSoA for the shared storage, the solver's rule — and validated
+    against the mesh).  Keys with a single feasible layout are omitted:
+    there is nothing to search."""
     no_aosoa: set[str] = set()
     seen: set[str] = set()
     for kind, payload in executor._segments:
@@ -896,11 +1086,18 @@ def layout_candidates(executor: "Executor") -> dict[str, tuple[Layout, ...]]:
         t = executor.tensors[name]
         if t.pin_layout or name in executor._layout_overrides:
             continue
-        cands = tuple(lay for lay in storage_candidates(t.space, t.halo,
-                                                        t.partition)
-                      if not (lay is Layout.AOSOA and name in no_aosoa))
+        cands = []
+        for lay in storage_candidates(t.space, t.halo, t.partition):
+            if lay is Layout.AOSOA and name in no_aosoa:
+                continue
+            if executor.mesh is not None:
+                try:
+                    t.with_(layout=lay).validate_mesh(executor.mesh)
+                except ValueError:
+                    continue
+            cands.append(lay)
         if len(cands) > 1:
-            out[name] = cands
+            out[name] = tuple(cands)
     return out
 
 
@@ -1254,8 +1451,82 @@ class _RegionProgram:
     exit_layouts: dict
 
 
+# -- overlap decision (paper Fig. 7 generalized) -----------------------------
+
+# (node name, reason) pairs already warned about — "warn once" holds across
+# the sub-executors a loop segment creates for the same node
+_warned_overlap: set[tuple[str, str]] = set()
+
+
+@dataclass(frozen=True)
+class _OverlapDecision:
+    """Whether an ``overlap=True`` split node gets the interior/boundary
+    lowering: ``strips`` = ((space_dim, max halo width), ...) ascending,
+    or None with a ``reason`` (``warn`` when real transfers are degraded
+    to the synchronous path rather than there being nothing to hide)."""
+
+    strips: Optional[tuple[tuple[int, int], ...]]
+    reason: Optional[str] = None
+    warn: bool = False
+
+
+def _decide_overlap(node: Node, mesh: Optional[Mesh], eff) -> _OverlapDecision:
+    if mesh is None:
+        return _OverlapDecision(
+            None, "graph has no mesh — nothing to overlap", False)
+    padded = [eff(t) for _, t, mode in node.tensor_args() if mode.padded]
+    if not padded:
+        return _OverlapDecision(
+            None, "no padded-access tensor arg to overlap", True)
+    strips: dict[int, int] = {}
+    for t in padded:
+        for e in _halo_plan(t, mesh):
+            if e.mesh_axis is not None:
+                strips[e.dim] = max(strips.get(e.dim, 0), e.width)
+    if not strips:
+        return _OverlapDecision(
+            None, "no mesh-partitioned halo axis (single shard along every "
+            "haloed dim)", False)
+    ref = padded[0]
+    tensors = [eff(t) for _, t, _ in node.tensor_args()]
+    for d in sorted(strips):
+        w = strips[d]
+        ax_name = ref.partition[d]
+        for t in tensors:
+            if len(t.space) <= d or t.space[d] != ref.space[d] \
+                    or t.partition[d] != ax_name:
+                return _OverlapDecision(
+                    None, f"arg {t.name!r} does not align with "
+                    f"partitioned halo dim {d} of {ref.name!r}", True)
+            try:
+                t.storage_axis(d)
+            except ValueError as exc:
+                return _OverlapDecision(None, str(exc), True)
+        m = ref.space[d] // mesh.shape[ax_name]
+        if m <= 2 * w:
+            return _OverlapDecision(
+                None, f"shard extent {m} along dim {d} leaves no interior "
+                f"behind boundary strips of width {w}", True)
+    return _OverlapDecision(tuple(sorted(strips.items())))
+
+
+#: the cross-shard fold of each reducer's ``combine`` (max/min propagate a
+#: NaN across shards, as the reference's pmax/pmin do)
+_COMBINE = {
+    "add": torch.add,
+    "mul": torch.mul,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "maximum": torch.maximum,
+    "minimum": torch.minimum,
+    "and": torch.bitwise_and,
+    "or": torch.bitwise_or,
+    "xor": torch.bitwise_xor,
+}
+
+
 class Executor:
-    """Run a Graph on one device.
+    """Run a Graph on one device, or on every device of a mesh.
 
     ``schedule`` is ``"dag"`` (dependency-DAG waves, default) or
     ``"sequential"`` (program order); both give the same state.
@@ -1263,6 +1534,11 @@ class Executor:
     plan, ``segment_layout_overrides`` per segment (segment index -> key ->
     layout), and ``tile_overrides`` forces kernel tiles (kernel name ->
     tile) while the nodes run.
+
+    ``mesh`` (a :class:`~repro_torch.core.mesh.Mesh` from ``make_mesh``)
+    runs partitioned tensors as shards, one program per shard, with halo
+    exchange and the overlapped interior/boundary lowering (see the
+    module docstring); the executor's device is then the mesh's first.
 
     ``regions=True`` runs each device region as captured CUDA graphs
     over static buffers (on the CPU: the same code without capture), and
@@ -1292,6 +1568,8 @@ class Executor:
 
         ex = Executor(graph)                  # on the GPU
         state = ex.run(ex.init_state(), steps=100)
+        mesh = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
+        ex = Executor(graph, mesh=mesh)       # four shards on one card
         ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
         ex = Executor(graph, regions=True)    # captured CUDA graphs
         print(ex.describe_dag(), ex.cache_stats())
@@ -1329,8 +1607,22 @@ class Executor:
             raise ValueError(
                 f"tune must be 'off', 'load' or 'auto', got {tune!r}")
         if mesh is not None:
-            raise NotImplementedError(f"mesh= is {_ITEM_MESH}")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh= takes a Mesh (make_mesh), got "
+                                f"{type(mesh).__name__}")
+            if regions:
+                raise NotImplementedError(
+                    f"regions=True on a mesh is {_ITEM_MESH}")
+            if tune != "off":
+                raise NotImplementedError(
+                    f"tune={tune!r} on a mesh is {_ITEM_MESH}")
+            if device is not None and \
+                    resolve_device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"first device {mesh.devices[0]}")
+            device = mesh.devices[0]
         self.graph = graph
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.regions = bool(regions)
         self.donate = bool(donate)
@@ -1351,11 +1643,10 @@ class Executor:
         self._running: Optional[str] = None    # the node being lowered
         self.tensors = graph.all_tensors()
         self.results = graph.all_results()
-        for t in self.tensors.values():
-            if t.is_partitioned:
-                raise NotImplementedError(
-                    f"{t.name}: partitioned axis {t.partition} on a "
-                    f"single-process executor — {_ITEM_MESH}")
+        # a partitioned tensor without a mesh is one whole tensor (the
+        # reference's unsharded lowering)
+        self._sharded = any(t.is_sharded(mesh)
+                            for t in self.tensors.values())
         self.dag = schedule_lib.build_dag(graph)
         # the configured operating point: level 0 of the ladder
         self._cfg_schedule = schedule
@@ -1495,8 +1786,20 @@ class Executor:
                                   overrides=self._layout_overrides,
                                   segment_overrides=self._segment_overrides)
         self.plan.dag = self.dag
+        if self.mesh is not None:
+            for name, t in self.tensors.items():
+                lays = {self.plan.initial.get(name, t.layout)}
+                lays.update(seg[name] for seg in self.plan.per_segment
+                            if name in seg)
+                for lay in lays:
+                    (t.with_(layout=lay) if t.is_record
+                     else t).validate_mesh(self.mesh)
+        self._overlap_decisions: dict[str, _OverlapDecision] = {}
+        self._collect_halo_schedule()
         self.plan.regions = schedule_lib.group_regions(
             [k for k, _ in self._segments])
+        self.plan.region_edges = schedule_lib.region_dag(self.dag,
+                                                         self.plan.regions)
         # the barrier bit per region: a barrier host region drains the pool
         self._region_access = schedule_lib.region_access(self.dag,
                                                          self.plan.regions)
@@ -1520,6 +1823,62 @@ class Executor:
         self._sub_execs: dict[int, Executor] = {}   # loop segment -> body
         self._cache = None
         self._fetched: set = set()
+
+    def _collect_halo_schedule(self) -> None:
+        """Static pass: record every scheduled halo block per segment in
+        ``plan.halo_transfers``, decide overlap per node, and list every
+        declined ``overlap=True`` in ``plan.overlap_fallbacks`` (warning
+        once where the fallback degrades real transfers)."""
+        mesh = self.mesh
+        for si, (kind, payload) in enumerate(self._segments):
+            seg_layouts = self.plan.per_segment[si]
+
+            def eff(t, _lays=seg_layouts):
+                if t.is_record:
+                    lay = _lays.get(t.name, t.layout)
+                    if lay is not t.layout:
+                        return t.with_(layout=lay)
+                return t
+
+            for node in _segment_nodes(kind, payload):
+                if node.kind not in ("split", "op"):
+                    continue
+                dec = None
+                if node.kind == "split" and node.overlap:
+                    dec = _decide_overlap(node, mesh, eff)
+                    self._overlap_decisions[node.name] = dec
+                    if dec.strips is None:
+                        self.plan.overlap_fallbacks.append(
+                            OverlapFallback(si, node.name, dec.reason))
+                        key = (node.name, dec.reason)
+                        if dec.warn and key not in _warned_overlap:
+                            _warned_overlap.add(key)
+                            warnings.warn(
+                                f"node {node.name!r}: overlap=True falls "
+                                f"back to synchronous halo exchange — "
+                                f"{dec.reason}", RuntimeWarning,
+                                stacklevel=4)
+                overlapped = dec is not None and dec.strips is not None
+                for _, t, mode in node.tensor_args():
+                    if not mode.padded:
+                        continue
+                    eff_t = eff(t)
+                    entries = _halo_plan(eff_t, mesh)
+                    if not entries:
+                        continue
+                    axes = _halo_axes(entries)
+                    shard = _shard_storage_shape(eff_t, mesh)
+                    itemsize = torch.empty((), dtype=eff_t.dtype) \
+                        .element_size()
+                    for phase, bkey, shape in halo_lib.schedule_blocks(
+                            shard, axes):
+                        last, _side = bkey[-1]
+                        self.plan.halo_transfers.append(HaloTransfer(
+                            si, node.name, t.name, phase,
+                            tuple((entries[j].dim, s) for j, s in bkey),
+                            entries[last].mesh_axis, entries[last].width,
+                            overlapped,
+                            nbytes=math.prod(shape) * itemsize))
 
     # -- executable cache --------------------------------------------------
     def _cache_key(self) -> tuple:
@@ -1625,8 +1984,18 @@ class Executor:
             cur = self._state_layouts.get(name, t.layout)
             if cur is lay:
                 continue
-            state[name] = relayout(RecordArray(state[name], t.spec, cur),
-                                   lay).data
+            v = state[name]
+            if isinstance(v, ShardedArray):
+                # the component axis is never split and AoSoA's tiled dim
+                # is whole in every shard, so each shard converts alone
+                dst = t.with_(layout=lay)
+                state[name] = v.map(
+                    lambda x: relayout(RecordArray(x, t.spec, cur),
+                                       lay).data,
+                    dst.placement(self.mesh), dst.storage_shape)
+            else:
+                state[name] = relayout(RecordArray(v, t.spec, cur),
+                                       lay).data
             self._state_layouts[name] = lay
             self.eager_relayouts += 1
         return state
@@ -1637,13 +2006,17 @@ class Executor:
         unless overridden).  Record tensors are materialized in the layout
         the solver chose for their first consuming segment (of the
         configured plan, whatever the ladder runs); an override in another
-        layout is relayouted on the way in."""
+        layout is relayouted on the way in.  On a mesh a partitioned
+        tensor's override is a global array, scattered into shards (a
+        :class:`~repro_torch.core.mesh.ShardedArray` is gathered first)."""
         self._state_layouts = dict(self._io_layouts)
         state: dict[str, Any] = {}
         for name, t in self.tensors.items():
             eff = self._eff(t)
             if name in overrides:
                 v = overrides[name]
+                if isinstance(v, ShardedArray):
+                    v = v.to_global()
                 if isinstance(v, RecordArray):
                     data = relayout(v, eff.layout).data
                 elif t.is_record:
@@ -1653,9 +2026,13 @@ class Executor:
                                     eff.layout).data
                 else:
                     data = _as_tensor(v)
-                state[name] = data.to(self.device)
+                if eff.is_sharded(self.mesh):
+                    state[name] = ShardedArray.from_global(data, self.mesh,
+                                                           eff)
+                else:
+                    state[name] = data.to(self.device)
             else:
-                v = eff.init(self.device)
+                v = eff.init(self.device, mesh=self.mesh)
                 state[name] = v.data if isinstance(v, RecordArray) else v
         for name, r in self.results.items():
             state[name] = torch.tensor(r.init, dtype=r.dtype,
@@ -1696,8 +2073,26 @@ class Executor:
 
     def read(self, state: dict, t: DistTensor):
         """Wrap a state entry back into its RecordArray view (in the
-        tensor's current physical layout)."""
-        return self._eff(t).wrap(state[t.name])
+        tensor's current physical layout); a sharded entry is gathered
+        into one tensor on the mesh's first device."""
+        data = state[t.name]
+        if isinstance(data, ShardedArray):
+            data = data.to_global()
+        return self._eff(t).wrap(data)
+
+    def state_shardings(self, state: dict) -> dict:
+        """The :class:`~repro_torch.core.mesh.Placement` of every state
+        entry on the mesh (``None`` per entry without a mesh); an
+        unsplit entry's spec names no mesh axis and it lies on the mesh's
+        first device."""
+        if self.mesh is None:
+            return {k: None for k in state}
+        out = {}
+        for k in state:
+            t = self.tensors.get(k)
+            spec = self._eff(t).pspec() if t is not None else ()
+            out[k] = Placement(self.mesh, spec)
+        return out
 
     def describe_dag(self) -> str:
         """Render the dependency DAG, its segment/wave placement under the
@@ -1722,27 +2117,88 @@ class Executor:
     # -- node lowering -----------------------------------------------------
     def _resolve_args(self, node: Node, state: dict,
                       layouts: dict[str, Layout]):
-        """The Python args passed to a node fn; haloed where needed."""
+        """The Python args passed to a node fn that runs once (on the
+        executor's device, or on the host); haloed where needed.  A sharded
+        entry is gathered into its global tensor first."""
         vals = []
         for a in node.args:
             if isinstance(a, ReductionResult):
                 vals.append(state[a.name])
                 continue
-            t = None
-            mode = AccessMode.DEFAULT
-            if isinstance(a, TensorArg):
-                t, mode = a.tensor, a.mode
-            elif isinstance(a, DistTensor):
-                t = a
+            t, mode = _tensor_arg(a)
             if t is None:
                 vals.append(a)
                 continue
             t = self._eff_in(t, layouts)
             data = state[t.name]
+            if isinstance(data, ShardedArray):
+                data = data.to_global()
             if mode.padded:
                 data = _apply_halo(data, t)
             vals.append(t.wrap(data) if t.is_record else data)
         return vals
+
+    def _per_shard(self, node: Node) -> bool:
+        """True when ``node`` runs once per shard: on a mesh, one of its
+        tensor args names a mesh axis."""
+        return self._sharded and any(t.is_sharded(self.mesh)
+                                     for _, t, _ in node.tensor_args())
+
+    def _shard_args(self, node: Node, state: dict,
+                    layouts: dict[str, Layout]) -> list[list]:
+        """Per mesh coordinate, the args of one shard's program: each
+        partitioned tensor's shard (extended by the transfer schedule when
+        padded), unpartitioned tensors and results moved to the shard's
+        device (a no-op on the mesh's first)."""
+        devices = self.mesh.devices
+        per: list[list] = [[] for _ in devices]
+        for a in node.args:
+            if isinstance(a, ReductionResult):
+                v = state[a.name]
+                for c, dev in enumerate(devices):
+                    per[c].append(v.to(dev))
+                continue
+            t, mode = _tensor_arg(a)
+            if t is None:
+                for vals in per:
+                    vals.append(a)
+                continue
+            t = self._eff_in(t, layouts)
+            data = state[t.name]
+            if isinstance(data, ShardedArray):
+                shards = list(data.shards)
+                if mode.padded:
+                    shards = _apply_halo(shards, t, self.mesh)
+            else:
+                if mode.padded:
+                    data = _apply_halo(data, t)
+                shards = [data.to(dev) for dev in devices]
+            for vals, x in zip(per, shards):
+                vals.append(t.wrap(x) if t.is_record else x)
+        return per
+
+    def _store_shards(self, node, state, write_tensors, outs,
+                      layouts) -> None:
+        """Write one output per shard: a partitioned tensor becomes a
+        ShardedArray, an unpartitioned one keeps the first shard's value
+        (every shard computed it; the reference's replicated output)."""
+        if not write_tensors:
+            return
+        rows = [_outputs(node, write_tensors, out) for out in outs]
+        for wi, t in enumerate(write_tensors):
+            vals = [self._coerce_write(t, row[wi], layouts) for row in rows]
+            eff = self._eff_in(t, layouts)
+            if not eff.is_sharded(self.mesh):
+                state[t.name] = vals[0]
+                continue
+            pl = eff.placement(self.mesh)
+            want = pl.shard_shape(eff.storage_shape)
+            for v in vals:
+                if tuple(v.shape) != want:
+                    raise ValueError(
+                        f"{node.name}: a shard of {t.name} came out "
+                        f"{tuple(v.shape)}, its placement holds {want}")
+            state[t.name] = ShardedArray(vals, pl, eff.storage_shape)
 
     @staticmethod
     def _write_tensors(node: Node) -> list[DistTensor]:
@@ -1751,21 +2207,180 @@ class Executor:
 
     def _lower_split(self, node: Node, state: dict,
                      layouts: dict[str, Layout]) -> None:
+        write_tensors = self._write_tensors(node)
+        if self._per_shard(node):
+            dec = self._overlap_decisions.get(node.name)
+            if node.overlap and dec is not None and dec.strips is not None:
+                self._lower_split_overlapped(node, state, write_tensors,
+                                             dec.strips, layouts)
+                return
+            outs = [node.fn(*vals)
+                    for vals in self._shard_args(node, state, layouts)]
+            self._store_shards(node, state, write_tensors, outs, layouts)
+            return
         vals = self._resolve_args(node, state, layouts)
         out = node.fn(*vals)
-        self._store_writes(node, state, self._write_tensors(node), out,
-                           layouts)
+        self._store_writes(node, state, write_tensors, out, layouts)
+
+    def _lower_split_overlapped(self, node: Node, state: dict,
+                                write_tensors,
+                                strips: tuple[tuple[int, int], ...],
+                                layouts: dict[str, Layout]) -> None:
+        """Interior/boundary split over N partitioned halo axes, per shard:
+        every halo block's copy starts up front (phase 1 edge strips,
+        phase 2+ corner hops; on a CUDA mesh on each device's copy
+        stream), the interior programs run on the unextended shards while
+        they fly, then one boundary-strip program per (axis, side) and
+        shard consumes the blocks and the outputs are stitched (paper
+        Fig. 7 over the transfer space of §5.4).
+
+        ``strips`` is ((space_dim, W), ...) ascending; ``fn`` must be a
+        shape-polymorphic stencil mapping (m + 2w) -> m cells along every
+        haloed dim.  fn sees, per variant, exactly the sub-region of the
+        extended shard that its output cells read, so the overlapped
+        output equals the synchronous one value for value."""
+        mesh = self.mesh
+        n = mesh.size
+        strip_dims = [d for d, _ in strips]
+        w_strip = dict(strips)
+
+        # resolve every arg once: all copies start here, before any
+        # program runs.  _decide_overlap held every tensor arg to the
+        # partitioned strip dims, so each is a ShardedArray
+        preps: list[tuple[str, Any]] = []
+        written = {t.name for t in write_tensors}
+        interior_reads_fills = False
+        with _on_copy_streams(mesh.devices) as compute:
+            for a in node.args:
+                if isinstance(a, ReductionResult):
+                    v = state[a.name]
+                    preps.append(("raw", [v.to(d) for d in mesh.devices]))
+                    continue
+                t, mode = _tensor_arg(a)
+                if t is None:
+                    preps.append(("raw", [a] * n))
+                    continue
+                t = self._eff_in(t, layouts)
+                shards = state[t.name].shards
+                entries = ({e.dim: e for e in _halo_plan(t, mesh)}
+                           if mode.padded else {})
+                dims = sorted(set(entries) | set(strip_dims))
+                axes = [halo_lib.HaloAxis(
+                    t.storage_axis(d),
+                    entries[d].width if d in entries else 0,
+                    entries[d].mesh_axis if d in entries else None)
+                    for d in dims]
+                if any(ax.width for ax in axes):
+                    blocks = halo_lib.exchange_blocks(
+                        shards, axes, boundary=t.boundary,
+                        constant=t.boundary_constant, mesh=mesh)
+                else:
+                    blocks = [{(): x} for x in shards]
+                # a haloed dim with no strip is filled for the interior too
+                interior_reads_fills |= any(
+                    ax.width and d not in w_strip
+                    for d, ax in zip(dims, axes))
+                # an unpadded arg the node writes is its output's shape,
+                # passed as a view of the region; any other arg is made
+                # contiguous, since a kernel may read it
+                dense = mode.padded or t.name not in written
+                preps.append(("tensor", (t, dims, axes, blocks, dense)))
+            done = None if compute is None else {
+                d: _copy_stream(d).record_event() for d in compute}
+
+        def wait_for_copies():
+            if compute is None:
+                return
+            for d, ev in done.items():
+                compute[d].wait_event(ev)
+            # blocks made on a copy stream are read on the compute stream:
+            # their memory must not go back to the copy stream's pool
+            # before those reads are done
+            for kind, payload in preps:
+                if kind == "tensor":
+                    for b in payload[3]:
+                        for key, blk in b.items():
+                            if key:
+                                blk.record_stream(compute[blk.device])
+
+        def ranges_for(variant, dims, axes, shard):
+            """Per-axis extended-coordinate input range for one variant:
+            the full boundary slab along its own dim, the interior along
+            every earlier strip dim (peeled off by earlier variants), the
+            full extent elsewhere — widened by this arg's own halo."""
+            vd = None if variant == "interior" else variant[0]
+            out = []
+            for d, ax in zip(dims, axes):
+                m = shard.shape[ax.axis]
+                w, big_w = ax.width, w_strip.get(d, 0)
+                if d == vd:
+                    out.append((0, big_w + 2 * w) if variant[1] == "low"
+                               else (m - big_w, m + 2 * w))
+                elif big_w and (vd is None or d < vd):
+                    out.append((big_w, m - big_w + 2 * w))
+                else:
+                    out.append((0, m + 2 * w))
+            return out
+
+        def run(variant, c):
+            vals = []
+            for kind, payload in preps:
+                if kind == "raw":
+                    vals.append(payload[c])
+                    continue
+                t, dims, axes, blocks, dense = payload
+                b = blocks[c]
+                data = halo_lib.assemble_region(
+                    b, axes, ranges_for(variant, dims, axes, b[()]))
+                if dense:
+                    data = data.contiguous()
+                vals.append(t.wrap(data) if t.is_record else data)
+            out = _outputs(node, write_tensors, node.fn(*vals))
+            return [self._coerce_write(wt, v, layouts)
+                    for wt, v in zip(write_tensors, out)]
+
+        if interior_reads_fills:
+            wait_for_copies()
+        interior = [run("interior", c) for c in range(n)]
+        if not interior_reads_fills:
+            wait_for_copies()
+        strip_outs = {
+            (k, side): [run((d, side), c) for c in range(n)]
+            for k, (d, _) in enumerate(strips) for side in ("low", "high")}
+
+        # stitch: each variant's output copied once into the shard's place
+        for wi, wt in enumerate(write_tensors):
+            wt_eff = self._eff_in(wt, layouts)
+            pl = wt_eff.placement(mesh)
+            shape = pl.shard_shape(wt_eff.storage_shape)
+            axes = [(wt_eff.storage_axis(d), w) for d, w in strips]
+
+            def place(dst, part, k, side):
+                """Cut variant (strip k, side)'s output domain out of
+                ``dst`` (k = len(strips): the interior) and fill it."""
+                for j, (ax, w) in enumerate(axes):
+                    m = dst.shape[ax]
+                    if j < k:
+                        dst = dst.narrow(ax, w, m - 2 * w)
+                    elif j == k:
+                        dst = dst.narrow(ax, 0 if side == "low" else m - w,
+                                         w)
+                dst.copy_(part)
+
+            shards = []
+            for c in range(n):
+                first = interior[c][wi]
+                o = torch.empty(shape, dtype=first.dtype, device=first.device)
+                place(o, first, len(strips), None)
+                for (k, side), outs in strip_outs.items():
+                    place(o, outs[c][wi], k, side)
+                shards.append(o)
+            state[wt.name] = ShardedArray(shards, pl, wt_eff.storage_shape)
 
     def _store_writes(self, node, state, write_tensors, out, layouts) -> None:
         if not write_tensors:
             return
-        if len(write_tensors) == 1:
-            out = (out,)
-        if len(out) != len(write_tensors):
-            raise ValueError(
-                f"{node.name}: fn returned {len(out)} values for "
-                f"{len(write_tensors)} writes")
-        for t, v in zip(write_tensors, out):
+        for t, v in zip(write_tensors, _outputs(node, write_tensors, out)):
             state[t.name] = self._coerce_write(t, v, layouts)
 
     def _coerce_write(self, t, v, layouts: dict[str, Layout]):
@@ -1781,13 +2396,25 @@ class Executor:
 
     def _lower_reduce(self, node: Node, state: dict,
                       layouts: dict[str, Layout]) -> None:
+        """The reducer's local reduction; on a mesh, one per distinct
+        shard, folded in mesh order on the mesh's first device (the
+        reference's psum/pmax/... over the partitioned axes)."""
         t, field = node.args
         data = state[t.name]
-        if t.is_record and field is not None:
-            data = self._eff_in(t, layouts).wrap(data).field(field)
-        local = torch.as_tensor(node.reducer.local(data))
-        state[node.result.name] = local.to(device=self.device,
-                                           dtype=node.result.dtype)
+        eff = self._eff_in(t, layouts)
+
+        def local(x):
+            if t.is_record and field is not None:
+                x = eff.wrap(x).field(field)
+            return torch.as_tensor(node.reducer.local(x)).to(self.device)
+
+        if isinstance(data, ShardedArray):
+            parts = [local(data.shards[i])
+                     for i in data.placement.representatives()]
+            out = functools.reduce(_COMBINE[node.reducer.combine], parts)
+        else:
+            out = local(data)
+        state[node.result.name] = out.to(dtype=node.result.dtype)
 
     def _lower_levels(self, levels, state: dict,
                       layouts: dict[str, Layout]) -> dict:
@@ -1810,13 +2437,21 @@ class Executor:
                     state[node.result.name] = tmp[node.result.name]
                 elif node.kind == "op":
                     tmp = dict(snapshot)
-                    vals = self._resolve_args(node, tmp, layouts)
                     wt = self._write_tensors(node)
-                    out = node.fn(*vals) if node.fn is not None else None
-                    if wt:
-                        self._store_writes(node, tmp, wt, out, layouts)
-                        for t in wt:
-                            state[t.name] = tmp[t.name]
+                    if self._per_shard(node):
+                        outs = [node.fn(*vals) if node.fn is not None
+                                else None for vals in
+                                self._shard_args(node, tmp, layouts)]
+                        if wt:
+                            self._store_shards(node, tmp, wt, outs, layouts)
+                    else:
+                        vals = self._resolve_args(node, tmp, layouts)
+                        out = node.fn(*vals) if node.fn is not None \
+                            else None
+                        if wt:
+                            self._store_writes(node, tmp, wt, out, layouts)
+                    for t in wt:
+                        state[t.name] = tmp[t.name]
                 else:
                     raise ValueError(f"unexpected node kind {node.kind}")
         return state
@@ -1831,7 +2466,7 @@ class Executor:
         sub = self._sub_execs.get(i)
         if sub is None:
             sub = self._sub_execs[i] = Executor(
-                self._segments[i][1], self.device,
+                self._segments[i][1], self.device, mesh=self.mesh,
                 layout_overrides=self.plan.per_segment[i],
                 schedule=self.schedule, tile_overrides=self._tile_config,
                 regions=self.regions, donate=self.donate,
@@ -2082,8 +2717,8 @@ class Executor:
 
 
 def execute(graph: Graph, device: Any = None, steps: int = 1,
-            **state_overrides) -> dict:
+            mesh: Optional[Mesh] = None, **state_overrides) -> dict:
     """One-shot convenience: init state, run ``steps`` times, return the
     final state."""
-    ex = Executor(graph, device)
+    ex = Executor(graph, device, mesh=mesh)
     return ex.run(ex.init_state(**state_overrides), steps)

@@ -24,9 +24,10 @@ dependency DAG from each node's access footprint and re-schedules it:
   every *antichain* of ready device units becomes one wave, consecutive
   waves fuse into a single device segment, and host / sync / loop
   vertices are emitted only where a dependency path actually forces a
-  break.  Relayout steps attach at segment entry, so fusing two program
-  levels into one segment hoists a consumer's conversions to the earliest
-  point its producer is ready.
+  break.  Relayout steps and halo-transfer blocks attach at segment
+  entry, so fusing two program levels into one segment hoists a
+  consumer's conversions and transfers to the earliest point its
+  producer is ready.
 * :func:`sequential_segments` is the legacy program-order segmentation
   (every level boundary is a barrier, every host node splits the chain)
   — the ``schedule="sequential"`` escape hatch and the reference
@@ -246,7 +247,7 @@ class ScheduleDag:
     def describe(self, plan=None) -> str:
         """Human-readable schedule: segments -> waves -> units, then the
         dependency edges, then (given a LayoutPlan) the relayout steps
-        hoisted to each segment's entry."""
+        and halo-transfer blocks hoisted to each segment's entry."""
         nseg = len(self.segment_kinds)
         lines = [f"DAG schedule for graph {self.graph.name!r}: "
                  f"{len(self.units)} units, {len(self.edges)} edges, "
@@ -277,6 +278,18 @@ class ScheduleDag:
             for st in plan.relayouts:
                 lines.append(f"relayout before seg{st.segment}: "
                              f"{st.tensor} {st.src.name}->{st.dst.name}")
+            by_ht: dict[tuple[int, str], list] = defaultdict(list)
+            for h in getattr(plan, "halo_transfers", ()):
+                by_ht[(h.segment, h.tensor)].append(h)
+            for (si, tensor), hs in sorted(by_ht.items()):
+                sends = sum(1 for h in hs if h.mesh_axis)
+                nbytes = sum(h.nbytes for h in hs)
+                mode = ("overlapped" if any(h.overlapped for h in hs)
+                        else "sync")
+                lines.append(
+                    f"seg{si} transfers: {tensor} {len(hs)} blocks "
+                    f"({sends} copies, {nbytes} bytes, {mode}) "
+                    f"hoisted to segment entry")
             if getattr(plan, "regions", None):
                 graphs = getattr(plan, "region_graphs", None)
                 lines.append("regions (captured graphs):" if graphs

@@ -1,11 +1,17 @@
-"""N-dimensional tensor handle (paper §4.1) for the single-process executor.
+"""N-dimensional distributed tensor handle (paper §4.1) on a device mesh.
 
 A :class:`DistTensor` describes a logical space: its record spec and
-polymorphic layout, per-dimension partitioning, per-dimension halo widths
-and the boundary policy.  The storage itself is a ``torch.Tensor`` in the
-executor's state dict.  ``partition`` is kept as a plain tuple of axis
-names; the single-process executor refuses a partitioned axis (placement
-over several GPUs is ROADMAP item 8).
+polymorphic layout, per-dimension partitioning onto mesh axes,
+per-dimension halo widths and the boundary policy.  The storage itself
+lives in the executor's state dict: a ``torch.Tensor`` without a mesh (or
+for a tensor that names no mesh axis), a
+:class:`~repro_torch.core.mesh.ShardedArray` placed by :meth:`placement`
+on a :class:`~repro_torch.core.mesh.Mesh` otherwise.
+
+Paper mapping:
+  * ``Tensor<double, 2> t({2, 2}, size_x, size_y)``  ->
+    ``DistTensor("t", space=(sx, sy), partition=("gx", "gy"))``
+  * padding parameter                                ->  ``halo`` widths.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from .device import resolve_device
 from .halo import Boundary
 from .layout import Layout, RecordArray, RecordSpec
+from .mesh import Mesh, Placement, ShardedArray
 
 __all__ = ["DistTensor", "ReductionResult", "make_reduction_result"]
 
@@ -28,7 +35,8 @@ class DistTensor:
 
     Example::
 
-        u = DistTensor("u", (1024, 1024), halo=(1, 1),
+        mesh = make_mesh((4,), ("d",), devices=["cuda:0"] * 4)
+        u = DistTensor("u", (1024, 1024), partition=("d",), halo=(1, 1),
                        boundary=Boundary.PERIODIC)
         p = DistTensor("p", (65536,), spec=RecordSpec.create("x", "y"),
                        layout=Layout.AOS, pin_layout=True)
@@ -83,15 +91,95 @@ class DistTensor:
                 f"per-axis ops are unsupported there")
         return dim
 
-    def init(self, device: Any = None,
-             fill: float = 0.0) -> torch.Tensor | RecordArray:
+    # -- sharding ----------------------------------------------------------
+    def pspec(self) -> tuple[Optional[str], ...]:
+        """The mesh axis per *storage* axis (the component axis is never
+        split): what a ``PartitionSpec`` says in the JAX package."""
+        dims: list[Optional[str]] = list(self.partition)
+        if self.is_record:
+            if self.layout is Layout.AOS:
+                dims = dims + [None]
+            elif self.layout is Layout.SOA:
+                dims = [None] + dims
+            else:  # AOSOA: (*space[:-1], n_tiles, C, tile); the tiled dim
+                # stays unsplit (validate_mesh enforces it)
+                dims = dims[:-1] + [None, None, None]
+        return tuple(dims)
+
+    def placement(self, mesh: Mesh) -> Placement:
+        """Which slice of this tensor's storage each mesh coordinate
+        holds (the counterpart of a ``NamedSharding``)."""
+        return Placement(mesh, self.pspec())
+
+    def shards_along(self, mesh: Mesh, dim: int) -> int:
+        """How many shards space dim ``dim`` splits into on ``mesh``."""
+        ax = self.partition[dim]
+        return 1 if ax is None else mesh.shape[ax]
+
+    def shard_space(self, mesh: Mesh) -> tuple[int, ...]:
+        """The per-shard space extents on ``mesh``."""
+        return tuple(
+            s // self.shards_along(mesh, d) for d, s in enumerate(self.space)
+        )
+
+    def validate_mesh(self, mesh: Mesh) -> None:
+        """Raise ``ValueError`` when this handle cannot live on ``mesh``:
+        unknown axis, non-divisible extent, shard smaller than its halo,
+        or AoSoA carrying halo/partition on the tiled dim."""
+        if self.is_record and self.layout is Layout.AOSOA:
+            nd = len(self.space)
+            if self.partition[nd - 1] is not None:
+                raise ValueError(
+                    f"{self.name}: AOSOA cannot be partitioned along the "
+                    f"tiled (last) space dim")
+            if self.halo[nd - 1]:
+                raise ValueError(
+                    f"{self.name}: AOSOA cannot carry a halo on the tiled "
+                    f"(last) space dim")
+        for d, ax in enumerate(self.partition):
+            if ax is None:
+                continue
+            if ax not in mesh.shape:
+                raise ValueError(f"{self.name}: mesh has no axis {ax!r}")
+            n = mesh.shape[ax]
+            if self.space[d] % n:
+                raise ValueError(
+                    f"{self.name}: space dim {d} ({self.space[d]}) not "
+                    f"divisible by mesh axis {ax!r} ({n})"
+                )
+            if self.halo[d] and self.space[d] // n < self.halo[d]:
+                raise ValueError(
+                    f"{self.name}: shard extent {self.space[d] // n} smaller "
+                    f"than halo {self.halo[d]} in dim {d}"
+                )
+
+    # -- materialization ---------------------------------------------------
+    def init(self, device: Any = None, fill: float = 0.0,
+             mesh: Optional[Mesh] = None):
         """Allocate storage filled with ``fill`` on ``device`` (``None``:
-        the GPU, raising without one)."""
+        the GPU, raising without one).  With a ``mesh``, a tensor that
+        names a mesh axis is returned as its raw storage in shards (a
+        :class:`~repro_torch.core.mesh.ShardedArray`, one on each mesh
+        device); one that names none lies on the mesh's first device."""
+        if mesh is not None:
+            self.validate_mesh(mesh)
+            if self.is_sharded(mesh):
+                pl = self.placement(mesh)
+                shape = pl.shard_shape(self.storage_shape)
+                return ShardedArray(
+                    [torch.full(shape, fill, dtype=self.dtype, device=d)
+                     for d in mesh.devices], pl, self.storage_shape)
+            device = mesh.devices[0]
         arr = torch.full(self.storage_shape, fill, dtype=self.dtype,
                          device=resolve_device(device))
         if self.is_record:
             return RecordArray(arr, self.spec, self.layout)
         return arr
+
+    def is_sharded(self, mesh: Optional[Mesh]) -> bool:
+        """True when this tensor's state on ``mesh`` is a ShardedArray:
+        some space dim names a mesh axis."""
+        return mesh is not None and self.is_partitioned
 
     def wrap(self, data: torch.Tensor) -> torch.Tensor | RecordArray:
         """View raw state storage through this handle (a RecordArray for

@@ -54,8 +54,10 @@ def make_eikonal_graph(
     block=None,
     graph: Optional[Graph] = None,
 ) -> Graph:
-    """One outer FIM sweep as a Ripple graph node: ``phi`` (halo ``(1, 1)``)
-    updated, ``mask`` riding as an unpadded output-aligned arg.  Run the
+    """One outer FIM sweep as a Ripple graph node: ``phi`` (halo ``(1, 1)``,
+    possibly 2-D partitioned) updated, ``mask`` riding as an unpadded
+    output-aligned arg (the overlapped lowering cuts it per boundary
+    strip).  Run the
     graph repeatedly — or wrap it in ``conditional`` with a residual
     reduction — for the paper's convergence loop.
 
@@ -63,9 +65,12 @@ def make_eikonal_graph(
     the result depend on the tile decomposition (the paper's FIM ghost-zone
     trade); ``inner=1`` is a pure radius-1 stencil whose result no tile
     changes, so it ignores ``block`` and sweeps on a tile from
-    :func:`single_sweep_block`.  The node follows its tensors' device as
-    :func:`eikonal_fim_sweep` does.  ``graph=`` appends the node to an
-    existing builder."""
+    :func:`single_sweep_block`, which tiles every shard and boundary
+    strip a mesh gives it.  With ``inner > 1`` the caller picks a
+    ``block`` that tiles every extent the node sees (on a mesh, each
+    shard; with ``overlap=True``, each strip too).  The node follows its
+    tensors' device as :func:`eikonal_fim_sweep` does, once per shard.
+    ``graph=`` appends the node to an existing graph."""
 
     def sweep(p_haloed, m):
         tile = block

@@ -20,7 +20,7 @@ from .kernel import (DEFAULT_BLOCK, PREFERRED_LAYOUT, SUPPORTED_LAYOUTS,
                      TILE_KERNEL, check_block, flux_difference_cuda)
 from .ref import flux_difference_ref
 
-__all__ = ["flux_difference", "flux_difference_ref",
+__all__ = ["flux_difference", "flux_difference_ref", "fitting_block",
            "make_flux_difference_graph"]
 
 
@@ -44,6 +44,20 @@ def flux_difference(state_haloed, lam_x, lam_y, *, block=None,
                                   preferred=PREFERRED_LAYOUT)
 
 
+def fitting_block(interior: tuple[int, int]) -> tuple[int, int]:
+    """The tile a graph node takes when ``block=None``: the kernel default
+    where it tiles the interior, else per dim the largest divisor of the
+    interior up to the default's.  K4's geometry is its own, so the tile
+    only has to meet the contract (:func:`~.kernel.check_block`); the
+    result is the same on any tile."""
+    try:
+        check_block(interior, DEFAULT_BLOCK)
+        return DEFAULT_BLOCK
+    except ValueError:
+        return tuple(max(d for d in range(1, min(cap, n) + 1) if n % d == 0)
+                     for n, cap in zip(interior, DEFAULT_BLOCK))
+
+
 def make_flux_difference_graph(
     u: DistTensor,
     out: DistTensor,
@@ -55,15 +69,27 @@ def make_flux_difference_graph(
     block=None,
     graph: Optional[Graph] = None,
 ) -> Graph:
-    """One-node Ripple graph: FORCE flux difference over an Euler record
-    ``u`` with halo ``(1, 1)`` into ``out``.  ``graph=`` appends the node
-    to an existing builder.  The node follows its record's device (the
-    kernel on the GPU, the plain version on the CPU), and the interior
-    must divide ``block``; ``use_kernel=False`` asks for the plain version
-    on either device."""
+    """One-node Ripple graph: FORCE flux difference over a (possibly
+    2-D-partitioned) Euler record ``u`` with halo ``(1, 1)`` into ``out``.
+    ``graph=`` appends the node to an existing graph.  The node follows
+    its record's device (the kernel on the GPU, the plain version on the
+    CPU), once per shard on a mesh; ``use_kernel=False`` asks for the
+    plain version on either device.
+
+    With ``overlap=True`` on a mesh, the executor copies every halo block
+    (edge strips and corners) up front and runs the node on each shard's
+    interior while they fly, then on the per-(axis, side) boundary strips,
+    which are 1 cell thin.  An explicit ``block`` must tile every one of
+    those extents; ``block=None`` takes the tile scope's or
+    :func:`fitting_block`'s per call."""
 
     def flux_node(rec, _out):
-        return flux_difference(rec, lam_x, lam_y, block=block,
+        tile = block
+        if tile is None:
+            interior = tuple(s - 2 for s in rec.space)
+            if fitting_block(interior) != DEFAULT_BLOCK:
+                tile = fitting_block(interior)
+        return flux_difference(rec, lam_x, lam_y, block=tile,
                                use_kernel=use_kernel)
 
     g = graph if graph is not None else Graph(name="flux_difference")

@@ -245,7 +245,7 @@ class TuningDecision:
         return "\n".join(lines)
 
 
-# -- cache (de)serialization ---------------------------------------------------
+# -- cache (de)serialization --------------------------------------------------
 
 def tuning_key(executor) -> str:
     """The persistent-cache key of an executor's plan: heuristic plan
@@ -322,7 +322,7 @@ def _cached_decision(key: str) -> Optional[TuningDecision]:
     return dec
 
 
-# -- entry point ---------------------------------------------------------------
+# -- entry point --------------------------------------------------------------
 
 def resolve_tuning(executor, mode: str, budget=None) -> TuningDecision:
     """The tuned decision for ``executor``'s (heuristic) plan.
@@ -356,7 +356,7 @@ def resolve_tuning(executor, mode: str, budget=None) -> TuningDecision:
     return dec
 
 
-# -- joint search --------------------------------------------------------------
+# -- joint search -------------------------------------------------------------
 
 def _storage_bytes(t) -> float:
     """Logical storage footprint of one state tensor in bytes (layout-
@@ -431,156 +431,161 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
     best_segments: dict[int, dict[str, Any]] = {}
     proposed = pruned = measured = 0
 
-    # -- phase 0: baseline probe (times the heuristic plan and records
-    # tile use) ------------------------------------------------------------
-    first, base_ms, _it, _dom, used, best_sig = bench({}, {}, probe=True)
-    measured += 1
-    measurements.append(Measurement("baseline", "plan", "heuristic",
-                                    first, base_ms, iters=_it))
-    best_ms = base_ms
-
-    # -- phase 1: search axes -----------------------------------------------
-    heuristic = dict(executor.plan.initial)
-    layout_axes: dict[str, list] = {}
-    for name, cands in sorted(
-            executor_lib.layout_candidates(executor).items()):
-        base = heuristic.get(name)
-        ordered = ([base] if base in cands else []) \
-            + [l for l in cands if l is not base]
-        layout_axes[name] = ordered
-
-    tile_axes: dict[str, list] = {}
-    tile_defaults: dict[str, Any] = {}
-    for kernel in sorted(used or {}):
-        uses = used[kernel]
-        defaults = {d for _, d in uses}
-        cand_sets = [set(tiles_lib.tile_candidates(kernel, shape))
-                     for shape, _ in uses]
-        cands = set.intersection(*cand_sets) if cand_sets else set()
-        cands |= defaults
-        default = sorted(defaults, key=repr)[0]
-        tile_defaults[kernel] = default
-        ordered = sorted(
-            cands, key=lambda t: (tiles_lib.tile_distance(t, default),
-                                  repr(t)))
-        if len(ordered) > 1:
-            tile_axes[kernel] = ordered
-
-    # -- phase 2: joint proposals ---------------------------------------------
-    lay_names = sorted(layout_axes)
-    tile_names = sorted(tile_axes)
-    axes = [[(n, v) for v in layout_axes[n]] for n in lay_names] \
-        + [[(k, v) for v in tile_axes[k]] for k in tile_names]
-    proposals: list[dict] = []
-    for combo in itertools.islice(itertools.product(*axes),
-                                  budget.max_proposals):
-        lay = {n: v for n, v in combo[:len(lay_names)]
-               if v is not heuristic.get(n)}
-        til = {k: v for k, v in combo[len(lay_names):]
-               if v != tile_defaults.get(k)}
-        proposals.append({"layouts": lay, "tiles": til, "segments": {}})
-    # per-segment refinements: a single-(segment, key) layout flip for
-    # keys live in >= 2 segments (the boundary relayouts keep
-    # mixed-segment assignments value-exact)
-    seg_homes: dict[str, list[int]] = {}
-    for si, seg in enumerate(executor.plan.per_segment):
-        for name in seg:
-            if name in layout_axes:
-                seg_homes.setdefault(name, []).append(si)
-    for name, sis in sorted(seg_homes.items()):
-        if len(sis) < 2 or len(proposals) >= budget.max_proposals:
-            continue
-        for si in sis:
-            for lay in layout_axes[name]:
-                if lay is heuristic.get(name):
-                    continue
-                if len(proposals) >= budget.max_proposals:
-                    break
-                proposals.append({"layouts": {}, "tiles": {},
-                                  "segments": {si: {name: lay}}})
-    proposed = len(proposals)
-
-    # -- phase 3: cost ranking --------------------------------------------------
-    def penalty_of(p) -> float:
-        try:
-            seg_over = {si: dict(d) for si, d
-                        in executor._segment_overrides.items()}
-            for si, d in p["segments"].items():
-                seg_over.setdefault(si, {}).update(d)
-            plan = executor_lib.solve_layouts(
-                executor._segments, executor.tensors,
-                overrides={**executor._layout_overrides, **p["layouts"]},
-                segment_overrides=seg_over)
-        except ValueError:
-            return float("inf")    # an infeasible assignment
-        pen = 0.0
-        for st in plan.relayouts:
-            # a relayout reads + writes the whole storage once
-            pen += 2.0 * _storage_bytes(executor.tensors[st.tensor])
-        for seg in plan.per_segment:
-            for name, lay in seg.items():
-                t = executor.tensors.get(name)
-                if t is None or not t.is_record:
-                    continue
-                pen += layout_access_penalty(
-                    lay.name, _storage_bytes(t), t.spec.num_components)
-        return pen
-
-    def tile_dist(p) -> float:
-        return sum(tiles_lib.tile_distance(t, tile_defaults[k])
-                   for k, t in p["tiles"].items())
-
-    pens = [penalty_of(p) for p in proposals]
-    # stable pre-order near-default-first, so cost ties break toward
-    # configurations most likely to behave like the baseline; then a
-    # stable sort by penalty (the JAX package's HLO base is one number
-    # shared by every candidate, so its ranking is this order too)
-    order = sorted(range(proposed), key=lambda i: tile_dist(proposals[i]))
-    order = [i for i in order if pens[i] != float("inf")]
-    order.sort(key=lambda i: pens[i])
-
-    # -- phase 4/5: prune, then measure the survivors ---------------------------
-    k = budget.measure_count(proposed)
-    survived = taken = 0
-    for idx in order:
-        if taken >= k:
-            break
-        p = proposals[idx]
-        if not (p["layouts"] or p["tiles"] or p["segments"]):
-            continue   # the all-heuristic combo IS the baseline probe
-        if not budget.measure_all and survived >= budget.neighborhoods:
-            break      # incumbent survived enough joint neighborhoods
-        stop = (None if budget.measure_all
-                else best_ms * budget.dominate_factor)
-        f, s, iters_run, dominated, _, sig = bench(
-            p["layouts"], p["tiles"], p["segments"], stop_above_ms=stop)
+    best_sig = None
+    try:
+        # -- phase 0: baseline probe (times the heuristic plan and records
+        # tile use) ----------------------------------------------------
+        first, base_ms, _it, _dom, used, best_sig = bench({}, {}, probe=True)
         measured += 1
-        taken += 1
-        measurements.append(Measurement(
-            "joint", "plan",
-            _joint_label(p["layouts"], p["tiles"], p["segments"]),
-            f, s, predicted_bytes=pens[idx], iters=iters_run,
-            early_stopped=dominated))
-        if s < best_ms:
-            best_ms, best_sig = s, sig
-            best_layouts = dict(p["layouts"])
-            best_tiles = dict(p["tiles"])
-            best_segments = {si: dict(d) for si, d in p["segments"].items()}
-            survived = 0
-        else:
-            survived += 1
-    # ``measured`` counts every configuration with timing data (the
-    # baseline probe included); everything proposed but never timed was
-    # pruned — by the cost ranking or by neighborhood early stop
-    pruned = max(proposed - measured, 0)
-    STATS["proposed"] += proposed
-    STATS["pruned"] += pruned
-    # drop the losing candidates' region programs (their graphs, pools and
-    # buffers); the winner ran under the caller's own regions and
-    # donation, so the caller's executor fetches it with zero captures
-    for sig in candidate_sigs:
-        if sig != best_sig:
-            executor_lib.drop_executables(sig)
+        measurements.append(Measurement("baseline", "plan", "heuristic",
+                                        first, base_ms, iters=_it))
+        best_ms = base_ms
+
+        # -- phase 1: search axes ---------------------------------------------
+        heuristic = dict(executor.plan.initial)
+        layout_axes: dict[str, list] = {}
+        for name, cands in sorted(
+                executor_lib.layout_candidates(executor).items()):
+            base = heuristic.get(name)
+            ordered = ([base] if base in cands else []) \
+                + [l for l in cands if l is not base]
+            layout_axes[name] = ordered
+
+        tile_axes: dict[str, list] = {}
+        tile_defaults: dict[str, Any] = {}
+        for kernel in sorted(used or {}):
+            uses = used[kernel]
+            defaults = {d for _, d in uses}
+            cand_sets = [set(tiles_lib.tile_candidates(kernel, shape))
+                         for shape, _ in uses]
+            cands = set.intersection(*cand_sets) if cand_sets else set()
+            cands |= defaults
+            default = sorted(defaults, key=repr)[0]
+            tile_defaults[kernel] = default
+            ordered = sorted(
+                cands, key=lambda t: (tiles_lib.tile_distance(t, default),
+                                      repr(t)))
+            if len(ordered) > 1:
+                tile_axes[kernel] = ordered
+
+        # -- phase 2: joint proposals -----------------------------------------
+        lay_names = sorted(layout_axes)
+        tile_names = sorted(tile_axes)
+        axes = [[(n, v) for v in layout_axes[n]] for n in lay_names] \
+            + [[(k, v) for v in tile_axes[k]] for k in tile_names]
+        proposals: list[dict] = []
+        for combo in itertools.islice(itertools.product(*axes),
+                                      budget.max_proposals):
+            lay = {n: v for n, v in combo[:len(lay_names)]
+                   if v is not heuristic.get(n)}
+            til = {k: v for k, v in combo[len(lay_names):]
+                   if v != tile_defaults.get(k)}
+            proposals.append({"layouts": lay, "tiles": til, "segments": {}})
+        # per-segment refinements: a single-(segment, key) layout flip for
+        # keys live in >= 2 segments (the boundary relayouts keep
+        # mixed-segment assignments value-exact)
+        seg_homes: dict[str, list[int]] = {}
+        for si, seg in enumerate(executor.plan.per_segment):
+            for name in seg:
+                if name in layout_axes:
+                    seg_homes.setdefault(name, []).append(si)
+        for name, sis in sorted(seg_homes.items()):
+            if len(sis) < 2 or len(proposals) >= budget.max_proposals:
+                continue
+            for si in sis:
+                for lay in layout_axes[name]:
+                    if lay is heuristic.get(name):
+                        continue
+                    if len(proposals) >= budget.max_proposals:
+                        break
+                    proposals.append({"layouts": {}, "tiles": {},
+                                      "segments": {si: {name: lay}}})
+        proposed = len(proposals)
+
+        # -- phase 3: cost ranking --------------------------------------------
+        def penalty_of(p) -> float:
+            try:
+                seg_over = {si: dict(d) for si, d
+                            in executor._segment_overrides.items()}
+                for si, d in p["segments"].items():
+                    seg_over.setdefault(si, {}).update(d)
+                plan = executor_lib.solve_layouts(
+                    executor._segments, executor.tensors,
+                    overrides={**executor._layout_overrides, **p["layouts"]},
+                    segment_overrides=seg_over)
+            except ValueError:
+                return float("inf")    # an infeasible assignment
+            pen = 0.0
+            for st in plan.relayouts:
+                # a relayout reads + writes the whole storage once
+                pen += 2.0 * _storage_bytes(executor.tensors[st.tensor])
+            for seg in plan.per_segment:
+                for name, lay in seg.items():
+                    t = executor.tensors.get(name)
+                    if t is None or not t.is_record:
+                        continue
+                    pen += layout_access_penalty(
+                        lay.name, _storage_bytes(t), t.spec.num_components)
+            return pen
+
+        def tile_dist(p) -> float:
+            return sum(tiles_lib.tile_distance(t, tile_defaults[k])
+                       for k, t in p["tiles"].items())
+
+        pens = [penalty_of(p) for p in proposals]
+        # stable pre-order near-default-first, so cost ties break toward
+        # configurations most likely to behave like the baseline; then a
+        # stable sort by penalty (the JAX package's HLO base is one number
+        # shared by every candidate, so its ranking is this order too)
+        order = sorted(range(proposed), key=lambda i: tile_dist(proposals[i]))
+        order = [i for i in order if pens[i] != float("inf")]
+        order.sort(key=lambda i: pens[i])
+
+        # -- phase 4/5: prune, then measure the survivors ---------------------
+        k = budget.measure_count(proposed)
+        survived = taken = 0
+        for idx in order:
+            if taken >= k:
+                break
+            p = proposals[idx]
+            if not (p["layouts"] or p["tiles"] or p["segments"]):
+                continue   # the all-heuristic combo IS the baseline probe
+            if not budget.measure_all and survived >= budget.neighborhoods:
+                break      # incumbent survived enough joint neighborhoods
+            stop = (None if budget.measure_all
+                    else best_ms * budget.dominate_factor)
+            f, s, iters_run, dominated, _, sig = bench(
+                p["layouts"], p["tiles"], p["segments"], stop_above_ms=stop)
+            measured += 1
+            taken += 1
+            measurements.append(Measurement(
+                "joint", "plan",
+                _joint_label(p["layouts"], p["tiles"], p["segments"]),
+                f, s, predicted_bytes=pens[idx], iters=iters_run,
+                early_stopped=dominated))
+            if s < best_ms:
+                best_ms, best_sig = s, sig
+                best_layouts = dict(p["layouts"])
+                best_tiles = dict(p["tiles"])
+                best_segments = {si: dict(d)
+                                 for si, d in p["segments"].items()}
+                survived = 0
+            else:
+                survived += 1
+        # ``measured`` counts every configuration with timing data (the
+        # baseline probe included); everything proposed but never timed was
+        # pruned — by the cost ranking or by neighborhood early stop
+        pruned = max(proposed - measured, 0)
+        STATS["proposed"] += proposed
+        STATS["pruned"] += pruned
+    finally:
+        # drop the losing candidates' region programs (their graphs, pools
+        # and buffers), also when a candidate raised; the winner ran under
+        # the caller's own regions and donation, so the caller's executor
+        # fetches it with zero captures
+        for sig in candidate_sigs:
+            if sig != best_sig:
+                executor_lib.drop_executables(sig)
 
     chosen_label = _joint_label(best_layouts, best_tiles, best_segments)
     measurements = [

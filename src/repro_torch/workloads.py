@@ -11,10 +11,17 @@
   diagnostic a particle code logs every step (the time and ``vmax``),
   so that the plan runs device -> host -> device.
 * :func:`build_flux_graph` — the Table 4 FORCE flux difference on a
-  haloed 2-D Euler record (transmissive boundary).
+  haloed 2-D Euler record (transmissive boundary), whole or partitioned
+  over a mesh.
 * :func:`build_eikonal_graph` — the Table 5 eikonal solve: the paper's
   conditional MapReduce around the FIM sweep, repeated until no cell
-  changes, reinitialising the distance to a circle of sources.
+  changes, reinitialising the distance to a circle of sources; whole or
+  partitioned over a mesh.
+* :func:`build_euler_solver` — the JAX package's ``examples/euler2d.py``
+  solver (paper Listing 12, the §8 scaling application): wavespeeds, a
+  max-reduction for the CFL step, the mass diagnostic and the
+  dimension-split (or unsplit) FORCE updates with halo exchange, over a
+  mesh when given one.
 
 Inputs come from NumPy's ``default_rng(seed)``, so the JAX package and the
 port can be fed the same values.
@@ -25,17 +32,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core import (Boundary, DistTensor, ExecutionKind, Graph, Layout,
-                   MaxReducer, ReductionResult, make_reduction_result)
+from .core import (Boundary, DistTensor, ExecutionKind, Executor, Graph,
+                   Layout, MaxReducer, Mesh, RecordArray, ReductionResult,
+                   SumReducer, exclusive_padded_access,
+                   make_reduction_result)
 from .kernels.eikonal.ops import make_eikonal_graph
 from .kernels.particle.ops import PARTICLE_SPEC, particle_update
 from .kernels.saxpy.ops import SAXPY_SPEC, saxpy, saxpy_record
 from .kernels.stencil.ops import make_flux_difference_graph
-from .physics.euler import EULER_SPEC
+from .physics.euler import EULER_SPEC, sound_speed, update_dim, update_full
 
 __all__ = ["DT", "build_saxpy_graph", "build_particle_graph",
            "build_particle_diagnostic_graph", "particle_fields", "build_flux_graph", "Converging",
-           "build_eikonal_graph", "eikonal_inputs", "eikonal_distance"]
+           "build_eikonal_graph", "eikonal_inputs", "eikonal_distance",
+           "build_euler_solver"]
 
 DT = 0.01
 
@@ -137,15 +147,33 @@ def particle_fields(n: int, seed: int = 0) -> dict[str, dict[str, np.ndarray]]:
     return {"ions": ions, "electrons": electrons, "field": field}
 
 
+def _partition(mesh, partition) -> tuple:
+    """A workload graph's partition: as given, else the mesh's axes in
+    order over the space dims, else none."""
+    if partition is not None:
+        return tuple(partition)
+    return mesh.axis_names if mesh is not None else ()
+
+
 def build_flux_graph(nx: int, ny: int, *, lam_x: float = 0.1,
                      lam_y: float = 0.1, layout: Layout = Layout.SOA,
-                     block=None, use_kernel: bool = True):
+                     block=None, use_kernel: bool = True,
+                     mesh: Mesh = None, partition=None,
+                     overlap: bool = False):
     """FORCE flux difference of ``u`` (halo (1, 1), transmissive) into
-    ``flux``; returns ``(graph, (u, flux))``."""
+    ``flux``; returns ``(graph, (u, flux))``.  Both are partitioned by
+    ``partition`` (default: ``mesh``'s axes over (x, y)), checked against
+    ``mesh`` when given; ``overlap=True`` asks for the interior/boundary
+    lowering."""
+    partition = _partition(mesh, partition)
     u = DistTensor("u", (nx, ny), spec=EULER_SPEC, layout=layout,
-                   halo=(1, 1), boundary=Boundary.TRANSMISSIVE)
-    out = DistTensor("flux", (nx, ny), spec=EULER_SPEC, layout=layout)
-    g = make_flux_difference_graph(u, out, lam_x, lam_y, overlap=False,
+                   partition=partition, halo=(1, 1),
+                   boundary=Boundary.TRANSMISSIVE)
+    out = DistTensor("flux", (nx, ny), spec=EULER_SPEC, layout=layout,
+                     partition=partition)
+    if mesh is not None:
+        u.validate_mesh(mesh)
+    g = make_flux_difference_graph(u, out, lam_x, lam_y, overlap=overlap,
                                    use_kernel=use_kernel, block=block)
     return g, (u, out)
 
@@ -175,19 +203,27 @@ class Converging:
 
 
 def build_eikonal_graph(n: int, *, inner: int = 4, block=(8, 128),
-                        max_iters=None, use_kernel: bool = True):
+                        max_iters=None, use_kernel: bool = True,
+                        mesh: Mesh = None, partition=None):
     """The Table 5 solve on an ``n x n`` grid (h = 1/n) as the paper's
     conditional MapReduce: per iteration ``phi_prev <- phi``, one FIM
     sweep (``inner`` sweeps per ``block`` tile, K5 on the GPU), the
     change ``|phi - phi_prev|`` and its max into ``res``, while
     ``res > 0``.  Every sweep is non-increasing, so the loop ends.
+    Every tensor is partitioned by ``partition`` (default: ``mesh``'s
+    axes), checked against ``mesh`` when given; with ``inner > 1`` a
+    shard's extents must be multiples of ``block`` for the solve to equal
+    the unsharded one (each tile then freezes the same halo cells).
     Returns ``(graph, (phi, mask), predicate)``, the predicate a
     :class:`Converging`."""
-    phi = DistTensor("phi", (n, n), halo=(1, 1),
+    partition = _partition(mesh, partition)
+    phi = DistTensor("phi", (n, n), partition=partition, halo=(1, 1),
                      boundary=Boundary.TRANSMISSIVE)
-    mask = DistTensor("mask", (n, n), dtype=torch.bool)
-    phi_prev = DistTensor("phi_prev", (n, n))
-    change = DistTensor("change", (n, n))
+    mask = DistTensor("mask", (n, n), dtype=torch.bool, partition=partition)
+    phi_prev = DistTensor("phi_prev", (n, n), partition=partition)
+    change = DistTensor("change", (n, n), partition=partition)
+    if mesh is not None:
+        phi.validate_mesh(mesh)
     res = make_reduction_result("res", init=float("inf"))
     body = Graph(name="fim_iteration")
     # phi_prev aliases phi here; under regions=True, whose graphs write
@@ -225,3 +261,70 @@ def eikonal_distance(n: int) -> np.ndarray:
     """The exact solution ``h |r - R|``: each cell centre's distance to the
     circle (float64)."""
     return np.abs(_radius_offset(n)) / n
+
+
+def build_euler_solver(nx: int, ny: int, mesh: Mesh = None,
+                       overlap: bool = False, unsplit: bool = False, *,
+                       cfl: float = 0.4, device=None):
+    """The 2-D Euler shock-bubble solver of the JAX package's
+    ``examples/euler2d.py`` (``build_solver``) as one graph, built once and
+    run many times (paper Listing 12): per step the wavespeed field, its
+    max into ``smax`` for the CFL step, the mass (sum of ``rho``) into
+    ``mass``, then the dimension-split FORCE updates (``unsplit=True``:
+    one 2-D update whose halo schedule spans both axes, corners
+    included), each reading the pre-update halo
+    (``exclusive_padded_access``).
+
+    On a 2-axis ``mesh`` the grid is split over both dims (its axes in
+    order), on a 1-axis mesh over y (the paper splits the higher dim);
+    ``overlap=True`` asks each update for the interior/boundary lowering.
+    Returns ``(executor, u)``."""
+    dx, dy = 2.0 / nx, 1.0 / ny
+    partition = (None, None)
+    if mesh is not None:
+        names = mesh.axis_names
+        partition = names if len(names) == 2 else (None, names[0])
+    u = DistTensor("u", (nx, ny), spec=EULER_SPEC, layout=Layout.SOA,
+                   partition=partition, halo=(1, 1),
+                   boundary=Boundary.TRANSMISSIVE)
+    ux = u.with_(halo=(1, 0))
+    uy = u.with_(halo=(0, 1))
+    ws = DistTensor("ws", (nx, ny), partition=partition)
+    smax = make_reduction_result("smax", init=1.0)
+    mass = make_reduction_result("mass")
+
+    def set_wavespeeds(rec, _ws):
+        U = rec.data
+        c = sound_speed(U)
+        return torch.maximum(torch.abs(U[2] / U[0]) + c,
+                             torch.abs(U[3] / U[0]) + c)
+
+    def update_x(rec, s):
+        dt = cfl * min(dx, dy) / s
+        return RecordArray(update_dim(rec.data, 0, dt / dx), EULER_SPEC,
+                           Layout.SOA)
+
+    def update_y(rec, s):
+        dt = cfl * min(dx, dy) / s
+        return RecordArray(update_dim(rec.data, 1, dt / dy), EULER_SPEC,
+                           Layout.SOA)
+
+    def update_xy(rec, s):
+        # unsplit scheme: both directional fluxes share one dt bound
+        dt = cfl / (s * (1.0 / dx + 1.0 / dy))
+        return RecordArray(update_full(rec.data, dt / dx, dt / dy),
+                           EULER_SPEC, Layout.SOA)
+
+    g = Graph(name="euler_step")
+    g.split(set_wavespeeds, u, ws)
+    g.then_reduce(ws, smax, MaxReducer())
+    g.then_reduce(u, mass, SumReducer(), field="rho")
+    if unsplit:
+        g.then_split(update_xy, exclusive_padded_access(u), smax,
+                     writes=(0,), overlap=overlap)
+    else:
+        g.then_split(update_x, exclusive_padded_access(ux), smax,
+                     writes=(0,), overlap=overlap)
+        g.then_split(update_y, exclusive_padded_access(uy), smax,
+                     writes=(0,), overlap=overlap)
+    return Executor(g, device, mesh=mesh), u

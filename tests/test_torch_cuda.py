@@ -837,3 +837,113 @@ def test_async_watchdog_on_the_card(dev):
     _bitwise(ex.run(ex.init_state(), 3), want)
     assert ex.cache_stats()["trace_events"] == caps
     clear_executable_cache()
+
+
+# -- a mesh of shards on one card ---------------------------------------------
+
+@pytest.mark.parametrize("layout", [Layout.AOS, Layout.SOA])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 2048), (2046, 1), (1, 130),
+                                   (37, 1), (1, 1)])
+def test_flux_kernel_on_thin_strips(dev, layout, dtype, shape):
+    """The boundary strips of the overlapped lowering: 1-row and
+    1-column interiors (K4's 4-row strips and 32-column warps mostly
+    masked), on the tile a graph node takes for them."""
+    from repro_torch.kernels.stencil.ops import (fitting_block,
+                                                 flux_difference,
+                                                 flux_difference_ref)
+    from repro_torch.physics.euler import EULER_SPEC
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = 1.0 + torch.rand(4, shape[0] + 2, shape[1] + 2, generator=g,
+                         device=dev)
+    rec = RecordArray(u.to(getattr(torch, dtype)), EULER_SPEC,
+                      Layout.SOA).with_layout(layout)
+    got = flux_difference(rec, 0.1, 0.2, block=fitting_block(shape))
+    assert got.layout is layout and got.space == shape
+    _close(got.data, flux_difference_ref(rec, 0.1, 0.2).data,
+           _tol(dtype, f32=1e-4))
+
+
+def _card_mesh(shape, names):
+    from repro_torch.core import make_mesh
+
+    return make_mesh(shape, names, devices=["cuda:0"] * int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("layout", [Layout.AOS, Layout.SOA])
+def test_mesh_flux_on_the_card_is_bitwise_the_unsharded_run(dev, layout,
+                                                            overlap):
+    """Four shards on cuda:0: K4 once per shard a step (sync), or on each
+    shard's interior and its four strips (overlap, the blocks copied on
+    the copy stream), equal to the unsharded K4 run bit for bit."""
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.physics.euler import shock_bubble_init
+
+    mesh = _card_mesh((2, 2), ("gx", "gy"))
+    g, (_, out) = workloads.build_flux_graph(128, 256, layout=layout,
+                                             mesh=mesh, overlap=overlap)
+    g0, _ = workloads.build_flux_graph(128, 256, layout=layout)
+    u0 = shock_bubble_init(128, 256, device=dev)
+    ex, ex0 = Executor(g, mesh=mesh), Executor(g0)
+    want = ex0.read(ex0.run(ex0.init_state(u=u0), 3), out).data
+    flux_difference_cuda.launches = 0
+    got = ex.read(ex.run(ex.init_state(u=u0), 3), out).data
+    assert flux_difference_cuda.launches == 3 * 4 * (5 if overlap else 1)
+    assert torch.equal(got, want)
+    assert not ex.plan.overlap_fallbacks
+
+
+def test_mesh_eikonal_solve_on_the_card_is_bitwise_the_unsharded_one(dev):
+    """K5 once per shard an iteration; shards that are tile multiples
+    freeze the same halo cells as the unsharded solve: same iterations,
+    phi bit for bit."""
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+
+    inp = workloads.eikonal_inputs(256)
+    init = {k: torch.from_numpy(v) for k, v in inp.items()}
+    runs = {}
+    for mesh in (None, _card_mesh((2, 2), ("gx", "gy"))):
+        g, (phi, _), conv = workloads.build_eikonal_graph(
+            256, inner=4, block=(8, 128), mesh=mesh, max_iters=1024)
+        ex = Executor(g, mesh=mesh)
+        eikonal_fim_cuda.launches = 0
+        st = ex(ex.init_state(**init))
+        runs[mesh is None] = (ex.read(st, phi), conv.iterations,
+                              eikonal_fim_cuda.launches)
+    (got, iters, launches), (want, iters0, launches0) = runs[False], \
+        runs[True]
+    assert iters == iters0 > 0
+    assert launches == 4 * iters and launches0 == iters0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("unsplit", [False, True])
+def test_mesh_euler_solver_on_the_card(dev, unsplit):
+    from repro_torch.physics.euler import shock_bubble_init
+
+    u0 = shock_bubble_init(128, 64, device=dev)
+    ex0, u = workloads.build_euler_solver(128, 64, unsplit=unsplit)
+    want = ex0.run(ex0.init_state(u=u0), 5)
+    for mesh, overlap in ((_card_mesh((4,), ("gy",)), False),
+                          (_card_mesh((2, 2), ("gx", "gy")), True)):
+        ex, u = workloads.build_euler_solver(128, 64, mesh=mesh,
+                                             overlap=overlap,
+                                             unsplit=unsplit)
+        got = ex.run(ex.init_state(u=u0), 5)
+        torch.testing.assert_close(ex.read(got, u).data,
+                                   ex0.read(want, u).data, rtol=1e-5,
+                                   atol=1e-6)
+        assert torch.equal(got["smax"], want["smax"])
+
+
+def test_make_mesh_on_the_card(dev):
+    from repro_torch.core import make_mesh
+
+    k = torch.cuda.device_count()
+    assert make_mesh((k,), ("d",)).devices[-1] == torch.device("cuda", k - 1)
+    with pytest.raises(RuntimeError, match="needs"):
+        make_mesh((k + 1,), ("d",))
+    with pytest.raises(RuntimeError, match="does not exist"):
+        make_mesh((1,), ("d",), devices=[f"cuda:{k}"])

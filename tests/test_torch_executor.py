@@ -379,15 +379,19 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
 
 @pytest.mark.parametrize("option", ["mesh", "partition"])
 def test_unported_options_raise_with_their_roadmap_item(option):
-    g, _, _ = workloads.build_particle_graph(1024)
+    """What is left of the mesh refuses with its ROADMAP item: region
+    compile on a mesh ("mesh"), and measured tuning of a partitioned
+    graph on a mesh ("partition")."""
+    mesh = port.make_mesh((4,), ("d",), devices=["cpu"] * 4)
+    t = port.DistTensor("p", (64,), partition=("d",))
+    g = port.Graph(name="part").split(lambda x: x, t)
     kw, item = {}, {"mesh": "item 8", "partition": "item 8"}[option]
     if option == "mesh":
-        kw["mesh"] = object()
+        kw["regions"] = True
     else:
-        t = port.DistTensor("p", (64,), partition=("d",))
-        g = port.Graph(name="part").split(lambda x: x, t)
+        kw["tune"] = "auto"
     with pytest.raises(NotImplementedError, match=item):
-        port.Executor(g, device="cpu", **kw)
+        port.Executor(g, mesh=mesh, **kw)
 
 
 # -- conditional loops (paper §5.3.6) ----------------------------------------

@@ -164,6 +164,8 @@ def test_pad_boundary_only_matches_reference(boundary, n, width):
 
 
 def test_halo_on_partitioned_axis_is_refused():
+    """A halo axis that names a mesh axis needs the shards and their
+    mesh: one tensor alone is refused."""
     x = torch.zeros(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    with pytest.raises(ValueError, match="names a mesh axis"):
         port.exchange_multi(x, [port.HaloAxis(0, 1, "d")])

@@ -599,3 +599,31 @@ def test_time_fn_budget_stops_a_dominated_candidate():
                                               iters=3, warmup=1)
     assert len(calls) == 4 + 1 + 3 and steady >= 0.0
     assert tune_timing.time_fn(lambda: torch.ones(4), iters=1) >= 0.0
+
+
+def test_a_raising_candidate_leaves_no_losers_executables(monkeypatch):
+    """A candidate that raises mid-search still has the losers' region
+    programs dropped: at most the incumbent's entry stays in the
+    process-wide cache (before the fix, 3 plans stayed)."""
+    from repro_torch.core import executor as executor_lib
+
+    port.clear_executable_cache()
+    g = workloads.build_particle_graph(1024, block=None)[0]
+    made = []
+
+    class FourthFails(executor_lib.Executor):
+        def run(self, state, steps):
+            if self not in made:
+                made.append(self)
+            if made.index(self) == 3:
+                raise RuntimeError("candidate 4 fails")
+            return super().run(state, steps)
+
+    caller = executor_lib.Executor
+    monkeypatch.setattr(executor_lib, "Executor", FourthFails)
+    with pytest.raises(RuntimeError, match="candidate 4 fails"):
+        caller(g, device="cpu", regions=True, donate=True, tune="auto",
+               tune_budget={"measure_all": True})
+    assert len(made) == 4
+    assert port.executable_cache_stats()["plans"] <= 1
+    port.clear_executable_cache()
