@@ -49,7 +49,11 @@ result line):
    pair; the kernel route's last-position prefill logits within
    ``LOGIT_TOL`` of the plain route's on the same weights, and a
    deliberately wrong variant outside it;
-3b. region compile — the four graphs of phase 3 at their sizes run with
+3b. outputs in place and region compile — first K1-K5 with ``out=`` at
+   the main path's shapes, float32 and bfloat16, every layout each takes
+   (K4's AoSoA through its ops wrapper): ``out`` apart from the inputs,
+   and for K1-K3 ``out`` the updated input itself, each bit for bit the
+   fresh-output call; then the four graphs of phase 3 at their sizes run with
    ``Executor(g)`` and with ``Executor(g, regions=True)`` under
    ``donate=False`` and ``donate=True`` from the same inputs: the final
    states equal bit for bit in every field (the eikonal solve in the same
@@ -68,12 +72,20 @@ result line):
    each kernel of the graph as kernel nodes as often as the eager step
    launches it (K1 twice, K2 once, K3 twice, K4 once a step, K5 once
    an iteration), read from CUDA's DOT print of each graph, and a replay
-   runs every node of its graph; the launches that the profiler's trace
+   runs every node of its graph; the graphs' memcpy nodes (their bytes,
+   from the same DOT print) are the copies that aliasing and the halo
+   fill force, which ``forced_copies`` states per graph with the reason
+   for each (none for the saxpy probe, the particle step and the flux
+   step; the eikonal body's ``phi_prev <- phi`` and its padded phi's
+   contiguous rows and corners), and ``cache_stats()`` counts no copy
+   back; the launches that the profiler's trace
    of a replayed step holds are printed beside them (the trace drops a
    call's first records at times, so it is no gate); the served
-   requests' prefills launch K6 and K7 as in phase 3.  These counts are
-   checked and not added to the kernels line, whose ``launches`` are
-   phase 3's;
+   requests' prefills launch K6 and K7 as in phase 3, and the captured
+   decode graph copies no layer's cache (its largest memcpy node, and
+   what it copies back a step, are below one layer's cache).  These
+   counts are checked and not added to the kernels line, whose
+   ``launches`` are phase 3's;
 3d. mesh — partitioned tensors on a mesh of four shards on the one card
    (``make_mesh(..., devices=["cuda:0"] * k)``; one card cannot show
    scaling): the flux graph at 4096 x 4096 (SoA float32 shock-bubble,
@@ -91,8 +103,15 @@ result line):
    states within rtol 1e-5, atol 1e-6 of the unsharded run, ``smax``
    equal, the mass drift printed.  Printed, not gated: ms per step of the
    three flux runs, the halo bytes copied per step, the device busy share
-   of one profiled step, the eikonal solve's seconds both ways.  The
-   mesh runs' K4/K5 launches join the kernels line's;
+   of one profiled step, the eikonal solve's seconds both ways.  Then
+   each of these again under ``regions=True`` with ``donate=False`` and
+   ``True``: the state bit for bit the eager mesh run's (the Euler state
+   within rtol 1e-5, atol 1e-6, ``smax`` equal), the same 745 eikonal
+   iterations, one capture per piece (a flux or Euler step, the eikonal
+   body) holding K4 and K5 as kernel nodes as often as the eager step
+   launches them, zero captures in steady state and for a second
+   executor, with ms per step, device ms and busy share printed.  The
+   eager mesh runs' K4/K5 launches join the kernels line's;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -117,6 +136,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -760,6 +780,55 @@ KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", "12saxpy_kernelI"),
                   "flux_difference": ("::flux_kernel<", "11flux_kernelI"),
                   "eikonal_fim": ("::fim_kernel<", "10fim_kernelI")}
 GRAPH_DUMPS = os.path.join("build", "graph-dumps")
+# a memcpy node of CUDA's DOT print (cudaGraphDebugDotFlagsVerbose), with
+# its extent in bytes, and the mangled name of PyTorch's copy kernel (a
+# copy between strided tensors, which is a kernel node, not a memcpy)
+MEMCPY_NODE = re.compile(r"MEMCPY.*?\{Width \| (\d+)\} \| \{Height \| "
+                         r"(\d+)\} \| \{Depth \| (\d+)\}", re.S)
+COPY_KERNEL_SYMBOL = "direct_copy_kernel_cuda"
+
+
+def forced_copies(name: str) -> list:
+    """The memcpy nodes a main-path graph's capture holds once its kernels
+    write their static buffers in place (``out=``), as ``(why, bytes)``:
+    what aliasing and the halo fill force.  The saxpy probe, the particle
+    step and the flux step hold none (the flux step's padded state is
+    nine strided SoA placements and its fills, copy kernels).  An eikonal
+    iteration holds the body's own ``phi_prev <- phi`` (phi's buffer is
+    K5's output, so phi_prev takes a copy of it), the padded phi's
+    contiguous pieces: each row halo made from its edge row and placed,
+    each corner made from its row's end and placed (the column halos and
+    the interior are strided: copy kernels), and the NaN-ignoring max's
+    ``masked_fill``, which clones ``change`` before it fills (ROADMAP 1,
+    "the particle step's NaN-ignoring max"; over the ions' strided ``v``
+    that clone is a copy kernel)."""
+    if name != "eikonal_solve":
+        return []
+    row, cell, grid = 4 * EIK_N, 4, 4 * EIK_N * EIK_N
+    return ([("phi_prev <- phi, the body's own copy", grid),
+             ("res <- max(change): masked_fill's clone of change", grid)]
+            + [("padded phi: a row halo filled from its edge row", row)] * 2
+            + [("padded phi: a corner filled from its row's end", cell)] * 4
+            + [("padded phi: a row halo placed", row)] * 2
+            + [("padded phi: a corner placed", cell)] * 4)
+
+
+def forced_summary(name: str) -> str:
+    """The forced copies of a graph, counted by reason."""
+    seen: dict = {}
+    for why, nbytes in forced_copies(name):
+        seen.setdefault(f"{why} ({nbytes} B)", 0)
+        seen[f"{why} ({nbytes} B)"] += 1
+    return "; ".join(f"{n} x {w}" for w, n in seen.items()) or "none"
+
+
+def check_memcpys(what: str, got: list, want: list) -> None:
+    """The graphs' memcpy nodes are the forced copies, byte for byte."""
+    if sorted(got) != sorted(b for _, b in want):
+        raise AssertionError(
+            f"{what}: memcpy nodes of {sorted(got)} bytes, the copies that "
+            f"aliasing and the halo fill force are "
+            f"{sorted(b for _, b in want)} ({[w for w, _ in want]})")
 
 
 def check_counts(what: str, counts: dict, want: dict) -> None:
@@ -814,7 +883,11 @@ class GraphNodes:
         self.made.clear()
 
     def read(self) -> tuple[int, dict]:
+        """``(graphs, kernel nodes by kernel)``; the memcpy nodes (bytes
+        each) and the copy-kernel nodes of the same graphs are left in
+        ``memcpys`` and ``copy_kernels``."""
         counts = {k: 0 for k in KERNEL_SYMBOLS}
+        self.memcpys, self.copy_kernels = [], 0
         n = len(self.made)
         for i, graph in enumerate(self.made):
             path = os.path.join(GRAPH_DUMPS, f"graph{i}.dot")
@@ -823,8 +896,102 @@ class GraphNodes:
                 text = f.read()
             for k, (_, sym) in KERNEL_SYMBOLS.items():
                 counts[k] += text.count(sym)
+            self.memcpys += [int(w) * int(h) * int(d)
+                             for w, h, d in MEMCPY_NODE.findall(text)]
+            self.copy_kernels += text.count(COPY_KERNEL_SYMBOL)
+            os.remove(path)
         self.made.clear()
         return n, counts
+
+
+def out_checks(card: str, eik_mid, mask) -> None:
+    """K1-K5 writing ``out=`` at the main path's shapes, float32 and
+    bfloat16, every layout each takes: ``out`` apart from the inputs, and
+    for K1-K3 ``out`` the updated input itself (their CUDA pointers carry
+    no ``__restrict__``), each bit for bit the fresh-output call.  These
+    launches compare kernels and join no count."""
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import Boundary, Layout, RecordArray, \
+        pad_boundary_only
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.particle.kernel import particle_update_cuda
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.kernel import (saxpy_cuda,
+                                                  saxpy_record_cuda)
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.kernels.stencil.ops import flux_difference
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    checked = []
+
+    def same(what, got, want):
+        if not bits_equal(got, want):
+            raise AssertionError(f"out= {what}: differs from the "
+                                 f"fresh-output call")
+        checked.append(what)
+
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        x = torch.randn(SAXPY_N, generator=gen, device=dev).to(dt)
+        y = torch.randn(SAXPY_N, generator=gen, device=dev).to(dt)
+        for bc in (True, False):
+            want = saxpy_cuda(SAXPY_A, x, y, bounds_check=bc)
+            apart = torch.empty_like(y)
+            saxpy_cuda(SAXPY_A, x, y, bounds_check=bc, out=apart)
+            same(f"K1 {dname} bc={bc} apart", apart, want)
+            inplace = y.clone()
+            saxpy_cuda(SAXPY_A, x, inplace, bounds_check=bc, out=inplace)
+            same(f"K1 {dname} bc={bc} in place", inplace, want)
+        del x, y, want, apart, inplace
+        for lay in Layout:
+            for k, fn, spec, c in (
+                    ("K2", saxpy_record_cuda, SAXPY_SPEC, 2),
+                    ("K3", particle_update_cuda, PARTICLE_SPEC, 6)):
+                rec = RecordArray(torch.randn(c, PARTICLE_N, generator=gen,
+                                              device=dev).to(dt), spec,
+                                  Layout.SOA).with_layout(lay)
+                want = fn(rec, workloads.DT).data
+                apart = RecordArray(torch.empty_like(rec.data), spec, lay)
+                fn(rec, workloads.DT, out=apart)
+                same(f"{k} {dname} {lay.name} apart", apart.data, want)
+                fn(rec, workloads.DT, out=rec)
+                same(f"{k} {dname} {lay.name} in place", rec.data, want)
+                del rec, want, apart
+        u = shock_bubble_init(FLUX_N, FLUX_N, device=dev).to(dt)
+        for ax in (1, 2):
+            u = pad_boundary_only(u, axis=ax, width=1,
+                                  boundary=Boundary.TRANSMISSIVE)
+        for lay in Layout:   # AoSoA through the ops wrapper's relayout
+            rec = RecordArray(u, EULER_SPEC, Layout.SOA).with_layout(lay)
+            if lay is Layout.AOSOA:
+                want = flux_difference(rec, *FLUX_PARITY_LAM).data
+                apart = RecordArray(torch.empty_like(want), EULER_SPEC, lay)
+                flux_difference(rec, *FLUX_PARITY_LAM, out=apart)
+            else:
+                want = flux_difference_cuda(rec, *FLUX_PARITY_LAM).data
+                apart = RecordArray(torch.empty_like(want), EULER_SPEC, lay)
+                flux_difference_cuda(rec, *FLUX_PARITY_LAM, out=apart)
+            same(f"K4 {dname} {lay.name} apart", apart.data, want)
+            del rec, want, apart
+        del u
+        phi = eik_mid.to(dt)
+        want = eikonal_fim_cuda(phi, mask, 1 / EIK_N, inner=EIK_INNER,
+                                block=EIK_BLOCK)
+        apart = torch.empty_like(want)
+        eikonal_fim_cuda(phi, mask, 1 / EIK_N, inner=EIK_INNER,
+                         block=EIK_BLOCK, out=apart)
+        same(f"K5 {dname} apart", apart, want)
+        del phi, want, apart
+        torch.cuda.empty_cache()
+    log(f"out= on the card: {len(checked)} calls bit for bit the "
+        f"fresh-output ones (K1 BC/NBC, K2 and K3 every layout, apart and "
+        f"in place; K4 AoS/SoA/AoSoA and K5 apart; float32 and bfloat16 "
+        f"at the main path's shapes) ({card})")
 
 
 def regions_graph(name: str, seed: int):
@@ -976,6 +1143,17 @@ def regions_phase(card: str, zero_counts, counts_now) -> dict:
                          {k: 2 * c for k, c in per_step.items()})
             check_counts(f"regions {name} {tag} kernel nodes of the "
                          f"{n_graphs} captured graphs", in_graphs, per_step)
+            # the kernels write their keys' static buffers: the graphs'
+            # memcpy nodes are the forced copies, and no piece copies an
+            # output back at its end
+            check_memcpys(f"regions {name} {tag}", nodes.memcpys,
+                          forced_copies(name))
+            memcpys, copy_kernels = nodes.memcpys, nodes.copy_kernels
+            copy_back = ex.cache_stats()
+            if copy_back["copy_backs"] or copy_back["copy_back_bytes"]:
+                raise AssertionError(
+                    f"regions {name} {tag}: {copy_back['copy_backs']} "
+                    f"copies back of {copy_back['copy_back_bytes']} bytes")
             zero_counts()
             captures = ex.cache_stats()["trace_events"]
             check_bits(f"regions {name} {tag}", got, want0)
@@ -1018,7 +1196,10 @@ def regions_phase(card: str, zero_counts, counts_now) -> dict:
                 f"state, {second_caps} for a second executor; wrapper "
                 f"calls {json.dumps(build_calls)} at the first call, 0 "
                 f"after; kernel nodes {json.dumps(in_graphs)} in its "
-                f"{n_graphs} graphs; ms per "
+                f"{n_graphs} graphs, memcpy nodes {len(memcpys)} of "
+                f"{sum(memcpys)} bytes (the forced copies: "
+                f"{forced_summary(name)}), "
+                f"{copy_kernels} copy kernels, 0 copies back; ms per "
                 f"{unit} (median): eager {eager_ms:.3f}, regions "
                 f"{steady_ms:.3f} (first run {first_ms:.3f}); one "
                 f"run(state, steps): eager {eager_whole:.3f}, regions "
@@ -1078,10 +1259,34 @@ def serve_regions(arch: str, card: str, zero_counts, counts_now) -> dict:
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
-        batcher.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with GraphNodes() as nodes:
+            batcher.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_graphs, _ = nodes.read()
         counts = counts_now()
+        if mode == "regions":
+            # each layer's cache is written in place (its token's k/v, its
+            # SSD state): no copy in the captured graph, and no copy back
+            # at its end, comes near one layer's cache
+            layer = min(sum(batcher.state[t.name].numel()
+                            * batcher.state[t.name].element_size()
+                            for t in slot.tensors)
+                        for slot in batcher.dg.slots)
+            back = batcher.cache_stats()["decode"]
+            biggest = max(nodes.memcpys, default=0)
+            if n_graphs != 1 or biggest >= layer \
+                    or back["copy_back_bytes"] >= layer:
+                raise AssertionError(
+                    f"regions serve {arch}: {n_graphs} graphs, largest "
+                    f"memcpy {biggest} B, {back['copy_back_bytes']} B "
+                    f"copied back a step, one layer's cache {layer} B")
+            log(f"regions serve {arch}: the decode graph holds "
+                f"{len(nodes.memcpys)} memcpy nodes of {sum(nodes.memcpys)} "
+                f"bytes (largest {biggest}) and {nodes.copy_kernels} copy "
+                f"kernels; {back['copy_backs']} copies back of "
+                f"{back['copy_back_bytes']} bytes a step; one layer's cache "
+                f"{layer} bytes: no cache is copied")
         check_counts(f"regions serve {arch} {mode}", counts, expect)
         harvests = sorted({t for r in reqs for t in r.token_times[1:]})
         step_ms = statistics.median(
@@ -1390,6 +1595,159 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
 
 
 
+def mesh_regions(what: str, make_ex, init: dict, steps: int, read_out,
+                 check, kernels: dict, card: str, zero_counts,
+                 counts_now) -> dict:
+    """Phase 3d under ``regions=True``, both ``donate``s: ``make_ex(donate)``
+    builds the executor; its first step is one capture holding
+    ``kernels`` as kernel nodes (the wrappers called twice each at the
+    build, never after); ``steps`` steps in all end at ``check``'s
+    state (against the eager mesh run); one step more is profiled; steady
+    state and a second executor over an equal graph (the first's kept
+    alive, which keeps its cache entry) make no capture, and the second's
+    first step equals the first's bit for bit.  Returns ms per step and
+    device ms by ``donate``."""
+    import torch
+
+    from repro_torch.core import (clear_executable_cache,
+                                  executable_cache_stats)
+
+    rows = {}
+    for donate in (False, True):
+        tag = f"{what} regions donate={donate}"
+        ex = make_ex(donate)
+        zero_counts()
+        with GraphNodes() as nodes:
+            state = ex.run(ex.init_state(**init), 1)
+            n_graphs, in_graphs = nodes.read()
+        caps = ex.cache_stats()["trace_events"]
+        if n_graphs != 1 or caps != 1:
+            raise AssertionError(f"{tag}: {n_graphs} graphs, {caps} "
+                                 f"captures at the first step, expected 1")
+        check_counts(f"{tag} kernel nodes", in_graphs, kernels)
+        check_counts(f"{tag} wrapper calls at the build", counts_now(),
+                     {k: 2 * n for k, n in kernels.items()})
+        first = {k: v.clone() for k, v in read_out(ex, state).items()}
+        zero_counts()
+        state, ms = run_steps(ex, state, steps - 1)
+        note = check(read_out(ex, state))
+        by_kernel = device_time_by_kernel(lambda: ex.run(state, 1),
+                                          warmup=1)
+        busy = sum(us for us, _ in by_kernel.values()) / 1e3
+        check_counts(f"{tag} wrapper calls after the build", counts_now(),
+                     {})
+        steady = ex.cache_stats()["trace_events"] - caps
+        memcpys, copies = len(nodes.memcpys), nodes.copy_kernels
+        # the entry lives while a graph it was built from lives: a
+        # second executor over an equal graph reuses it
+        graph = ex.graph
+        del ex, state
+        before = executable_cache_stats()["trace_events"]
+        second = make_ex(donate)
+        got = read_out(second, second.run(second.init_state(**init), 1))
+        for k, v in first.items():
+            if not bits_equal(got[k], v):
+                raise AssertionError(f"{tag}: the second executor's {k} "
+                                     f"differs from the first's")
+        second_caps = executable_cache_stats()["trace_events"] - before
+        if steady or second_caps:
+            raise AssertionError(f"{tag}: {steady} captures in steady "
+                                 f"state, {second_caps} for a second "
+                                 f"executor")
+        del second, got, first, graph
+        clear_executable_cache()
+        torch.cuda.empty_cache()
+        log(f"{tag}: {note}; one capture, kernel nodes "
+            f"{json.dumps(in_graphs)}, {memcpys} memcpy nodes and {copies} "
+            f"copy kernels in the graph; 0 captures in steady state and for "
+            f"a second executor; {ms:.3f} ms per step (median of "
+            f"{steps - 1}), device {busy:.4f} ms in a step, busy "
+            f"{100 * busy / ms:.1f} % ({card})")
+        rows[donate] = {"ms": ms, "busy_ms": busy}
+    return rows
+
+
+def eikonal_mesh_regions(card: str, mesh, eik: dict, want, iters: int,
+                         zero_counts, counts_now) -> dict:
+    """The eikonal solve on ``mesh`` under ``regions=True``, both
+    ``donate``s: the loop body is one capture holding K5 once per shard;
+    the solve takes ``iters`` iterations and ends at the eager mesh run's
+    phi (``want``) bit for bit; a second solve and a second executor over
+    the same graph capture nothing.  Returns solve seconds and device ms
+    by ``donate``."""
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import (Executor, clear_executable_cache,
+                                  executable_cache_stats)
+
+    rows = {}
+    for donate in (False, True):
+        tag = f"mesh eikonal regions donate={donate}"
+        g, (phi_t, _), conv = workloads.build_eikonal_graph(
+            EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
+            mesh=mesh)
+        ex = Executor(g, mesh=mesh, regions=True, donate=donate)
+
+        def solve(e):
+            state = e.init_state(**eik)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = e(state)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if conv.iterations != iters:
+                raise AssertionError(f"{tag}: {conv.iterations} "
+                                     f"iterations, {iters} eagerly")
+            if not bits_equal(e.read(state, phi_t), want):
+                raise AssertionError(f"{tag}: phi differs from the eager "
+                                     f"mesh solve's")
+            return secs
+
+        zero_counts()
+        with GraphNodes() as nodes:
+            solve(ex)
+            n_graphs, in_graphs = nodes.read()
+        caps = ex.cache_stats()["trace_events"]
+        if n_graphs != 1 or caps != 1:
+            raise AssertionError(f"{tag}: {n_graphs} graphs, {caps} "
+                                 f"captures, expected the loop body's 1")
+        per_iter = {"eikonal_fim": mesh.size}
+        check_counts(f"{tag} kernel nodes", in_graphs, per_iter)
+        check_counts(f"{tag} wrapper calls at the build", counts_now(),
+                     {k: 2 * n for k, n in per_iter.items()})
+        zero_counts()
+        secs = solve(ex)
+        by_kernel = device_time_by_kernel(lambda: ex(ex.init_state(**eik)))
+        busy = sum(us for us, _ in by_kernel.values()) / 1e3
+        check_counts(f"{tag} wrapper calls after the build", counts_now(),
+                     {})
+        steady = ex.cache_stats()["trace_events"] - caps
+        memcpys, copies = len(nodes.memcpys), nodes.copy_kernels
+        del ex
+        before = executable_cache_stats()["trace_events"]
+        second = Executor(g, mesh=mesh, regions=True, donate=donate)
+        solve(second)
+        second_caps = executable_cache_stats()["trace_events"] - before
+        if steady or second_caps:
+            raise AssertionError(f"{tag}: {steady} captures in steady "
+                                 f"state, {second_caps} for a second "
+                                 f"executor")
+        del second, g
+        clear_executable_cache()
+        torch.cuda.empty_cache()
+        log(f"{tag}: {iters} iterations, phi bit for bit the eager mesh "
+            f"solve's; one capture (the body: kernel nodes "
+            f"{json.dumps(in_graphs)}, {memcpys} memcpy nodes, {copies} "
+            f"copy kernels); 0 captures in steady state and for a second "
+            f"executor; solve {secs:.3f} s ({1e3 * secs / iters:.3f} ms per "
+            f"iteration), device {busy:.3f} ms in all "
+            f"({busy / iters:.4f} per iteration), busy "
+            f"{100 * busy / (1e3 * secs):.1f} % ({card})")
+        rows[donate] = {"s": secs, "busy_ms": busy}
+    return rows
+
+
 def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
     """Phase 3d: the flux graph, the eikonal solve and the Euler solver on
     a mesh of shards on cuda:0, against their unsharded runs.  Returns the
@@ -1465,7 +1823,21 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
         for name, (us, count) in top:
             log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
-        del ex, state, g
+        del ex, state
+
+        def flux_check(got, _du=du):
+            if not bits_equal(got["du"], _du):
+                raise AssertionError("du differs from the eager mesh run's")
+            return "du bit for bit the eager run's"
+
+        flux[tag]["regions"] = mesh_regions(
+            f"mesh flux {tag}",
+            lambda donate, _g=g, _m=mesh: Executor(
+                _g, mesh=_m, regions=True, donate=donate),
+            {"u": u0}, FLUX_STEPS,
+            lambda e, st, _t=f_t: {"du": e.read(st, _t).data}, flux_check,
+            {"flux_difference": per_step}, card, zero_counts, counts_now)
+        del g
     want = flux["unsharded"]["du"]
     for tag in ("mesh sync", "mesh overlap"):
         got = flux[tag]["du"]
@@ -1519,7 +1891,10 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
         log("mesh eikonal: phi bit for bit the unsharded solve's, "
             f"{iters} iterations both")
     out["eikonal"] = {"iterations": iters, "mesh_s": secs,
-                      "unsharded_s": secs0}
+                      "unsharded_s": secs0,
+                      "regions": eikonal_mesh_regions(
+                          card, mesh22, eik, phi, iters, zero_counts,
+                          counts_now)}
     del eik_runs, phi, phi0
     torch.cuda.empty_cache()
 
@@ -1552,6 +1927,33 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
                 f"{float(state['mass']):.6f}) ({card})")
             del ex, state
         U_ref, smax_ref, mass_ref, _ = runs["unsharded"]
+        kind = "unsplit" if unsplit else "split"
+        out["euler"][f"{kind} regions"] = {}
+        for tag, mesh, overlap in (("(4,) gy", mesh4, False),
+                                   ("(2, 2) overlap", mesh22, True)):
+            U, smax = runs[tag][0], runs[tag][1]
+
+            def euler_check(got, _U=U, _smax=smax, _tag=tag):
+                err = max_err(got["u"], _U, 1e-6,
+                              f"euler {_tag} regions vs eager", rtol=1e-5)
+                if not bits_equal(got["smax"], _smax):
+                    raise AssertionError(f"euler {_tag} regions: smax "
+                                         f"{float(got['smax'])} against "
+                                         f"{float(_smax)}")
+                same = ("bit for bit" if bits_equal(got["u"], _U)
+                        else f"max |diff| {err:.3e}")
+                return f"u {same} against the eager mesh run's, smax equal"
+
+            out["euler"][f"{kind} regions"][tag] = mesh_regions(
+                f"euler {kind} {tag}",
+                lambda donate, _m=mesh, _o=overlap: workloads
+                .build_euler_solver(EULER_NX, EULER_NY, mesh=_m,
+                                    overlap=_o, unsplit=unsplit,
+                                    regions=True, donate=donate)[0],
+                {"u": U0}, EULER_STEPS,
+                lambda e, st: {"u": e.read(st, e.tensors["u"]).data,
+                               "smax": st["smax"]},
+                euler_check, {}, card, zero_counts, counts_now)
         for tag in ("(4,) gy", "(2, 2) overlap"):
             U, smax, mass, ms = runs[tag]
             err = max_err(U, U_ref, 1e-6, f"euler {tag} vs unsharded",
@@ -2086,7 +2488,9 @@ def main() -> int:
                                      f"expected {expect[path].get(k, 0)}")
             launches[k] += n
 
-    # -- 3b. region compile: the same graphs and serving, regions=True ------
+    # -- 3b. outputs in place, and region compile: the same graphs and
+    # serving, regions=True ----------------------------------------------
+    out_checks(card, eik_mid, eik["mask"])
     reg = regions_phase(card, zero_counts, counts_now)
     lm_reg = {arch: serve_regions(arch, card, zero_counts, counts_now)
               for arch in ("qwen3-8b", "mamba2-130m")}
@@ -2291,13 +2695,25 @@ def main() -> int:
     log(f"async particle_step_diagnostic: ms per step "
         f"{json.dumps({k: round(v, 4) for k, v in asy['times'].items()})}, "
         f"sync/async with the host time {asy['gain']:.2f}x ({card})")
+    def by_donate(rows, key):
+        return {d: round(v[key], 4) for d, v in rows.items()}
+
+    flux_r = {k: by_donate(r["regions"], "ms")
+              for k, r in msh["flux"].items()}
+    euler_r = {k: {t: by_donate(r, "ms") for t, r in e.items()}
+               for k, e in msh["euler"].items() if "regions" in k}
+    euler_e = {k: e for k, e in msh["euler"].items() if "regions" not in k}
+    log(f"mesh regions (ms per step; eikonal s; by donate): flux "
+        f"{json.dumps(flux_r)}, eikonal "
+        f"{json.dumps(by_donate(msh['eikonal']['regions'], 's'))}, euler "
+        f"{json.dumps(euler_r)} ({card})")
     log(f"mesh flux ms per step: "
         f"{json.dumps({k: round(r['ms'], 4) for k, r in msh['flux'].items()})}"
         f", halo bytes a step "
         f"{json.dumps({k: r['copied'] for k, r in msh['flux'].items()})}; "
         f"eikonal solve s: mesh {msh['eikonal']['mesh_s']:.3f}, unsharded "
         f"{msh['eikonal']['unsharded_s']:.3f}; euler ms per step "
-        f"{json.dumps(msh['euler'])} ({card})")
+        f"{json.dumps(euler_e)} ({card})")
     for arch, runs in lm_reg.items():
         log(f"regions serve {arch}: tokens/s eager "
             f"{runs['eager']['tok_s']:.1f}, regions "

@@ -40,16 +40,34 @@ outside capture; this is that call's result), then captures them into a
 runs its segments through the same code and the same buffers, without
 capture.  Either way:
 
-* each graph reads from, and writes back into, **static buffers** (one
-  per state key, storage shape and dtype) that belong to the
-  executable-cache entry, shared by every piece of the plan, so that
-  pieces chain without copies.  A state value that is not its buffer is
-  copied in before the first piece that reads it;
-* node functions return new tensors, so each written key is copied from
-  its output into its buffer at the end of the graph.  The copies are
-  ordered by their aliasing: an output that IS another key's buffer (the
-  eikonal body's ``phi_prev <- phi``) is copied before that buffer is
-  written, and a cycle is broken through a temporary;
+* each graph reads from, and writes into, **static buffers** (one per
+  state key, storage shape and dtype; a partitioned key has one per
+  shard, on the shard's device) that belong to the executable-cache
+  entry, shared by every piece of the plan, so that pieces chain without
+  copies.  A state value that is not its buffer is copied in before the
+  first piece that reads it;
+* **outputs in place** (the reference's donation aliasing): a node whose
+  function takes ``out=`` gets, as ``out``, the static buffer of each key
+  it writes (a record wrapped in the segment's layout; a tuple for
+  several keys, None where refused), and K1-K5's wrappers, the KV cache
+  writes and the reducers' max/min write there, when (i) no other node of
+  its level reads a value that lies in the buffer (a level runs against
+  one snapshot), (ii) where the node itself reads the buffer (its own
+  arg of the key, not through a padded copy), its function is marked
+  :func:`~repro_torch.core.graph.in_place` (K1-K3 and the KV writes read
+  each element before they write it) and no other arg of it lies there,
+  and (iii) no other key's value lies in the buffer (a value a later
+  node, piece, host callback or the caller still reads).  On a mesh the
+  per-shard programs write their shard's buffer; the overlapped lowering
+  stitches its interior and strip outputs into it;
+* every other output is a new tensor, copied into its key's buffer at the
+  end of the graph (``cache_stats()``'s ``copy_backs`` and
+  ``copy_back_bytes``): the copies aliasing forces.  They are ordered by
+  their aliasing: an output that IS another key's buffer is copied before
+  that buffer is written, and a cycle is broken through a temporary.  The
+  main path's graphs copy nothing back; the eikonal body's first node
+  copies ``phi`` into ``phi_prev``'s buffer itself, so that the sweep
+  writes ``phi``'s buffer;
 * **donation**: with ``donate=False`` the caller's tensors are never
   modified and a returned tensor is never overwritten later — a call
   copies in what its graphs read and clones out what they wrote, once a
@@ -98,9 +116,9 @@ decision with zero measurements.
 issued without waiting for the card, and each non-barrier host region's
 callback is queued for a process-wide pool of 4 ``ripple-host`` threads,
 where one task at a time runs a call's queue in program order: a
-callback waits for a CUDA event recorded after its arguments on the
-dispatching stream (never for the whole device), then runs on a side
-stream of its thread.
+callback runs on a side stream of its thread, which waits, on the card,
+for a CUDA event recorded after its arguments on the dispatching stream
+(never for the whole device).
 Every argument that lies in a static buffer is cloned on the dispatching
 stream at submit time, whatever ``donate`` says: the next replay
 overwrites the buffer while the callback may still read.  A barrier host
@@ -148,9 +166,16 @@ split node over partitioned halos takes the interior/boundary lowering
 (paper Fig. 7): every block's copy starts up front, on the CUDA mesh on
 a copy stream of its shard's device; the interior program runs on the
 compute stream meanwhile, then one boundary program per (axis, side)
-waits for the copies and the outputs are stitched.  Not on a mesh yet,
-each raising ``NotImplementedError`` that names ROADMAP item 8:
-``regions=True`` and ``tune`` other than ``"off"``.
+waits for the copies and the outputs are stitched.  Under
+``regions=True`` on a mesh whose shards share one device (one card, as
+``make_mesh(..., devices=["cuda:0"] * 4)``, or the CPU) a piece is one
+graph holding every shard's programs and the halo block copies; in the
+overlapped lowering the copy stream forks from the capture stream and
+joins it through events, so the block copies are branches of the graph
+beside the interior programs (blocks are allocated during capture, from
+the entry's pool).  Not on a mesh yet, each raising
+``NotImplementedError`` that names ROADMAP item 8: ``regions=True`` over
+several cards (3(c)) and ``tune`` other than ``"off"`` (3(b)).
 
 The defaults stay ``regions=False`` and ``donate=False`` (the reference's
 are True); flipping them is a ROADMAP item of its own.
@@ -165,6 +190,7 @@ from __future__ import annotations
 import enum as enum_lib
 import functools
 import hashlib
+import inspect
 import math
 import sys
 import threading
@@ -202,8 +228,9 @@ __all__ = ["Executor", "execute", "DegradationEvent", "ExecutableCacheEntry",
            "executable_cache_stats", "layout_candidates", "plan_signature",
            "solve_layouts"]
 
-_ITEM_MESH = ("ROADMAP item 8 (what is left of the mesh: region compile "
-              "and measured tuning over a mesh)")
+_ITEM_TUNE_MESH = "ROADMAP item 8, 3(b) (measured tuning over a mesh)"
+_ITEM_CARDS = ("ROADMAP item 8, 3(c) (multi-card runs: region compile "
+               "over the shards of several cards)")
 
 
 @dataclass
@@ -376,13 +403,16 @@ class _AsyncRun:
     time runs the queue in order (program order of side effects), so
     consecutive callbacks run on one thread without a hand-off between
     threads; it is submitted when a callback is queued and none runs, and
-    ends when the queue is empty.  A callback waits, on the card, for a
-    CUDA event recorded after its arguments' snapshots on the dispatching
-    stream (its only data dependency: never ``torch.cuda.synchronize``,
-    which would wait for every step dispatched behind it), then runs under
-    the device on its thread's side stream.  After a failure the callbacks
+    ends when the queue is empty.  A callback runs with its thread's side
+    stream current (and so its device), after that stream was made to
+    wait, on the card, for a CUDA event recorded after its arguments'
+    snapshots on the dispatching stream (its only data dependency: never
+    ``torch.cuda.synchronize``, which would wait for every step dispatched
+    behind it); the host does not wait for the event, so the callback's
+    first device read does.  After a failure the callbacks
     queued behind it are cancelled.  ``max_inflight`` bounds the
-    pipeline's depth.
+    pipeline's depth; a dispatcher at the cap waits until half of it has
+    drained.
 
     ``host_timeout`` (seconds, None: no watchdog) bounds every wait on a
     callback — the in-flight cap, a drain: past it the wait raises
@@ -413,7 +443,12 @@ class _AsyncRun:
         self.check()
         _fault_trip("executor.dispatch", detail=f"region{region_index}")
         if len(self.tasks) >= self.max_inflight:
-            self._wait_oldest()
+            # at the cap, wait for half the pipeline: the dispatcher then
+            # issues steps in bursts while the callbacks run alone, not one
+            # step per finished callback, which starts exactly when the
+            # next callback starts and takes the interpreter lock from it
+            while len(self.tasks) > self.max_inflight // 2:
+                self._wait_oldest()
         storages = self._storages()
         snapped = []
         for v in vals:
@@ -451,8 +486,6 @@ class _AsyncRun:
         try:
             if self._failed or self._cancelled.is_set():
                 raise _HostTaskCancelled()
-            if event is not None:
-                event.synchronize()
             _fault_trip("executor.host", detail=f"region{region_index}")
             if self._cancelled.is_set():   # the watchdog gave up meanwhile
                 raise _HostTaskCancelled()
@@ -467,9 +500,12 @@ class _AsyncRun:
                         # the allocator must not reuse the block before
                         # the side stream's reads of it are done
                         data.record_stream(side)
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(side):
-                    fn(*vals)
+                if getattr(_POOL_THREAD, "current", None) is not side:
+                    # a pool thread keeps its side stream (and so its
+                    # device) current from one callback to the next
+                    torch.cuda.set_stream(side)
+                    _POOL_THREAD.current = side
+                fn(*vals)
         except BaseException as exc:
             if not isinstance(exc, _HostTaskCancelled):
                 self._failed = True
@@ -1117,8 +1153,10 @@ class ExecutableCacheEntry:
     them.
 
     ``buffers`` holds the static buffers, one per (state key, storage
-    shape, dtype); ``owners`` and ``storages`` give each buffer's key by
-    its ``id`` and by its storage; ``pool`` is the memory pool the
+    shape, dtype, mesh coordinate of a partitioned key), ``shard_sets``
+    a partitioned key's buffers as one ShardedArray; ``owners`` and
+    ``storages`` give each buffer's key by its ``id`` (a ShardedArray's
+    too) and by its storage; ``pool`` is the memory pool the
     entry's graphs share (a graph's intermediates are dead outside its
     replay, and replays never overlap).  ``graphs`` are weak references
     to the graphs whose closures the programs read (a large tensor is
@@ -1135,6 +1173,7 @@ class ExecutableCacheEntry:
     hits: int = 0
     trace_events: int = 0
     buffers: dict = dfield(default_factory=dict)
+    shard_sets: dict = dfield(default_factory=dict)
     owners: dict = dfield(default_factory=dict)
     storages: dict = dfield(default_factory=dict)
     pool: Any = None
@@ -1143,16 +1182,43 @@ class ExecutableCacheEntry:
     users: int = 0
     lock: Any = dfield(default_factory=threading.RLock)
 
-    def buffer(self, name: str, like: torch.Tensor) -> torch.Tensor:
-        """The static buffer of ``name`` in ``like``'s storage shape and
-        dtype, allocated on first use."""
-        key = (name, tuple(like.shape), like.dtype)
+    def buffer(self, name: str, shape, dtype: torch.dtype,
+               device: torch.device, shard: Optional[int] = None
+               ) -> torch.Tensor:
+        """The static buffer of ``name`` (of mesh coordinate ``shard`` for
+        a partitioned key) in a storage ``shape`` and ``dtype``, allocated
+        on ``device`` on first use."""
+        key = (name, tuple(shape), dtype, shard)
         buf = self.buffers.get(key)
         if buf is None:
-            buf = self.buffers[key] = torch.empty(
-                like.shape, dtype=like.dtype, device=like.device)
+            buf = self.buffers[key] = torch.empty(shape, dtype=dtype,
+                                                  device=device)
             self.owners[id(buf)] = self.storages[_storage(buf)] = name
         return buf
+
+    def sharded(self, name: str, placement: Placement, shape,
+                dtype: torch.dtype) -> ShardedArray:
+        """The static buffers of a partitioned key, one per shard on its
+        device, as one :class:`ShardedArray` (the same object every
+        time, so that a state that holds it skips the copy-in)."""
+        key = (name, placement.spec, tuple(shape), dtype)
+        sa = self.shard_sets.get(key)
+        if sa is None:
+            mesh = placement.mesh
+            each = placement.shard_shape(shape)
+            sa = self.shard_sets[key] = ShardedArray(
+                [self.buffer(name, each, dtype, dev, shard=c)
+                 for c, dev in enumerate(mesh.devices)], placement, shape)
+            self.owners[id(sa)] = name
+        return sa
+
+    def like(self, name: str, value):
+        """The static buffer(s) of ``name`` shaped as ``value``: a tensor,
+        or a ShardedArray of one buffer per shard."""
+        if isinstance(value, ShardedArray):
+            return self.sharded(name, value.placement, value.shape,
+                                value.dtype)
+        return self.buffer(name, value.shape, value.dtype, value.device)
 
     def pin(self, graph: Graph) -> None:
         """Keep ``graph`` alive while the entry has users, and drop the
@@ -1252,25 +1318,79 @@ def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
-def _copy_back(outs: dict, dsts: dict) -> None:
+def _tensors(v) -> tuple:
+    """The tensors of a state value: a tensor, a ShardedArray's shards."""
+    if isinstance(v, ShardedArray):
+        return v.shards
+    return (v,) if isinstance(v, torch.Tensor) else ()
+
+
+def _storages(v) -> set:
+    return {_storage(t) for t in _tensors(v)}
+
+
+def _clone(v):
+    if isinstance(v, ShardedArray):
+        return v.map(torch.clone, v.placement, v.shape)
+    return v.clone()
+
+
+def _is_buffer(v, buf) -> bool:
+    """``v`` is ``buf`` (for a ShardedArray: shard for shard)."""
+    if v is buf:
+        return True
+    if isinstance(v, ShardedArray) and isinstance(buf, ShardedArray):
+        return len(v.shards) == len(buf.shards) and all(
+            a is b for a, b in zip(v.shards, buf.shards))
+    return False
+
+
+def _flat(values: dict) -> dict:
+    """A ShardedArray value as one entry per shard, keyed ``(key, c)``."""
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, ShardedArray):
+            for c, t in enumerate(v.shards):
+                out[(k, c)] = t
+        else:
+            out[k] = v
+    return out
+
+
+def _copy_back(outs: dict, dsts: dict) -> tuple[int, int]:
     """Copy each key's value into its static buffer (a piece's outputs
-    after its segments, its inputs before them), reading every value
-    before any buffer that it aliases is written: a value that lies in
-    another key's buffer is copied first, one that is a view of its own
-    buffer, or that closes a cycle, goes through a temporary."""
+    that were not written in place, after its segments; its inputs
+    before them), reading every value before any buffer that it aliases
+    is written: a value that lies in another key's buffer is copied
+    first, one that is a view of its own buffer, or that closes a cycle,
+    goes through a temporary.  A partitioned key copies shard by shard.
+    Returns the copies made (temporaries included) and their bytes."""
+    outs, dsts = _flat(outs), _flat(dsts)
     owner = {_storage(b): k for k, b in dsts.items()}
+    copies = nbytes = 0
+
+    def clone(t):
+        nonlocal copies, nbytes
+        copies += 1
+        nbytes += t.numel() * t.element_size()
+        return t.clone()
+
     todo = {}
     for k, src in outs.items():
-        todo[k] = src.clone() if owner.get(_storage(src)) == k else src
+        todo[k] = clone(src) if owner.get(_storage(src)) == k else src
     while todo:
         blocked = {owner.get(_storage(src)) for k, src in todo.items()}
         ready = [k for k in todo if k not in blocked]
         if not ready:
             k = next(iter(todo))
-            todo[k] = todo[k].clone()
+            todo[k] = clone(todo[k])
             continue
         for k in ready:
-            dsts[k].copy_(todo.pop(k))
+            src = todo.pop(k)
+            dsts[k].copy_(src)
+            copies += 1
+            nbytes += src.numel() * src.element_size()
+    return copies, nbytes
 
 
 def _segment_reads(nodes) -> set:
@@ -1286,13 +1406,39 @@ def _segment_reads(nodes) -> set:
     return reads
 
 
+def _takes_out(fn) -> bool:
+    """True when ``fn`` takes an ``out=`` keyword (keyword-only, or with a
+    default: a positional ``out`` without one is an ordinary arg)."""
+    try:
+        p = inspect.signature(fn).parameters.get("out")
+    except (TypeError, ValueError):
+        return False
+    if p is None:
+        return False
+    return p.kind is p.KEYWORD_ONLY or (
+        p.kind is p.POSITIONAL_OR_KEYWORD and p.default is not p.empty)
+
+
+class _InPlace:
+    """What a piece's lowering may write in place: the entry whose static
+    buffers a node may take as ``out=``, and the keys whose output landed
+    in their buffer (``wrote``)."""
+
+    __slots__ = ("entry", "wrote")
+
+    def __init__(self, entry: ExecutableCacheEntry):
+        self.entry = entry
+        self.wrote: set = set()
+
+
 class _Piece:
     """One graph of a device region: a run of loop-free segments of one
     executor, each after its boundary relayouts (``chain``: (segment
     index or None for relayouts alone, conversions, layouts)), lowered
     against the entry's static buffers.  The first run builds it (see
     the module docstring); ``in_bufs``/``out_bufs`` are then the buffers
-    it reads and writes back into."""
+    it reads and writes, ``copies`` the copies (and their bytes) that
+    its end makes into ``out_bufs`` for outputs not written in place."""
 
     def __init__(self, label: str, chain: list, reads: tuple):
         self.label = label
@@ -1300,6 +1446,7 @@ class _Piece:
         self.reads = reads
         self.in_bufs: Optional[dict] = None
         self.out_bufs: Optional[dict] = None
+        self.copies = (0, 0)
         self.graph = None
         self.tile_uses: dict = {}
 
@@ -1331,15 +1478,19 @@ class _Piece:
         srcs, dsts = {}, {}
         for name in self.reads:
             x = st.state[name]
-            buf = entry.buffer(name, x) if bufs is None else bufs[name]
+            buf = entry.like(name, x) if bufs is None else bufs[name]
             if x is buf:
                 continue
-            if x.shape != buf.shape or x.dtype != buf.dtype \
-                    or x.device != buf.device:
+            have, want = _tensors(x), _tensors(buf)
+            if isinstance(x, ShardedArray) != isinstance(buf, ShardedArray) \
+                    or len(have) != len(want) or any(
+                        a.shape != b.shape or a.dtype != b.dtype
+                        or a.device != b.device
+                        for a, b in zip(have, want)):
                 raise ValueError(
-                    f"{self.label}: state[{name!r}] is {tuple(x.shape)} "
-                    f"{x.dtype} on {x.device}, but the region was built "
-                    f"for {tuple(buf.shape)} {buf.dtype} on {buf.device}")
+                    f"{self.label}: state[{name!r}] is "
+                    f"{_describe(x)}, but the region was built for "
+                    f"{_describe(buf)}")
             if id(x) not in st.buffers:
                 st.origin[name] = x
             srcs[name], dsts[name] = x, buf
@@ -1351,8 +1502,8 @@ class _Piece:
     def _body(self, ex: "Executor", state: dict) -> dict:
         for si, conv, layouts in self.chain:
             for name, src, dst in conv:
-                state[name] = relayout_data(state[name],
-                                            ex.tensors[name].spec, src, dst)
+                state[name] = ex._relayout_value(state[name], name, src,
+                                                 dst)
             if si is not None:
                 with tile_scope(ex._tile_config):
                     state = ex._lower_levels(ex._segments[si][1], state,
@@ -1361,18 +1512,27 @@ class _Piece:
 
     def _execute(self, ex: "Executor", entry: ExecutableCacheEntry,
                  bufstate: dict) -> dict:
-        """The segments on the buffers, then the copy-back; returns the
-        written keys' destinations (allocated on the first run)."""
-        out = self._body(ex, dict(bufstate))
-        outs = {k: v for k, v in out.items() if v is not bufstate[k]}
+        """The segments on the buffers (a node that takes ``out=`` writes
+        its key's buffer where the executor allows it), then the copies
+        of the other outputs into their buffers; returns the written
+        keys' buffers (allocated on the first run)."""
+        ip = ex._inplace = _InPlace(entry)
+        try:
+            out = self._body(ex, dict(bufstate))
+        finally:
+            ex._inplace = None
+        written = {k for k, v in out.items() if v is not bufstate[k]}
+        written |= ip.wrote
         dsts = self.out_bufs
         if dsts is None:
-            dsts = {k: entry.buffer(k, v) for k, v in outs.items()}
-        elif outs.keys() != dsts.keys():
+            dsts = {k: entry.like(k, out[k]) for k in written}
+        elif written != dsts.keys():
             raise RuntimeError(
-                f"{self.label}: wrote {sorted(outs)} in this run and "
+                f"{self.label}: wrote {sorted(written)} in this run and "
                 f"{sorted(dsts)} when it was built")
-        _copy_back(outs, dsts)
+        self.copies = _copy_back(
+            {k: out[k] for k in written if not _is_buffer(out[k], dsts[k])},
+            dsts)
         return dsts
 
     def _build(self, ex, entry, st: _CallState) -> None:
@@ -1397,7 +1557,8 @@ class _Piece:
             self.out_bufs = self._execute(ex, entry, bufstate)
         cur.wait_stream(side)
         for buf in self.out_bufs.values():
-            buf.record_stream(cur)      # allocated on the side stream
+            for t in _tensors(buf):
+                t.record_stream(cur)      # allocated on the side stream
         if entry.pool is None:
             entry.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -1415,6 +1576,14 @@ class _Piece:
         self.tile_uses = used
         self.in_bufs = in_bufs
         entry.trace_events += 1
+
+
+def _describe(v) -> str:
+    if isinstance(v, ShardedArray):
+        s = v.shards[0]
+        return (f"{len(v.shards)} shards of {tuple(s.shape)} {s.dtype} on "
+                f"{s.device}")
+    return f"{tuple(v.shape)} {v.dtype} on {v.device}"
 
 
 class _Loop:
@@ -1435,6 +1604,15 @@ class _Loop:
         while bool(condition(st.state)):
             for step in self.body:
                 step.run(sub, entry, st)
+
+
+def _pieces(steps):
+    """Every piece of a region program's steps, loop bodies included."""
+    for s in steps:
+        if isinstance(s, _Loop):
+            yield from _pieces(s.body)
+        else:
+            yield s
 
 
 def _count_graphs(steps) -> int:
@@ -1541,10 +1719,11 @@ class Executor:
     module docstring); the executor's device is then the mesh's first.
 
     ``regions=True`` runs each device region as captured CUDA graphs
-    over static buffers (on the CPU: the same code without capture), and
-    ``donate`` says whether the returned state may be those buffers (see
-    the module docstring); every result equals ``regions=False``'s bit
-    for bit.
+    over static buffers (on the CPU: the same code without capture),
+    which nodes that take ``out=`` write in place, and ``donate`` says
+    whether the returned state may be those buffers (see the module
+    docstring); on a mesh too, when its shards share one device; every
+    result equals ``regions=False``'s bit for bit.
 
     ``tune`` is ``"off"`` (the heuristics), ``"load"`` (apply a cached
     decision, heuristics on a miss, never measure) or ``"auto"`` (measure
@@ -1572,6 +1751,7 @@ class Executor:
         ex = Executor(graph, mesh=mesh)       # four shards on one card
         ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
         ex = Executor(graph, regions=True)    # captured CUDA graphs
+        ex = Executor(graph, mesh=mesh, regions=True)   # one per piece
         print(ex.describe_dag(), ex.cache_stats())
         ex = Executor(graph, tune="auto")     # measures once, persists
         print(ex.describe_tuning())           # what won, and why
@@ -1610,12 +1790,13 @@ class Executor:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh= takes a Mesh (make_mesh), got "
                                 f"{type(mesh).__name__}")
-            if regions:
+            if regions and len(set(mesh.devices)) > 1:
                 raise NotImplementedError(
-                    f"regions=True on a mesh is {_ITEM_MESH}")
+                    f"regions=True on a mesh over several devices is "
+                    f"{_ITEM_CARDS}")
             if tune != "off":
                 raise NotImplementedError(
-                    f"tune={tune!r} on a mesh is {_ITEM_MESH}")
+                    f"tune={tune!r} on a mesh is {_ITEM_TUNE_MESH}")
             if device is not None and \
                     resolve_device(device) != mesh.devices[0]:
                 raise ValueError(f"device {device} is not the mesh's "
@@ -1641,6 +1822,9 @@ class Executor:
         # finds its entry, graphs and buffers again)
         self._leases: dict = {}
         self._running: Optional[str] = None    # the node being lowered
+        # inside a piece's lowering: where nodes may write in place
+        self._inplace: Optional[_InPlace] = None
+        self._out_fns: dict = {}      # node name -> its fn takes out=
         self.tensors = graph.all_tensors()
         self.results = graph.all_results()
         # a partitioned tensor without a mesh is one whole tensor (the
@@ -1924,7 +2108,8 @@ class Executor:
         buffer cloned, so that no buffer is written before every key that
         holds it has been read (``ex({"a": st["b"], "b": st["a"]})`` on a
         donated ``st``).  A buffer is known by its ``id``; any other
-        tensor is looked up by its storage (a view of a buffer)."""
+        tensor is looked up by its storage (a view of a buffer); a
+        ShardedArray shard by shard."""
         owners: dict = {}
         storages: dict = {}
         for e in self._entries():
@@ -1934,13 +2119,13 @@ class Executor:
         if not owners:
             return out
         for k, x in state.items():
-            if not isinstance(x, torch.Tensor):
-                continue
-            owner = owners.get(id(x))
-            if owner is None:
-                owner = storages.get(_storage(x), k)
-            if owner != k:
-                out[k] = x.clone()
+            for t in _tensors(x):
+                owner = owners.get(id(t))
+                if owner is None:
+                    owner = storages.get(_storage(t), k)
+                if owner != k:
+                    out[k] = _clone(x)
+                    break
         return out
 
     def cache_stats(self) -> dict:
@@ -1949,11 +2134,20 @@ class Executor:
         ``trace_events`` counts the pieces built (graph captures on the
         card); a steady-state ``run()`` leaves it unchanged.  ``hits``
         counts programs this or another executor fetched without building
-        them — the re-instantiated-executor reuse path."""
+        them — the re-instantiated-executor reuse path.  ``copy_backs``
+        and ``copy_back_bytes`` count the copies that the built pieces
+        make at their ends into the static buffers, each piece run once
+        (one step of a device-only graph; one iteration of a loop body):
+        the outputs not written in place, which aliasing forces.  A
+        capture replays its build's copies."""
         c = self._entry()
+        pieces = [p for e in self._entries() for prog in e.executables.values()
+                  for p in _pieces(prog.steps) if p.out_bufs is not None]
         return {"signature": self.plan.signature,
                 "executables": len(c.executables), "builds": c.builds,
-                "hits": c.hits, "trace_events": c.trace_events}
+                "hits": c.hits, "trace_events": c.trace_events,
+                "copy_backs": sum(p.copies[0] for p in pieces),
+                "copy_back_bytes": sum(p.copies[1] for p in pieces)}
 
     # -- layout plumbing ---------------------------------------------------
     def _eff_in(self, t: DistTensor, layouts: dict[str, Layout]) -> DistTensor:
@@ -2178,18 +2372,21 @@ class Executor:
         return per
 
     def _store_shards(self, node, state, write_tensors, outs,
-                      layouts) -> None:
+                      layouts, bufs=None) -> None:
         """Write one output per shard: a partitioned tensor becomes a
         ShardedArray, an unpartitioned one keeps the first shard's value
-        (every shard computed it; the reference's replicated output)."""
+        (every shard computed it; the reference's replicated output).
+        ``bufs`` are the static buffers the shards were handed as
+        ``out=`` (:meth:`_node_outs`)."""
         if not write_tensors:
             return
         rows = [_outputs(node, write_tensors, out) for out in outs]
         for wi, t in enumerate(write_tensors):
             vals = [self._coerce_write(t, row[wi], layouts) for row in rows]
+            buf = None if bufs is None else bufs[wi]
             eff = self._eff_in(t, layouts)
             if not eff.is_sharded(self.mesh):
-                state[t.name] = vals[0]
+                state[t.name] = self._landed(t.name, vals[0], buf)
                 continue
             pl = eff.placement(self.mesh)
             want = pl.shard_shape(eff.storage_shape)
@@ -2198,7 +2395,16 @@ class Executor:
                     raise ValueError(
                         f"{node.name}: a shard of {t.name} came out "
                         f"{tuple(v.shape)}, its placement holds {want}")
-            state[t.name] = ShardedArray(vals, pl, eff.storage_shape)
+            state[t.name] = self._landed(
+                t.name, ShardedArray(vals, pl, eff.storage_shape), buf)
+
+    def _landed(self, name: str, value, buf):
+        """The value to keep for ``name``: its static buffer ``buf`` (noted
+        as written in place) when the node wrote there, else ``value``."""
+        if buf is not None and _is_buffer(value, buf):
+            self._inplace.wrote.add(name)
+            return buf
+        return value
 
     @staticmethod
     def _write_tensors(node: Node) -> list[DistTensor]:
@@ -2206,26 +2412,127 @@ class Executor:
                 else node.args[i] for i in node.default_writes()]
 
     def _lower_split(self, node: Node, state: dict,
-                     layouts: dict[str, Layout]) -> None:
+                     layouts: dict[str, Layout], bufs=None) -> None:
         write_tensors = self._write_tensors(node)
         if self._per_shard(node):
             dec = self._overlap_decisions.get(node.name)
             if node.overlap and dec is not None and dec.strips is not None:
                 self._lower_split_overlapped(node, state, write_tensors,
-                                             dec.strips, layouts)
+                                             dec.strips, layouts, bufs)
                 return
-            outs = [node.fn(*vals)
-                    for vals in self._shard_args(node, state, layouts)]
-            self._store_shards(node, state, write_tensors, outs, layouts)
+            outs = [node.fn(*vals, **self._out_kw(bufs, write_tensors, c,
+                                                   layouts))
+                    for c, vals in enumerate(
+                        self._shard_args(node, state, layouts))]
+            self._store_shards(node, state, write_tensors, outs, layouts,
+                               bufs)
             return
         vals = self._resolve_args(node, state, layouts)
-        out = node.fn(*vals)
-        self._store_writes(node, state, write_tensors, out, layouts)
+        out = node.fn(*vals, **self._out_kw(bufs, write_tensors, None,
+                                            layouts))
+        self._store_writes(node, state, write_tensors, out, layouts, bufs)
+
+    # -- outputs written in place (regions) ----------------------------------
+    def _node_outs(self, node: Node, level, snapshot: dict, state: dict,
+                   layouts: dict[str, Layout]) -> Optional[list]:
+        """Inside a piece's lowering (``regions=True``), the static buffer
+        each tensor ``node`` writes may take as ``out=`` (None where it
+        may not), or None when none may: the node's function takes
+        ``out=`` and, per written key, :meth:`_may_write` holds."""
+        ip = self._inplace
+        if ip is None or node.fn is None:
+            return None
+        takes = self._out_fns.get(node.name)
+        if takes is None:
+            takes = self._out_fns[node.name] = _takes_out(node.fn)
+        if not takes:
+            return None
+        overlapped = node.kind == "split" and node.overlap \
+            and self._per_shard(node) and getattr(
+                self._overlap_decisions.get(node.name), "strips", None)
+        bufs = []
+        for t in self._write_tensors(node):
+            buf = self._out_buffer(ip.entry, t, layouts)
+            ok = self._may_write(node, t.name, buf, level, snapshot, state,
+                                 layouts, own_reads=not overlapped)
+            bufs.append(buf if ok else None)
+        return bufs if any(b is not None for b in bufs) else None
+
+    def _out_buffer(self, entry: ExecutableCacheEntry, t: DistTensor,
+                    layouts: dict[str, Layout]):
+        """The static buffer(s) of written tensor ``t`` in the segment's
+        layout: one tensor, or on a mesh one per shard."""
+        eff = self._eff_in(t, layouts)
+        if eff.is_sharded(self.mesh):
+            return entry.sharded(t.name, eff.placement(self.mesh),
+                                 eff.storage_shape, t.dtype)
+        return entry.buffer(t.name, eff.storage_shape, t.dtype, self.device)
+
+    def _may_write(self, node: Node, name: str, buf, level, snapshot: dict,
+                   state: dict, layouts: dict[str, Layout], *,
+                   own_reads: bool = True) -> bool:
+        """Whether ``node`` may write key ``name`` into its static buffer
+        ``buf``: (i) no other node of its level reads a value that lies in
+        ``buf`` (a level runs against one snapshot, which an in-place write
+        must not reach); (ii) where the node itself reads ``buf`` (its own
+        arg of ``name``, not through a padded copy), its function is marked
+        :func:`~repro_torch.core.graph.in_place`, and no other arg of it
+        lies there; (iii) no other key's value lies in ``buf`` (a value a
+        later node, piece, host callback or the caller still reads).
+        ``own_reads=False`` skips (ii) for the overlapped lowering, which
+        stitches its outputs after every program of the node has run."""
+        stores = _storages(buf)
+        for other in level:
+            if other is not node and any(
+                    _storages(snapshot.get(r)) & stores
+                    for r in _segment_reads([other])):
+                return False
+        if any(k != name and _storages(v) & stores
+               for k, v in state.items()):
+            return False
+        if not own_reads:
+            return True
+        for a in node.args:
+            t, mode = _tensor_arg(a)
+            key = t.name if t is not None else (
+                a.name if isinstance(a, ReductionResult) else None)
+            if key is None or not _storages(snapshot.get(key)) & stores:
+                continue
+            if key != name:
+                return False
+            if t is not None and mode.padded and _halo_plan(
+                    self._eff_in(t, layouts),
+                    self.mesh if isinstance(snapshot[key], ShardedArray)
+                    else None):
+                continue            # it reads a padded copy
+            if not getattr(node.fn, "in_place", False):
+                return False
+        return True
+
+    def _out_kw(self, bufs, write_tensors, shard: Optional[int],
+                layouts: dict[str, Layout]) -> dict:
+        """The ``out=`` keyword of one call of a node's function (of mesh
+        coordinate ``shard``, None off the mesh): each written tensor's
+        buffer (a record wrapped in the segment's layout) or None; one
+        value for one written tensor, a tuple for several."""
+        if bufs is None:
+            return {}
+        vals = []
+        for t, buf in zip(write_tensors, bufs):
+            if isinstance(buf, ShardedArray):
+                buf = buf.shards[shard]
+            elif shard:                 # a replicated output: shard 0's
+                buf = None
+            if buf is not None and t.is_record:
+                buf = self._eff_in(t, layouts).wrap(buf)
+            vals.append(buf)
+        return {"out": vals[0] if len(vals) == 1 else tuple(vals)}
 
     def _lower_split_overlapped(self, node: Node, state: dict,
                                 write_tensors,
                                 strips: tuple[tuple[int, int], ...],
-                                layouts: dict[str, Layout]) -> None:
+                                layouts: dict[str, Layout],
+                                bufs=None) -> None:
         """Interior/boundary split over N partitioned halo axes, per shard:
         every halo block's copy starts up front (phase 1 edge strips,
         phase 2+ corner hops; on a CUDA mesh on each device's copy
@@ -2238,7 +2545,9 @@ class Executor:
         shape-polymorphic stencil mapping (m + 2w) -> m cells along every
         haloed dim.  fn sees, per variant, exactly the sub-region of the
         extended shard that its output cells read, so the overlapped
-        output equals the synchronous one value for value."""
+        output equals the synchronous one value for value.  Under regions
+        the outputs are stitched into the written tensors' static buffers
+        (``bufs``), unless a program's output lies there."""
         mesh = self.mesh
         n = mesh.size
         strip_dims = [d for d, _ in strips]
@@ -2367,21 +2676,32 @@ class Executor:
                                          w)
                 dst.copy_(part)
 
+            buf = None if bufs is None else bufs[wi]
             shards = []
             for c in range(n):
                 first = interior[c][wi]
-                o = torch.empty(shape, dtype=first.dtype, device=first.device)
+                parts = [first] + [outs[c][wi] for outs in strip_outs.values()]
+                o = None if buf is None else buf.shards[c]
+                if o is None or any(_storage(p) == _storage(o)
+                                    for p in parts):
+                    o = torch.empty(shape, dtype=first.dtype,
+                                    device=first.device)
                 place(o, first, len(strips), None)
                 for (k, side), outs in strip_outs.items():
                     place(o, outs[c][wi], k, side)
                 shards.append(o)
-            state[wt.name] = ShardedArray(shards, pl, wt_eff.storage_shape)
+            state[wt.name] = self._landed(
+                wt.name, ShardedArray(shards, pl, wt_eff.storage_shape), buf)
 
-    def _store_writes(self, node, state, write_tensors, out, layouts) -> None:
+    def _store_writes(self, node, state, write_tensors, out, layouts,
+                      bufs=None) -> None:
         if not write_tensors:
             return
-        for t, v in zip(write_tensors, _outputs(node, write_tensors, out)):
-            state[t.name] = self._coerce_write(t, v, layouts)
+        for wi, (t, v) in enumerate(zip(write_tensors,
+                                        _outputs(node, write_tensors, out))):
+            state[t.name] = self._landed(
+                t.name, self._coerce_write(t, v, layouts),
+                None if bufs is None else bufs[wi])
 
     def _coerce_write(self, t, v, layouts: dict[str, Layout]):
         """Raw storage for one written value: a RecordArray output in
@@ -2395,26 +2715,62 @@ class Executor:
         return torch.as_tensor(v)
 
     def _lower_reduce(self, node: Node, state: dict,
-                      layouts: dict[str, Layout]) -> None:
+                      layouts: dict[str, Layout], buf=None) -> None:
         """The reducer's local reduction; on a mesh, one per distinct
         shard, folded in mesh order on the mesh's first device (the
-        reference's psum/pmax/... over the partitioned axes)."""
+        reference's psum/pmax/... over the partitioned axes).  ``buf``
+        (the result's static buffer under regions) receives the last step
+        when the reducer's local takes ``out=`` or the fold's operation
+        can, in the result's dtype."""
         t, field = node.args
         data = state[t.name]
         eff = self._eff_in(t, layouts)
+        name = node.result.name
 
-        def local(x):
+        def local(x, dst=None):
             if t.is_record and field is not None:
                 x = eff.wrap(x).field(field)
+            if dst is not None and x.dtype == dst.dtype \
+                    and x.device == dst.device:
+                return node.reducer.local(x, out=dst)
             return torch.as_tensor(node.reducer.local(x)).to(self.device)
 
+        if buf is not None and not self._out_fns.setdefault(
+                ("reduce", node.name), _takes_out(node.reducer.local)):
+            buf = None
         if isinstance(data, ShardedArray):
-            parts = [local(data.shards[i])
-                     for i in data.placement.representatives()]
-            out = functools.reduce(_COMBINE[node.reducer.combine], parts)
+            reps = data.placement.representatives()
+            if len(reps) == 1:
+                out = local(data.shards[reps[0]], buf)
+            else:
+                parts = [local(data.shards[i]) for i in reps]
+                op = _COMBINE[node.reducer.combine]
+                out = functools.reduce(op, parts[:-1])
+                if buf is not None and out.dtype == parts[-1].dtype \
+                        == buf.dtype:
+                    out = op(out, parts[-1], out=buf)
+                else:
+                    out = op(out, parts[-1])
         else:
-            out = local(data)
-        state[node.result.name] = out.to(dtype=node.result.dtype)
+            out = local(data, buf)
+        if out is not buf:
+            out = out.to(dtype=node.result.dtype)
+        state[name] = self._landed(name, out, buf)
+
+    def _reduce_out(self, node: Node, level, snapshot: dict,
+                    state: dict) -> Optional[torch.Tensor]:
+        """Inside a piece's lowering, the result's static buffer when the
+        reduction may write it (rules (i) and (iii) of :meth:`_may_write`;
+        a reduction never reads its own result)."""
+        ip = self._inplace
+        if ip is None:
+            return None
+        r = node.result
+        buf = ip.entry.buffer(r.name, (), r.dtype, self.device)
+        if self._may_write(node, r.name, buf, level, snapshot, state, {},
+                           own_reads=False):
+            return buf
+        return None
 
     def _lower_levels(self, levels, state: dict,
                       layouts: dict[str, Layout]) -> dict:
@@ -2427,34 +2783,53 @@ class Executor:
                 self._running = node.name
                 if node.kind == "split":
                     tmp = dict(snapshot)
-                    self._lower_split(node, tmp, layouts)
+                    self._lower_split(node, tmp, layouts, self._node_outs(
+                        node, level, snapshot, state, layouts))
                     for k, v in tmp.items():
                         if k not in snapshot or v is not snapshot[k]:
                             state[k] = v
                 elif node.kind == "reduce":
                     tmp = dict(snapshot)
-                    self._lower_reduce(node, tmp, layouts)
+                    self._lower_reduce(node, tmp, layouts, self._reduce_out(
+                        node, level, snapshot, state))
                     state[node.result.name] = tmp[node.result.name]
                 elif node.kind == "op":
                     tmp = dict(snapshot)
                     wt = self._write_tensors(node)
+                    bufs = self._node_outs(node, level, snapshot, state,
+                                           layouts)
                     if self._per_shard(node):
-                        outs = [node.fn(*vals) if node.fn is not None
-                                else None for vals in
-                                self._shard_args(node, tmp, layouts)]
+                        outs = [node.fn(*vals, **self._out_kw(
+                            bufs, wt, c, layouts)) if node.fn is not None
+                            else None for c, vals in enumerate(
+                                self._shard_args(node, tmp, layouts))]
                         if wt:
-                            self._store_shards(node, tmp, wt, outs, layouts)
+                            self._store_shards(node, tmp, wt, outs, layouts,
+                                               bufs)
                     else:
                         vals = self._resolve_args(node, tmp, layouts)
-                        out = node.fn(*vals) if node.fn is not None \
-                            else None
+                        out = node.fn(*vals, **self._out_kw(
+                            bufs, wt, None, layouts)) \
+                            if node.fn is not None else None
                         if wt:
-                            self._store_writes(node, tmp, wt, out, layouts)
+                            self._store_writes(node, tmp, wt, out, layouts,
+                                               bufs)
                     for t in wt:
                         state[t.name] = tmp[t.name]
                 else:
                     raise ValueError(f"unexpected node kind {node.kind}")
         return state
+
+    def _relayout_value(self, v, name: str, src: Layout, dst: Layout):
+        """A record key's value converted ``src -> dst`` (a ShardedArray
+        shard by shard: the component axis is never split and AoSoA's
+        tiled dim is whole in every shard)."""
+        t = self.tensors[name]
+        if isinstance(v, ShardedArray):
+            d = t.with_(layout=dst)
+            return v.map(lambda x: relayout_data(x, t.spec, src, dst),
+                         d.placement(self.mesh), d.storage_shape)
+        return relayout_data(v, t.spec, src, dst)
 
     # -- conditional loops -------------------------------------------------
     def _sub_executor(self, i: int) -> "Executor":
@@ -2627,7 +3002,7 @@ class Executor:
             for k, v in state.items():
                 if id(v) in st.buffers:
                     orig = None if k in st.written else st.origin.get(k)
-                    state[k] = v.clone() if orig is None else orig
+                    state[k] = _clone(v) if orig is None else orig
         return state
 
     # -- execution -----------------------------------------------------------

@@ -36,6 +36,7 @@ __all__ = [
     "concurrent_padded_access",
     "exclusive_padded_access",
     "in_shared",
+    "in_place",
     "concurrent_padded_access_in_shared",
     "exclusive_padded_access_in_shared",
     "Reducer",
@@ -172,29 +173,34 @@ def SumReducer() -> Reducer:  # noqa: N802 - mirrors paper naming
 
 def _nan_ignoring(reduce_all, fill: float):
     """Ripple's ``min``/``max``: a quiet NaN operand is ignored (the
-    all-NaN tensor still reduces to NaN)."""
+    all-NaN tensor still reduces to NaN).  ``out`` (a 0-d tensor of the
+    input's dtype) receives the result, as the executor's regions write a
+    result into its static buffer."""
 
-    def local(x):
+    def local(x, out=None):
         x = torch.as_tensor(x)
         if not x.is_floating_point():
-            return reduce_all(x)
+            m = reduce_all(x)
+            return m if out is None else out.copy_(m)
         nan = torch.isnan(x)
         m = reduce_all(x.masked_fill(nan, fill))
-        return torch.where(nan.all(), torch.full_like(m, float("nan")), m)
+        return torch.where(nan.all(), torch.full_like(m, float("nan")), m,
+                           out=out)
 
     return local
 
 
 def _nan_propagating(reduce_all):
-    """``minimum``/``maximum``: any quiet NaN operand makes the result NaN."""
+    """``minimum``/``maximum``: any quiet NaN operand makes the result NaN
+    (into ``out`` when given, as :func:`_nan_ignoring`)."""
 
-    def local(x):
+    def local(x, out=None):
         x = torch.as_tensor(x)
         m = reduce_all(x)
         if x.is_floating_point():
-            m = torch.where(torch.isnan(x).any(),
-                            torch.full_like(m, float("nan")), m)
-        return m
+            return torch.where(torch.isnan(x).any(),
+                               torch.full_like(m, float("nan")), m, out=out)
+        return m if out is None else out.copy_(m)
 
     return local
 
@@ -257,6 +263,18 @@ def MinimumReducer() -> Reducer:  # noqa: N802
 def MaximumReducer() -> Reducer:  # noqa: N802
     """NaN-propagating max (spec ``maximum``: NUM vs qNaN -> qNaN)."""
     return Reducer("maximum", _nan_propagating(torch.amax), "maximum")
+
+
+def in_place(fn: Callable) -> Callable:
+    """Mark a node function that takes ``out=`` as safe when ``out`` is the
+    very tensor it receives for the key it writes: it reads each element
+    of that input before it writes the element, in one thread (K1-K3, the
+    KV cache writes), or does not read that input at all.  Under
+    ``regions=True`` the executor hands such a node its key's static
+    buffer, which then also holds the input (see ``core/executor.py``).
+    Returns ``fn``."""
+    fn.in_place = True
+    return fn
 
 
 NodeArg = Union[DistTensor, TensorArg, ReductionResult, Any]

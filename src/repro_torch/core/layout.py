@@ -257,6 +257,14 @@ class RecordArray:
     def set_field(self, name: str, value) -> "RecordArray":
         """A new RecordArray with field ``name`` replaced by ``value``
         (shape ``(*space,)`` or ``(*space, size)``); ``self`` is unchanged."""
+        out = RecordArray(self.data.clone(), self.spec, self.layout)
+        out.write_field(name, value)
+        return out
+
+    def write_field(self, name: str, value) -> None:
+        """Write ``value`` into field ``name`` of this record's storage, in
+        place (an output buffer's field, as ``set_field`` writes its
+        copy's)."""
         start, size = self.spec.offset(name)
         value = _as_tensor(value, dtype=self.dtype, device=self.device)
         if size == 1 and value.dim() == len(self.space):
@@ -264,7 +272,7 @@ class RecordArray:
         if tuple(value.shape) != (*self.space, size):
             raise ValueError(f"set_field({name!r}): expected "
                              f"{(*self.space, size)}, got {tuple(value.shape)}")
-        data = self.data.clone()
+        data = self.data
         if self.layout is Layout.AOS:
             data[..., start:start + size] = value
         elif self.layout is Layout.SOA:
@@ -273,7 +281,6 @@ class RecordArray:
             nt, tile = data.shape[-3], data.shape[-1]
             v = value.reshape(*self.space[:-1], nt, tile, size)
             data[..., start:start + size, :] = torch.movedim(v, -1, -2)
-        return RecordArray(data, self.spec, self.layout)
 
     def to_fields(self) -> dict[str, torch.Tensor]:
         """All fields as a name -> tensor dict (inverse of from_fields)."""
@@ -361,11 +368,19 @@ def storage_candidates(space: Sequence[int], halo: Sequence[int] = (),
 
 def dispatch_with_relayout(kernel_fn, rec: RecordArray, *args,
                            supported: Sequence[Layout],
-                           preferred: Layout, **kw):
+                           preferred: Layout, out=None, **kw):
     """Run ``kernel_fn(rec, *args, **kw)``, staging ``rec`` through
     ``preferred`` when its layout is not in ``supported`` and converting
-    the result back."""
+    the result back.  ``out`` (a record in ``rec``'s layout) is handed to
+    the kernel when it runs in that layout, and otherwise receives the
+    converted result."""
     if rec.layout in supported:
-        return kernel_fn(rec, *args, **kw)
-    out = kernel_fn(relayout(rec, preferred), *args, **kw)
-    return relayout(out, rec.layout)
+        if out is None:
+            return kernel_fn(rec, *args, **kw)
+        return kernel_fn(rec, *args, out=out, **kw)
+    res = relayout(kernel_fn(relayout(rec, preferred), *args, **kw),
+                   rec.layout)
+    if out is None:
+        return res
+    out.data.copy_(res.data)
+    return out

@@ -15,6 +15,14 @@
 // AoSoA give each component a contiguous run across a warp; AoS reads
 // 6-wide records, whose neighbouring components the same warp consumes on
 // its next loads from L1.  Float32 arithmetic for both storage types.
+//
+// In place: `o` may be `p` (the executor's regions write a node's output
+// into its key's static buffer).  Each thread reads a particle's
+// components before it writes them and no other thread touches them, so
+// the two pointers carry no __restrict__; without that promise the
+// compiler keeps loads and stores in source order, so the body issues
+// all six loads first.  In place, v stays where it is (three stores a
+// particle, not six).
 #include <cuda_runtime.h>
 
 #include "record_index.cuh"
@@ -25,19 +33,27 @@ constexpr int kMaxThreads = 256;
 constexpr int kC = 6;  // x[3] at components 0..2, v[3] at 3..5
 
 template <typename T, int L>
-__global__ void particle_kernel(const T* __restrict__ p, T* __restrict__ o,
-                                float dt, int64_t n, int tile, int block) {
+__global__ void particle_kernel(const T* p, T* o, float dt, int64_t n,
+                                int tile, int block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
+  const bool copy_v = o != p;  // in place, v is there already
   for (int k = threadIdx.x; k < block; k += blockDim.x) {
     const int64_t i = base + k;
+    int64_t ox[3], ov[3];
+    T xs[3], vs[3];
+    // every load before any store: p and o may be one record
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const int64_t ox = ripple::record_offset<L>(i, c, n, kC, tile);
-      const int64_t ov = ripple::record_offset<L>(i, 3 + c, n, kC, tile);
-      const T vv = p[ov];
-      o[ov] = vv;
-      ripple::store_f(o + ox,
-                      ripple::load_f(p + ox) + ripple::load_f(&vv) * dt);
+      ox[c] = ripple::record_offset<L>(i, c, n, kC, tile);
+      ov[c] = ripple::record_offset<L>(i, 3 + c, n, kC, tile);
+      xs[c] = p[ox[c]];
+      vs[c] = p[ov[c]];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (copy_v) o[ov[c]] = vs[c];
+      ripple::store_f(o + ox[c],
+                      ripple::load_f(&xs[c]) + ripple::load_f(&vs[c]) * dt);
     }
   }
 }

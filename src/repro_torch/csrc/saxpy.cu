@@ -25,6 +25,16 @@
 // round with it.  The reference's `block` argument is validated by the
 // wrapper and sets no grid here.
 //
+// In place: `out` may be `y` (K1) and `o` may be `p` (K2), as under the
+// executor's regions, where a node writes its key's static buffer.  Each
+// thread reads an element before it writes that element and no other
+// thread touches it, so the result equals the out-of-place one; those
+// pointers carry no __restrict__, which would promise that they never
+// alias, and y is read through the coherent path (x, which never aliases
+// out, keeps __ldg).  Without the promise the compiler keeps every load
+// and store in source order, so each body issues its loads before its
+// stores; K2 in place leaves x where it is.
+//
 // K2 design: one CTA covers `block` consecutive cells (the reference's
 // block argument) with up to 256 threads striding through them, so
 // neighbouring threads touch neighbouring cells (coalesced for SoA and
@@ -69,8 +79,8 @@ __device__ __forceinline__ uint4 saxpy_vec(float a, uint4 x, uint4 y,
 
 template <typename T, bool kCheck>
 __global__ void __launch_bounds__(kMaxThreads)
-    saxpy_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                 T* __restrict__ out, float a, int64_t n, int64_t nvec,
+    saxpy_kernel(const T* __restrict__ x, const T* y, T* out, float a,
+                 int64_t n, int64_t nvec,
                  int64_t whole) {
   constexpr int W = 16 / sizeof(T);  // elements per vector
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -87,7 +97,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         xr[u] = __ldg(xv + v + u * nthreads);
-        yr[u] = __ldg(yv + v + u * nthreads);
+        yr[u] = yv[v + u * nthreads];
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int u = 0; u < kUnroll; ++u) {
       if (v + u * nthreads < nvec) {
         xr[u] = __ldg(xv + v + u * nthreads);
-        yr[u] = __ldg(yv + v + u * nthreads);
+        yr[u] = yv[v + u * nthreads];
       }
     }
 #pragma unroll
@@ -154,17 +164,18 @@ int launch_saxpy(const void* x, const void* y, void* out, float a, int64_t n,
 
 // SAXPY_SPEC = (x, y): component 0 is x, component 1 is y.
 template <typename T, int L>
-__global__ void saxpy_record_kernel(const T* __restrict__ p,
-                                    T* __restrict__ o, float a, int64_t n,
+__global__ void saxpy_record_kernel(const T* p, T* o, float a, int64_t n,
                                     int tile, int block) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
   for (int k = threadIdx.x; k < block; k += blockDim.x) {
     const int64_t i = base + k;
     const int64_t ox = ripple::record_offset<L>(i, 0, n, 2, tile);
     const int64_t oy = ripple::record_offset<L>(i, 1, n, 2, tile);
+    // both loads before any store: p and o may be one record
     const T xv = p[ox];
-    o[ox] = xv;
-    ripple::store_f(o + oy, a * ripple::load_f(&xv) + ripple::load_f(p + oy));
+    const T yv = p[oy];
+    if (o != p) o[ox] = xv;  // in place, x is there already
+    ripple::store_f(o + oy, a * ripple::load_f(&xv) + ripple::load_f(&yv));
   }
 }
 

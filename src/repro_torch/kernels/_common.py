@@ -4,13 +4,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from ..core.layout import Layout
+from ..core.layout import Layout, RecordArray
 
 __all__ = ["DTYPE_SUFFIX", "LAYOUT_CODE", "on_cuda", "check_cuda_tensor",
-           "round_to", "stream_of"]
+           "check_out", "overlaps", "record_into", "record_out", "round_to",
+           "stream_of"]
 
 #: storage dtypes the kernels take -> suffix of their C entry points
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -39,6 +41,81 @@ def check_cuda_tensor(t: torch.Tensor, what: str) -> str:
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor is not contiguous")
     return DTYPE_SUFFIX[t.dtype]
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when the memory of ``a`` and ``b`` overlaps (their spans from
+    the first to one past the last element, within one allocation)."""
+    if a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr():
+        return False
+    if a.numel() == 0 or b.numel() == 0:
+        return False
+
+    def span(t):
+        lo = t.data_ptr()
+        hi = lo + t.element_size() * (1 + sum((n - 1) * abs(s) for n, s in
+                                              zip(t.shape, t.stride())))
+        return lo, hi
+
+    (a0, a1), (b0, b1) = span(a), span(b)
+    return a0 < b1 and b0 < a1
+
+
+def check_out(out: torch.Tensor, shape, dtype: torch.dtype,
+              device: torch.device, what: str, *, apart=(),
+              in_place=()) -> None:
+    """Raise unless ``out`` is a contiguous tensor of ``shape``, ``dtype``
+    and ``device`` that a kernel may write: it may be the very tensor of
+    one of ``in_place`` (same address, shape and strides; the kernel reads
+    and writes each element in one thread), and it overlaps none of
+    ``apart`` and nothing of ``in_place`` otherwise."""
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"{what}: out= takes a tensor, got "
+                        f"{type(out).__name__}")
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype \
+            or out.device != device:
+        raise ValueError(f"{what}: out is {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}, the result is {tuple(shape)} "
+                         f"{dtype} on {device}")
+    if not out.is_contiguous():
+        raise ValueError(f"{what}: out is not contiguous")
+    for t in in_place:
+        if overlaps(out, t) and not (out.data_ptr() == t.data_ptr()
+                                     and out.stride() == t.stride()):
+            raise ValueError(f"{what}: out overlaps an input without being "
+                             f"it")
+    for t in apart:
+        if overlaps(out, t):
+            raise ValueError(f"{what}: out overlaps an input the kernel "
+                             f"reads while it writes")
+
+
+def record_out(out: Optional[RecordArray], rec: RecordArray,
+               what: str) -> torch.Tensor:
+    """The storage a record kernel writes: ``out``'s, checked to be a
+    record like ``rec`` that is ``rec`` itself or lies apart from it, or
+    else a new tensor."""
+    if out is None:
+        return torch.empty_like(rec.data)
+    if not isinstance(out, RecordArray) or out.spec != rec.spec \
+            or out.layout is not rec.layout or out.space != rec.space:
+        raise ValueError(f"{what}: out must be a record like {rec!r}, got "
+                         f"{out!r}")
+    check_out(out.data, rec.data.shape, rec.dtype, rec.data.device, what,
+              in_place=(rec.data,))
+    return out.data
+
+
+def record_into(out: RecordArray, rec: RecordArray, name: str, value,
+                what: str) -> RecordArray:
+    """``rec`` with field ``name`` replaced by ``value``, written into
+    ``out`` (``rec`` itself, or a record apart from it): a plain
+    version's ``out=``."""
+    dst = record_out(out, rec, what)
+    if dst.data_ptr() != rec.data.data_ptr():
+        dst.copy_(rec.data)
+    out.write_field(name, value)
+    return out
 
 
 def round_to(value, dtype: torch.dtype) -> float:

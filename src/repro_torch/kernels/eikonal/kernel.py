@@ -22,13 +22,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import check_cuda_tensor, round_to, stream_of
+from .._common import check_cuda_tensor, check_out, round_to, stream_of
 
 TILE_KERNEL = "eikonal"   # name in the tile registry
 DEFAULT_BLOCK = (8, 128)
@@ -155,15 +155,17 @@ def clamp_block(interior: tuple[int, int], block) -> tuple[int, int]:
 
 
 def eikonal_fim_cuda(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
-                     h: float, *, inner: int = 4,
-                     block=DEFAULT_BLOCK) -> torch.Tensor:
+                     h: float, *, inner: int = 4, block=DEFAULT_BLOCK,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``inner`` FIM sweeps per ``block`` tile on the GPU, in registers.
     ``phi_haloed`` is a float32 or bfloat16 ``(nx+2, ny+2)`` tensor,
     ``source_mask`` a bool ``(nx, ny)`` tensor on the same device; returns
     the ``(nx, ny)`` interior.  ``h`` is rounded to the working dtype
     first; arithmetic is float32.  A tile the kernel cannot hold (``by``
     above 256, or more than 16 warps) or a negative ``inner`` is refused
-    by the launch itself, as a CUDA "invalid argument" error."""
+    by the launch itself, as a CUDA "invalid argument" error.  ``out``, an
+    ``(nx, ny)`` tensor apart from both inputs (tiles read their
+    neighbours' halo cells), receives the interior."""
     sfx = check_cuda_tensor(phi_haloed, "eikonal_fim")
     if phi_haloed.dim() != 2 or min(phi_haloed.shape) < 3:
         raise ValueError(f"eikonal_fim: phi must be a haloed 2-d tensor, "
@@ -182,8 +184,12 @@ def eikonal_fim_cuda(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
     if not source_mask.is_contiguous():
         raise ValueError("eikonal_fim: mask is not contiguous")
     geo = fim_geometry((nx, ny), tuple(block))
-    out = torch.empty((nx, ny), dtype=phi_haloed.dtype,
-                      device=phi_haloed.device)
+    if out is None:
+        out = torch.empty((nx, ny), dtype=phi_haloed.dtype,
+                          device=phi_haloed.device)
+    else:
+        check_out(out, (nx, ny), phi_haloed.dtype, phi_haloed.device,
+                  "eikonal_fim", apart=(phi_haloed, source_mask))
     lib = _build.load("eikonal", _SIGNATURES)
     with torch.cuda.device(phi_haloed.device):
         code = getattr(lib, f"eikonal_fim_{sfx}")(

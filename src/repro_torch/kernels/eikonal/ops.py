@@ -20,7 +20,7 @@ __all__ = ["eikonal_fim_sweep", "eikonal_fim_ref", "eikonal_global_jacobi",
 
 
 def eikonal_fim_sweep(phi_haloed, source_mask, h, *, inner: int = 4,
-                      block=None, use_kernel: bool = True):
+                      block=None, use_kernel: bool = True, out=None):
     """``inner`` FIM Jacobi sweeps per tile, the tile held in registers,
     over a haloed ``(nx+2, ny+2)`` level-set tensor (paper Table 5);
     returns the updated ``(nx, ny)`` interior.
@@ -28,12 +28,14 @@ def eikonal_fim_sweep(phi_haloed, source_mask, h, *, inner: int = 4,
     ``block=None`` resolves the ``(bx, by)`` tile through the ambient tile
     scope (``repro_torch.tuning.tiles``); an explicit ``block`` always
     wins, and outside any scope the kernel default applies.  The tile must
-    divide the interior, on both devices."""
+    divide the interior, on both devices.  ``out`` (an ``(nx, ny)`` tensor
+    apart from both inputs) receives the interior."""
     interior = tuple(s - 2 for s in phi_haloed.shape)
     block = resolve_tile(TILE_KERNEL, block, DEFAULT_BLOCK, shape=interior)
     fn = eikonal_fim_cuda if use_kernel and on_cuda(phi_haloed) \
         else eikonal_fim_ref
-    return fn(phi_haloed, source_mask, h, inner=inner, block=block)
+    kw = {} if out is None else {"out": out}
+    return fn(phi_haloed, source_mask, h, inner=inner, block=block, **kw)
 
 
 def single_sweep_block(interior: tuple[int, int]) -> tuple[int, int]:
@@ -69,15 +71,17 @@ def make_eikonal_graph(
     strip a mesh gives it.  With ``inner > 1`` the caller picks a
     ``block`` that tiles every extent the node sees (on a mesh, each
     shard; with ``overlap=True``, each strip too).  The node follows its
-    tensors' device as :func:`eikonal_fim_sweep` does, once per shard.
-    ``graph=`` appends the node to an existing graph."""
+    tensors' device as :func:`eikonal_fim_sweep` does, once per shard;
+    under ``regions=True`` it writes ``phi``'s static buffer (K5's
+    ``out=``; it reads ``phi`` through its padded copy).  ``graph=``
+    appends the node to an existing graph."""
 
-    def sweep(p_haloed, m):
+    def sweep(p_haloed, m, out=None):
         tile = block
         if inner == 1:
             tile = single_sweep_block(tuple(s - 2 for s in p_haloed.shape))
         return eikonal_fim_sweep(p_haloed, m, h, inner=inner, block=tile,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel, out=out)
 
     g = graph if graph is not None else Graph(name="eikonal_sweep")
     g.split(sweep, exclusive_padded_access(phi), mask, writes=(0,),

@@ -13,14 +13,17 @@ from __future__ import annotations
 import torch
 
 from ...core.halo import Boundary, pad_boundary_only
+from .._common import check_out
 from .kernel import DEFAULT_BLOCK, clamp_block, godunov_update
 
 
 def eikonal_fim_ref(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
-                    h: float, *, inner: int = 4,
-                    block=DEFAULT_BLOCK) -> torch.Tensor:
+                    h: float, *, inner: int = 4, block=DEFAULT_BLOCK,
+                    out=None) -> torch.Tensor:
     """``inner`` frozen-halo Jacobi sweeps per ``block`` tile of the
-    haloed ``(nx+2, ny+2)`` ``phi``; returns the ``(nx, ny)`` interior."""
+    haloed ``(nx+2, ny+2)`` ``phi``; returns the ``(nx, ny)`` interior,
+    written into ``out`` when given (apart from both inputs, as the
+    kernel wrapper takes it)."""
     nx, ny = (s - 2 for s in phi_haloed.shape)
     bx, by = clamp_block((nx, ny), block)
     gx, gy = nx // bx, ny // by
@@ -31,7 +34,12 @@ def eikonal_fim_ref(phi_haloed: torch.Tensor, source_mask: torch.Tensor,
     mask = source_mask.reshape(gx, bx, gy, by).permute(0, 2, 1, 3)
     for _ in range(inner):
         tiles[..., 1:-1, 1:-1] = godunov_update(tiles, mask, h)
-    return tiles[..., 1:-1, 1:-1].permute(0, 2, 1, 3).reshape(nx, ny)
+    res = tiles[..., 1:-1, 1:-1].permute(0, 2, 1, 3).reshape(nx, ny)
+    if out is None:
+        return res
+    check_out(out, (nx, ny), phi_haloed.dtype, phi_haloed.device,
+              "eikonal_fim", apart=(phi_haloed, source_mask))
+    return out.copy_(res)
 
 
 def eikonal_global_jacobi(phi: torch.Tensor, source_mask: torch.Tensor,

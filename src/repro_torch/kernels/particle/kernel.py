@@ -12,6 +12,7 @@ kernel body is written once against the record accessor
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,7 +20,8 @@ from ...core.layout import (Layout, RecordArray, RecordSpec, Vector,
                             aosoa_tile)
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import LAYOUT_CODE, check_cuda_tensor, round_to, stream_of
+from .._common import (LAYOUT_CODE, check_cuda_tensor, record_out, round_to,
+                       stream_of)
 
 PARTICLE_SPEC = RecordSpec.create(Vector("x", 3), Vector("v", 3))
 SUPPORTED_LAYOUTS = (Layout.AOS, Layout.SOA, Layout.AOSOA)
@@ -49,10 +51,13 @@ def check_block(n: int, block: int) -> None:
         raise ValueError(f"n={n} must tile by block={block}")
 
 
-def particle_update_cuda(particles: RecordArray, dt, *,
-                         block: int = 512) -> RecordArray:
+def particle_update_cuda(particles: RecordArray, dt, *, block: int = 512,
+                         out: Optional[RecordArray] = None) -> RecordArray:
     """``x += v * dt`` on a ``PARTICLE_SPEC`` record on the GPU, any of the
-    three layouts; ``dt`` is rounded to the working dtype first."""
+    three layouts; ``dt`` is rounded to the working dtype first.  ``out``
+    is a record of the same spec, space and layout to write (``particles``
+    itself to update in place: each thread reads a particle before it
+    writes it, and ``csrc/particle.cu`` promises no ``__restrict__``)."""
     sfx = check_cuda_tensor(particles.data, "particle_update")
     if particles.spec != PARTICLE_SPEC \
             or particles.layout not in SUPPORTED_LAYOUTS \
@@ -62,16 +67,18 @@ def particle_update_cuda(particles: RecordArray, dt, *,
     (n,) = particles.space
     check_block(n, block)
     tile = aosoa_tile(n) if particles.layout is Layout.AOSOA else 1
-    out = torch.empty_like(particles.data)
+    dst = record_out(out, particles, "particle_update")
     lib = _build.load("particle", _SIGNATURES)
     with torch.cuda.device(particles.data.device):
         code = getattr(lib, f"particle_update_{sfx}")(
-            particles.data.data_ptr(), out.data_ptr(),
+            particles.data.data_ptr(), dst.data_ptr(),
             round_to(dt, particles.dtype), n, LAYOUT_CODE[particles.layout],
             tile, block, stream_of(particles.data))
     _build.check(lib, code, "particle_update")
     particle_update_cuda.launches += 1
-    return RecordArray(out, particles.spec, particles.layout)
+    if out is not None:
+        return out
+    return RecordArray(dst, particles.spec, particles.layout)
 
 
 particle_update_cuda.launches = 0

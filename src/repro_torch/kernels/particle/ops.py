@@ -16,21 +16,24 @@ from .ref import particle_update_ref
 __all__ = ["PARTICLE_SPEC", "particle_update", "particle_update_ref"]
 
 
-def _plain(particles, dt, *, block):
-    return particle_update_ref(particles, dt)
+def _plain(particles, dt, *, block, out=None):
+    return particle_update_ref(particles, dt, out=out)
 
 
-def particle_update(particles, dt, *, block=None, use_kernel: bool = True):
+def particle_update(particles, dt, *, block=None, use_kernel: bool = True,
+                    out=None):
     """``x += v * dt`` over a particle RecordArray (paper Table 3) — one
-    kernel body for AoS / SoA / AoSoA.  ``block=None`` resolves through the
-    ambient tile scope; the kernel path requires ``block`` to tile the
-    particles, on both devices."""
+    kernel body for AoS / SoA / AoSoA — into ``out`` when given
+    (``particles`` itself to update in place).  ``block=None`` resolves
+    through the ambient tile scope; the kernel path requires ``block`` to
+    tile the particles, on both devices."""
     block = resolve_tile(TILE_KERNEL, block, DEFAULT_BLOCK,
                          shape=particles.space)
     if not use_kernel:
-        return particle_update_ref(particles, dt)
+        return particle_update_ref(particles, dt, out=out)
     check_block(particles.space[0], block)
     fn = particle_update_cuda if on_cuda(particles.data) else _plain
     return dispatch_with_relayout(fn, particles, dt,
                                   supported=SUPPORTED_LAYOUTS,
-                                  preferred=PREFERRED_LAYOUT, block=block)
+                                  preferred=PREFERRED_LAYOUT, block=block,
+                                  out=out)

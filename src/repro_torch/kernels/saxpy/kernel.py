@@ -8,21 +8,26 @@ every index, the unchecked (NBC) variant runs its whole rounds of 16-byte
 vectors without the test and only the last, partial round with it.  The
 record form puts x and y in ONE record buffer, the layout axis of Table 2.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty``, launches on PyTorch's current stream and adds
-one to its ``launches`` count.
+Each wrapper checks device, dtype, shape and contiguity, writes into
+``out=`` (checked the same way) or else a new output from ``torch.empty``,
+launches on PyTorch's current stream and adds one to its ``launches``
+count.  Both kernels read and write each element in one thread, so
+``out`` may be the tensor they update (``y``, or the record itself): the
+CUDA sources promise no ``__restrict__`` between the two pointers.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ...core.layout import Layout, RecordArray, RecordSpec, aosoa_tile
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import LAYOUT_CODE, check_cuda_tensor, round_to, stream_of
+from .._common import (LAYOUT_CODE, check_cuda_tensor, check_out, record_out,
+                       round_to, stream_of)
 
 SAXPY_SPEC = RecordSpec.create("x", "y")
 SUPPORTED_LAYOUTS = (Layout.AOS, Layout.SOA, Layout.AOSOA)
@@ -55,13 +60,15 @@ def check_record_block(n: int, block: int) -> None:
 
 
 def saxpy_cuda(a, x: torch.Tensor, y: torch.Tensor, *, block: int = 1024,
-               bounds_check: bool = True) -> torch.Tensor:
+               bounds_check: bool = True,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``a * x + y`` over flat CUDA tensors; ``a`` is rounded to the
     working dtype first.  Any ``n``, and views at any offset.  ``block``
     keeps the reference's contract (``>= 1``) but sets no grid: the kernel
     sizes its grid to the work, capped by the SM count, and moves 16 bytes
     per load; a view off the 16-byte grid, such as ``x[1:]``, runs the
-    kernel's scalar loop."""
+    kernel's scalar loop.  ``out`` (``y`` itself for ``y += a * x``, or a
+    tensor apart from ``x`` and ``y``) receives the result."""
     sfx = check_cuda_tensor(x, "saxpy x")
     check_cuda_tensor(y, "saxpy y")
     if x.dim() != 1 or x.shape != y.shape or x.dtype != y.dtype \
@@ -70,7 +77,11 @@ def saxpy_cuda(a, x: torch.Tensor, y: torch.Tensor, *, block: int = 1024,
                          f"{tuple(y.shape)} {y.dtype} must be equal 1-d")
     if block < 1:
         raise ValueError(f"saxpy: block must be >= 1, got {block}")
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    else:
+        check_out(out, x.shape, x.dtype, x.device, "saxpy", apart=(x,),
+                  in_place=(y,))
     lib = _build.load("saxpy", _SIGNATURES)
     with torch.cuda.device(x.device):
         code = getattr(lib, f"saxpy_{sfx}")(
@@ -84,10 +95,12 @@ def saxpy_cuda(a, x: torch.Tensor, y: torch.Tensor, *, block: int = 1024,
 saxpy_cuda.launches = 0
 
 
-def saxpy_record_cuda(rec: RecordArray, a, *,
-                      block: int = 1024) -> RecordArray:
+def saxpy_record_cuda(rec: RecordArray, a, *, block: int = 1024,
+                      out: Optional[RecordArray] = None) -> RecordArray:
     """``y = a*x + y`` on a ``SAXPY_SPEC`` record on the GPU, in any of the
-    three layouts (x copied through)."""
+    three layouts (x copied through); into ``out`` when given, a record of
+    the same spec, space and layout (``rec`` itself to update it in
+    place)."""
     sfx = check_cuda_tensor(rec.data, "saxpy_record")
     if rec.spec != SAXPY_SPEC or rec.layout not in SUPPORTED_LAYOUTS \
             or len(rec.space) != 1:
@@ -96,15 +109,15 @@ def saxpy_record_cuda(rec: RecordArray, a, *,
     (n,) = rec.space
     check_record_block(n, block)
     tile = aosoa_tile(n) if rec.layout is Layout.AOSOA else 1
-    out = torch.empty_like(rec.data)
+    dst = record_out(out, rec, "saxpy_record")
     lib = _build.load("saxpy", _SIGNATURES)
     with torch.cuda.device(rec.data.device):
         code = getattr(lib, f"saxpy_record_{sfx}")(
-            rec.data.data_ptr(), out.data_ptr(), round_to(a, rec.dtype), n,
+            rec.data.data_ptr(), dst.data_ptr(), round_to(a, rec.dtype), n,
             LAYOUT_CODE[rec.layout], tile, block, stream_of(rec.data))
     _build.check(lib, code, "saxpy_record")
     saxpy_record_cuda.launches += 1
-    return RecordArray(out, rec.spec, rec.layout)
+    return out if out is not None else RecordArray(dst, rec.spec, rec.layout)
 
 
 saxpy_record_cuda.launches = 0

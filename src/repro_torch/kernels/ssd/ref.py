@@ -111,15 +111,18 @@ def ssd_chunked(x, dt, A, Bm, C, D=None, init_state=None, chunk: int = 64):
     return y.to(x.dtype), state
 
 
-def ssd_decode_step(state, xt, dtt, A, bt, ct, D=None):
+def ssd_decode_step(state, xt, dtt, A, bt, ct, D=None, *, out=None):
     """Single-token recurrent step for serving (constant memory).
 
-    state (B, H, P, N); xt (B, H, P); dtt (B, H); bt/ct (B, N)."""
+    state (B, H, P, N); xt (B, H, P); dtt (B, H); bt/ct (B, N).  The new
+    state goes into ``out`` when given (a float32 tensor of the state's
+    shape; ``state`` itself to update in place: each element is read
+    before it is written)."""
     state = state.to(f32)
     da = torch.exp(dtt.to(f32) * A.to(f32))
     upd = (dtt.to(f32)[..., None] * xt.to(f32))[..., None] \
         * bt.to(f32)[:, None, None, :]
-    state = state * da[..., None, None] + upd
+    state = torch.add(state * da[..., None, None], upd, out=out)
     yt = torch.einsum("bhpn,bn->bhp", state, ct.to(f32))
     if D is not None:
         yt = yt + xt.to(f32) * D.to(f32)[None, :, None]

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,7 +28,8 @@ from ...core.layout import Layout, RecordArray
 from ...physics.euler import EULER_SPEC
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import LAYOUT_CODE, check_cuda_tensor, round_to, stream_of
+from .._common import (LAYOUT_CODE, check_cuda_tensor, check_out, round_to,
+                       stream_of)
 
 SUPPORTED_LAYOUTS = (Layout.AOS, Layout.SOA)
 PREFERRED_LAYOUT = Layout.SOA
@@ -111,7 +112,8 @@ def flux_geometry(nx: int, ny: int) -> FluxGeometry:
                                       -(-nx // rows)))
 
 
-def _launch(fn: str, state_haloed: RecordArray, lam_x, lam_y) -> RecordArray:
+def _launch(fn: str, state_haloed: RecordArray, lam_x, lam_y,
+            out: Optional[RecordArray] = None) -> RecordArray:
     sfx = check_cuda_tensor(state_haloed.data, "flux_difference")
     if state_haloed.spec != EULER_SPEC \
             or state_haloed.layout not in SUPPORTED_LAYOUTS \
@@ -127,27 +129,43 @@ def _launch(fn: str, state_haloed: RecordArray, lam_x, lam_y) -> RecordArray:
             and state_haloed.data.data_ptr() % cell_bytes:
         raise ValueError(f"flux_difference: an AoS record needs a base "
                          f"aligned to its {cell_bytes}-byte cells")
-    out = torch.empty(
-        RecordArray.storage_shape(EULER_SPEC, (nx, ny), state_haloed.layout),
-        dtype=state_haloed.dtype, device=state_haloed.device)
+    shape = RecordArray.storage_shape(EULER_SPEC, (nx, ny),
+                                      state_haloed.layout)
+    if out is None:
+        dst = torch.empty(shape, dtype=state_haloed.dtype,
+                          device=state_haloed.device)
+    else:
+        if not isinstance(out, RecordArray) or out.spec != EULER_SPEC \
+                or out.layout is not state_haloed.layout:
+            raise ValueError(f"flux_difference: out must be an "
+                             f"{state_haloed.layout.name} EULER_SPEC "
+                             f"record, got {out!r}")
+        # the kernel reads neighbours' cells: out never aliases the input
+        check_out(out.data, shape, state_haloed.dtype, state_haloed.device,
+                  "flux_difference", apart=(state_haloed.data,))
+        dst = out.data
     lib = _build.load("stencil", _SIGNATURES)
     with torch.cuda.device(state_haloed.device):
         code = getattr(lib, f"{fn}_{sfx}")(
-            state_haloed.data.data_ptr(), out.data_ptr(), nx, ny,
+            state_haloed.data.data_ptr(), dst.data_ptr(), nx, ny,
             LAYOUT_CODE[state_haloed.layout],
             round_to(lam_x, state_haloed.dtype),
             round_to(lam_y, state_haloed.dtype), geo.rows_per_strip,
             geo.warps_per_block, *geo.grid, stream_of(state_haloed.data))
     _build.check(lib, code, fn)
-    return RecordArray(out, EULER_SPEC, state_haloed.layout)
+    if out is not None:
+        return out
+    return RecordArray(dst, EULER_SPEC, state_haloed.layout)
 
 
-def flux_difference_cuda(state_haloed: RecordArray, lam_x,
-                         lam_y) -> RecordArray:
+def flux_difference_cuda(state_haloed: RecordArray, lam_x, lam_y, *,
+                         out: Optional[RecordArray] = None) -> RecordArray:
     """Sum of FORCE flux differences over both dims of a haloed AoS or SoA
     ``EULER_SPEC`` record on the GPU; λ rounded to the working dtype,
-    arithmetic in float32, the result rounded once."""
-    out = _launch("flux_difference", state_haloed, lam_x, lam_y)
+    arithmetic in float32, the result rounded once.  ``out``, a record of
+    the interior's storage in the input's layout that lies apart from the
+    input, receives it."""
+    out = _launch("flux_difference", state_haloed, lam_x, lam_y, out)
     flux_difference_cuda.launches += 1
     return out
 

@@ -11,7 +11,7 @@ plain version.
 
 from typing import Optional
 
-from ...core.graph import Graph, concurrent_padded_access
+from ...core.graph import Graph, concurrent_padded_access, in_place
 from ...core.layout import dispatch_with_relayout
 from ...core.tensor import DistTensor
 from ...tuning.tiles import resolve_tile
@@ -25,23 +25,25 @@ __all__ = ["flux_difference", "flux_difference_ref", "fitting_block",
 
 
 def flux_difference(state_haloed, lam_x, lam_y, *, block=None,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, out=None):
     """Sum of FORCE flux differences over both dims of a haloed 2-D Euler
     record (paper Table 4): ``(nx+2, ny+2)`` space in, ``(nx, ny)`` out,
     layout polymorphic.  ``block=None`` resolves the reference's
     ``(bx, by)`` tile through the ambient tile scope; the kernel path
     requires it to divide the interior, on both devices;
-    ``use_kernel=False`` asks for the plain version on either device."""
+    ``use_kernel=False`` asks for the plain version on either device.
+    ``out`` (a record of the interior in the input's layout, apart from
+    the input) receives the result."""
     interior = tuple(s - 2 for s in state_haloed.space)
     block = resolve_tile(TILE_KERNEL, block, DEFAULT_BLOCK, shape=interior)
     if not use_kernel:
-        return flux_difference_ref(state_haloed, lam_x, lam_y)
+        return flux_difference_ref(state_haloed, lam_x, lam_y, out=out)
     check_block(interior, block)
     fn = flux_difference_cuda if on_cuda(state_haloed.data) \
         else flux_difference_ref
     return dispatch_with_relayout(fn, state_haloed, lam_x, lam_y,
                                   supported=SUPPORTED_LAYOUTS,
-                                  preferred=PREFERRED_LAYOUT)
+                                  preferred=PREFERRED_LAYOUT, out=out)
 
 
 def fitting_block(interior: tuple[int, int]) -> tuple[int, int]:
@@ -81,16 +83,18 @@ def make_flux_difference_graph(
     interior while they fly, then on the per-(axis, side) boundary strips,
     which are 1 cell thin.  An explicit ``block`` must tile every one of
     those extents; ``block=None`` takes the tile scope's or
-    :func:`fitting_block`'s per call."""
+    :func:`fitting_block`'s per call.  Under ``regions=True`` the node
+    writes ``out``'s static buffer (K4's ``out=``)."""
 
-    def flux_node(rec, _out):
+    @in_place                   # it never reads its second arg
+    def flux_node(rec, _out, out=None):
         tile = block
         if tile is None:
             interior = tuple(s - 2 for s in rec.space)
             if fitting_block(interior) != DEFAULT_BLOCK:
                 tile = fitting_block(interior)
         return flux_difference(rec, lam_x, lam_y, block=tile,
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, out=out)
 
     g = graph if graph is not None else Graph(name="flux_difference")
     g.split(flux_node, concurrent_padded_access(u), out, overlap=overlap)

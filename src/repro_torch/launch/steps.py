@@ -11,7 +11,10 @@ memoises the graphs so that a re-built worker hits its executable cache;
 here a graph rebuilt over the same ``params`` has the same plan signature
 (node closures are keyed by their values, large tensors by identity), so
 under ``regions=True`` a re-built worker's decode executor fetches its
-captured graph without memoising.
+captured graph without memoising.  Under ``regions=True`` the decode
+nodes take ``out=``: each attention layer writes its token's k/v into its
+cache's static buffer in place, each Mamba layer its SSD state, and the
+head the tokens and positions, so no cache is copied per step.
 Training steps and the sharded specs of the dry run are ROADMAP queues 5
 and 2.
 """
@@ -22,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core.graph import Graph
+from ..core.graph import Graph, in_place
 from ..core.layout import RecordArray
 from ..core.tensor import DistTensor
 from ..models import kvcache as kvc
@@ -126,15 +129,23 @@ def _embed_node(cfg: ModelConfig, params):
     return embed
 
 
+def _outs(out, n: int) -> tuple:
+    """A decode node's ``out=`` as one entry per written tensor."""
+    return (None,) * n if out is None else out
+
+
 def _attn_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
     gi, pi, kind = slot.group, slot.part, slot.kind
 
-    def layer(h_t, kv, pos):
+    @in_place   # the token's k/v land in the cache it reads (index_put_)
+    def layer(h_t, kv, pos, out=None):
         # the solver's layout arrives on the RecordArray; run the model
         # under it, so the model code stays layout-polymorphic
+        _, kv_out = _outs(out, 2)
         lcfg = cfg.with_(kv_layout=kv.layout)
-        h2, store = layer_decode(_slot_params(params, gi, pi), h_t, kind,
-                                 lcfg, cache=kv.data, pos=pos)
+        h2, store = layer_decode(
+            _slot_params(params, gi, pi), h_t, kind, lcfg, cache=kv.data,
+            pos=pos, cache_out=None if kv_out is None else kv_out.data)
         return h2, RecordArray(store, kv.spec, kv.layout)
 
     return layer
@@ -143,21 +154,26 @@ def _attn_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
 def _state_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
     gi, pi, kind = slot.group, slot.part, slot.kind
 
-    def layer(h_t, s0, s1, pos):
+    @in_place   # the SSD state is read, then written, element by element
+    def layer(h_t, s0, s1, pos, out=None):
+        _, s0_out, _ = _outs(out, 3)
         h2, (n0, n1) = layer_decode(_slot_params(params, gi, pi), h_t, kind,
-                                    cfg, cache=(s0, s1), pos=pos)
+                                    cfg, cache=(s0, s1), pos=pos,
+                                    cache_out=(s0_out, None))
         return h2, n0, n1
 
     return layer
 
 
 def _head_node(cfg: ModelConfig, params):
-    def head(h_t, tokens_t, pos, active):
+    @in_place
+    def head(h_t, tokens_t, pos, active, out=None):
+        tok_out, pos_out = _outs(out, 2)
         hn = norm_apply(params["final"], h_t, cfg, "ln")
         nxt = torch.argmax(lm_logits(params, hn, cfg), dim=-1).to(
             torch.int32)
-        nxt = torch.where(active, nxt, tokens_t)
-        return nxt, pos + active.to(torch.int32)
+        nxt = torch.where(active, nxt, tokens_t, out=tok_out)
+        return nxt, torch.add(pos, active.to(torch.int32), out=pos_out)
     return head
 
 

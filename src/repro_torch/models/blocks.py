@@ -139,16 +139,20 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                        dtype, cfg.kv_layout, cfg.kv_order, device)
 
 
-def fill_attn_cache(storage, k, v, cfg: ModelConfig):
-    """Write prefill k/v (B, S, Kv, hd) into a fresh cache."""
-    return kvc.kv_write_prefill(storage, k, v, cfg.kv_layout, cfg.kv_order)
+def fill_attn_cache(storage, k, v, cfg: ModelConfig, *, out=None):
+    """Write prefill k/v (B, S, Kv, hd) into a fresh cache (into ``out``
+    when given: ``storage`` itself to fill it in place)."""
+    return kvc.kv_write_prefill(storage, k, v, cfg.kv_layout, cfg.kv_order,
+                                out=out)
 
 
-def attention_decode(p, h_t, cache, pos, cfg: ModelConfig):
+def attention_decode(p, h_t, cache, pos, cfg: ModelConfig, *,
+                     cache_out=None):
     """One-token global attention.  h_t (B, d); cache = KV storage; pos =
     the incoming token's position: a scalar (uniform batch) or a (B,)
     vector of per-slot positions (continuous batching).  Returns (out,
-    cache)."""
+    cache); the token's k/v are written into ``cache_out`` when given
+    (``cache`` itself: in place), else into a new cache."""
     B, d = h_t.shape
     cdt = h_t.dtype
     pos = torch.as_tensor(pos, dtype=torch.int32, device=h_t.device)
@@ -172,7 +176,7 @@ def attention_decode(p, h_t, cache, pos, cfg: ModelConfig):
     q = apply_rope(q[:, None], cos, sin, mode=cfg.rope_mode)[:, 0]
     k_t = apply_rope(k_t[:, None], cos, sin, mode=cfg.rope_mode)[:, 0]
     cache = kvc.kv_write_token(cache, k_t, v_t, pos, cfg.kv_layout,
-                               cfg.kv_order)
+                               cfg.kv_order, out=cache_out)
     cache_len = (pos + 1).expand(B) if not ragged else pos + 1
     k, v = kvc.kv_read(cache, cfg.head_dim, cfg.kv_layout, cfg.kv_order)
     fmt = "bshd" if cfg.kv_order == "bsh" else "bhsd"
@@ -268,14 +272,18 @@ def layer_forward(p, h, kind: str, cfg: ModelConfig, *,
     return h, cache
 
 
-def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos):
-    """One-token layer step; returns (h_t, new_cache)."""
+def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
+                 cache_out=None):
+    """One-token layer step; returns (h_t, new_cache).  ``cache_out`` is
+    where the new cache goes (the KV storage, or a Mamba layer's pair
+    with None where a new tensor is made), else a new one."""
     _refuse_kind(kind)
     x = norm_apply(p, h_t, cfg, "ln_mix")
     if kind == "A":
-        out, cache = attention_decode(p["attn"], x, cache, pos, cfg)
+        out, cache = attention_decode(p["attn"], x, cache, pos, cfg,
+                                      cache_out=cache_out)
     else:
-        out, cache = mamba2_decode(p["mamba"], x, cache)
+        out, cache = mamba2_decode(p["mamba"], x, cache, out=cache_out)
     h_t = h_t + out
     if cfg.d_ff:
         h_t = h_t + ffn_forward(p["ffn"], norm_apply(p, h_t, cfg, "ln_ffn"),

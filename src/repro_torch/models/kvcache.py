@@ -12,7 +12,11 @@ in the port's ``RecordArray`` layouts:
 
 Storage shapes equal the JAX package's (``repro.models.kvcache``), so a
 cache converts between the two bit for bit.  Writes return a new tensor
-and leave their input alone, as the JAX functions do.
+and leave their input alone, as the JAX functions do, unless given
+``out=``: then they write into it (the cache itself, as the decode graph
+does under ``regions=True``, where the executor hands the layer's node its
+cache's static buffer) and clone nothing, as the reference's
+``dynamic_update_slice`` does under donation.
 """
 
 from __future__ import annotations
@@ -57,26 +61,58 @@ def kv_read(storage: torch.Tensor, head_dim: int,
     return rec.field("k"), rec.field("v")
 
 
+def _target(storage: torch.Tensor, out) -> torch.Tensor:
+    """Where a write lands: a clone of ``storage``, or ``out`` holding
+    ``storage``'s values (nothing to copy when it is ``storage``)."""
+    if out is None:
+        return storage.clone()
+    if out.shape != storage.shape or out.dtype != storage.dtype \
+            or out.device != storage.device:
+        raise ValueError(f"kv cache write: out is {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}, the cache "
+                         f"{tuple(storage.shape)} {storage.dtype} on "
+                         f"{storage.device}")
+    if out.data_ptr() != storage.data_ptr():
+        out.copy_(storage)
+    return out
+
+
 def kv_write_prefill(storage: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, layout: Layout = Layout.AOS,
-                     order: str = "bsh") -> torch.Tensor:
+                     order: str = "bsh", *, out=None) -> torch.Tensor:
     """The cache with its first S_in positions written from prefill k/v
-    (B, S_in, Hkv, hd).  AoSoA stages through the AoS view, since the
-    written region need not be tile-aligned."""
+    (B, S_in, Hkv, hd), into ``out`` when given (``storage`` itself to
+    write in place).  Without ``out``, AoSoA stages through the AoS view,
+    since the written region need not be tile-aligned; with it, the
+    tiled dim's whole tiles and then its partial tile are written."""
     hd = k.shape[-1]
     kv = torch.cat([k, v], dim=-1).to(storage.dtype)
     if order == "bhs":
         kv = kv.transpose(1, 2)                      # (B, Hkv, S_in, 2hd)
     spec = kv_spec(hd)
     if layout is Layout.AOSOA:
-        aos = relayout_data(storage, spec, Layout.AOSOA, Layout.AOS).clone()
-        aos[tuple(slice(0, n) for n in kv.shape)] = kv
-        return relayout_data(aos, spec, Layout.AOS, Layout.AOSOA)
-    out = storage.clone()
+        if out is None:
+            aos = relayout_data(storage, spec, Layout.AOSOA,
+                                Layout.AOS).clone()
+            aos[tuple(slice(0, n) for n in kv.shape)] = kv
+            return relayout_data(aos, spec, Layout.AOS, Layout.AOSOA)
+        dst = _target(storage, out)
+        # the tiled (last) space dim's prefix: its whole tiles, then the
+        # part of the next one
+        lead = tuple(slice(0, n) for n in kv.shape[:-2])
+        full, rem = divmod(kv.shape[-2], dst.shape[-1])
+        if full:
+            dst[lead + (slice(0, full),)] = kv[..., :full * dst.shape[-1], :] \
+                .unflatten(-2, (full, dst.shape[-1])).transpose(-1, -2)
+        if rem:
+            dst[lead + (full, slice(None), slice(0, rem))] = \
+                kv[..., full * dst.shape[-1]:, :].transpose(-1, -2)
+        return dst
+    dst = _target(storage, out)
     if layout is Layout.SOA:
         kv = torch.movedim(kv, -1, 0)
-    out[tuple(slice(0, n) for n in kv.shape)] = kv
-    return out
+    dst[tuple(slice(0, n) for n in kv.shape)] = kv
+    return dst
 
 
 def _aosoa_tilefold(kv: torch.Tensor, tile: int) -> torch.Tensor:
@@ -87,10 +123,11 @@ def _aosoa_tilefold(kv: torch.Tensor, tile: int) -> torch.Tensor:
 
 def kv_write_token(storage: torch.Tensor, k_t: torch.Tensor,
                    v_t: torch.Tensor, pos, layout: Layout = Layout.AOS,
-                   order: str = "bsh") -> torch.Tensor:
+                   order: str = "bsh", *, out=None) -> torch.Tensor:
     """The cache with one token's k/v (B, Hkv, hd) written at sequence
     slot ``pos``: a scalar (the whole batch at one position) or a (B,)
-    vector of per-slot positions (continuous batching)."""
+    vector of per-slot positions (continuous batching); into ``out`` when
+    given (``storage`` itself to write in place)."""
     kv = torch.cat([k_t, v_t], dim=-1).to(storage.dtype)
     B, H, C = kv.shape
     pos = torch.as_tensor(pos, device=storage.device).long()
@@ -98,7 +135,7 @@ def kv_write_token(storage: torch.Tensor, k_t: torch.Tensor,
         pos = pos.expand(B)
     b = torch.arange(B, device=storage.device)
     h = torch.arange(H, device=storage.device)
-    out = storage.clone()
+    out = _target(storage, out)
     if order == "bsh":
         if layout is Layout.AOS:                     # (B, S, Hkv, 2hd)
             out[b, pos] = kv

@@ -143,7 +143,7 @@ def _prefill_to_decode_cache(raw, kind, cfg: ModelConfig, batch, max_seq,
     if kind == "A":
         k, v = raw
         store = make_attn_cache(cfg, batch, max_seq, dtype, device)
-        return fill_attn_cache(store, k, v, cfg)
+        return fill_attn_cache(store, k, v, cfg, out=store)   # fresh: no clone
     return raw   # Mamba states are decode-ready
 
 

@@ -136,9 +136,11 @@ def mamba2_forward(p, x: torch.Tensor, *, chunk: int = 128,
     return out, (state, new_conv_state)
 
 
-def mamba2_decode(p, xt: torch.Tensor, state):
+def mamba2_decode(p, xt: torch.Tensor, state, *, out=None):
     """One-token step.  xt (B, d); state = (ssd_state (B,H,P,N),
-    conv_state (B, K-1, HP+2N))."""
+    conv_state (B, K-1, HP+2N)).  ``out`` = (ssd_out, conv_out): the new
+    SSD state goes into ``ssd_out`` when it is given (``ssd_state`` itself:
+    in place); the conv window's shift is always a new tensor."""
     ssd_state, conv_state = state
     B, d = xt.shape
     H, P = p["wz"].shape[1], p["wz"].shape[2]
@@ -163,7 +165,8 @@ def mamba2_decode(p, xt: torch.Tensor, state):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     new_ssd, yt = ssd_decode_step(ssd_state, xh, dt, A, Bm, C,
-                                  D=p["D"].float())
+                                  D=p["D"].float(),
+                                  out=None if out is None else out[0])
     yt = _gated_head_norm(yt, z, p["norm"])
     out = torch.einsum("bhp,hpd->bd", yt, p["wo"].to(yt.dtype))
     return out, (new_ssd, new_conv_state)

@@ -34,7 +34,7 @@ import torch
 
 from .core import (Boundary, DistTensor, ExecutionKind, Executor, Graph,
                    Layout, MaxReducer, Mesh, RecordArray, ReductionResult,
-                   SumReducer, exclusive_padded_access,
+                   SumReducer, exclusive_padded_access, in_place,
                    make_reduction_result)
 from .kernels.eikonal.ops import make_eikonal_graph
 from .kernels.particle.ops import PARTICLE_SPEC, particle_update
@@ -58,10 +58,12 @@ def build_saxpy_graph(n: int, a: float, *, block: int = 1024,
     y_bc = DistTensor("y_bc", (n,))
     y_nbc = DistTensor("y_nbc", (n,))
     g = Graph(name="saxpy_probe")
-    g.split(lambda xv, yv: saxpy(a, xv, yv, block=block, bounds_check=True,
-                                 use_kernel=use_kernel), x, y_bc)
-    g.split(lambda xv, yv: saxpy(a, xv, yv, block=block, bounds_check=False,
-                                 use_kernel=use_kernel), x, y_nbc)
+    g.split(in_place(lambda xv, yv, out=None: saxpy(
+        a, xv, yv, block=block, bounds_check=True, use_kernel=use_kernel,
+        out=out)), x, y_bc)
+    g.split(in_place(lambda xv, yv, out=None: saxpy(
+        a, xv, yv, block=block, bounds_check=False, use_kernel=use_kernel,
+        out=out)), x, y_nbc)
     return g, (x, y_bc, y_nbc)
 
 
@@ -75,15 +77,17 @@ def build_particle_graph(n: int, *, block: int = 512, dt: float = DT,
     field = DistTensor("field", (n,), spec=SAXPY_SPEC, layout=Layout.SOA)
     vmax = make_reduction_result("vmax")
 
-    def push(r):
-        return particle_update(r, dt, block=block, use_kernel=use_kernel)
+    @in_place
+    def push(r, out=None):
+        return particle_update(r, dt, block=block, use_kernel=use_kernel,
+                               out=out)
 
     g = Graph(name="particle_step")
     g.split(push, ions, writes=(0,))
     g.then_split(push, electrons, writes=(0,))
-    g.then_split(lambda r: saxpy_record(r, dt, block=block,
-                                        use_kernel=use_kernel),
-                 field, writes=(0,))
+    g.then_split(in_place(lambda r, out=None: saxpy_record(
+        r, dt, block=block, use_kernel=use_kernel, out=out)),
+        field, writes=(0,))
     g.then_reduce(ions, vmax, MaxReducer(), field="v")
     return g, (ions, electrons, field), vmax
 
@@ -112,15 +116,21 @@ def build_particle_diagnostic_graph(n: int, record, *, block: int = 512,
     t = DistTensor("t", (1,))
     vmax = make_reduction_result("vmax")
 
-    def push(r):
-        return particle_update(r, dt, block=block, use_kernel=use_kernel)
+    @in_place
+    def push(r, out=None):
+        return particle_update(r, dt, block=block, use_kernel=use_kernel,
+                               out=out)
 
     def diagnostic(v, clock):
         record(float(clock[0]), float(v))
 
-    def advance(r, clock):
-        return (saxpy_record(r, dt, block=block, use_kernel=use_kernel),
-                clock + dt)
+    @in_place
+    def advance(r, clock, out=None):
+        r_out, clock_out = (None, None) if out is None else out
+        return (saxpy_record(r, dt, block=block, use_kernel=use_kernel,
+                             out=r_out),
+                clock + dt if clock_out is None
+                else torch.add(clock, dt, out=clock_out))
 
     g = Graph(name="particle_step_diagnostic")
     g.split(push, ions, writes=(0,))
@@ -226,14 +236,16 @@ def build_eikonal_graph(n: int, *, inner: int = 4, block=(8, 128),
         phi.validate_mesh(mesh)
     res = make_reduction_result("res", init=float("inf"))
     body = Graph(name="fim_iteration")
-    # phi_prev aliases phi here; under regions=True, whose graphs write
-    # state back in place, the executor handles it (the copy of phi_prev
-    # precedes phi's)
-    body.split(lambda p, _prev: p, phi, phi_prev)
+    # eagerly phi_prev aliases phi; under regions=True phi_prev's buffer
+    # takes a copy of phi, so that the sweep writes phi's buffer in place
+    body.split(in_place(lambda p, _prev, out=None:
+                        p if out is None else out.copy_(p)), phi, phi_prev)
     body.then(make_eikonal_graph(phi, mask, 1.0 / n, inner=inner,
                                  block=block, overlap=False,
                                  use_kernel=use_kernel))
-    body.then_split(lambda p, q, _d: torch.abs(p - q), phi, phi_prev, change)
+    body.then_split(in_place(lambda p, q, _d, out=None:
+                             torch.abs(p - q, out=out)),
+                    phi, phi_prev, change)
     body.then_reduce(change, res, MaxReducer())
     converging = Converging(res, max_iters)
     body.conditional(converging)
@@ -265,7 +277,7 @@ def eikonal_distance(n: int) -> np.ndarray:
 
 def build_euler_solver(nx: int, ny: int, mesh: Mesh = None,
                        overlap: bool = False, unsplit: bool = False, *,
-                       cfl: float = 0.4, device=None):
+                       cfl: float = 0.4, device=None, **executor_opts):
     """The 2-D Euler shock-bubble solver of the JAX package's
     ``examples/euler2d.py`` (``build_solver``) as one graph, built once and
     run many times (paper Listing 12): per step the wavespeed field, its
@@ -278,7 +290,8 @@ def build_euler_solver(nx: int, ny: int, mesh: Mesh = None,
     On a 2-axis ``mesh`` the grid is split over both dims (its axes in
     order), on a 1-axis mesh over y (the paper splits the higher dim);
     ``overlap=True`` asks each update for the interior/boundary lowering.
-    Returns ``(executor, u)``."""
+    ``executor_opts`` go to the :class:`Executor` (``regions=True``,
+    ``donate=``).  Returns ``(executor, u)``."""
     dx, dy = 2.0 / nx, 1.0 / ny
     partition = (None, None)
     if mesh is not None:
@@ -327,4 +340,4 @@ def build_euler_solver(nx: int, ny: int, mesh: Mesh = None,
                      writes=(0,), overlap=overlap)
         g.then_split(update_y, exclusive_padded_access(uy), smax,
                      writes=(0,), overlap=overlap)
-    return Executor(g, device, mesh=mesh), u
+    return Executor(g, device, mesh=mesh, **executor_opts), u

@@ -947,3 +947,99 @@ def test_make_mesh_on_the_card(dev):
         make_mesh((k + 1,), ("d",))
     with pytest.raises(RuntimeError, match="does not exist"):
         make_mesh((1,), ("d",), devices=[f"cuda:{k}"])
+
+
+# -- outputs written in place: out= on the card, regions on a mesh ------------
+
+@pytest.mark.parametrize("layout", list(Layout))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_write_out_and_in_place_bit_for_bit(dev, dtype, layout):
+    """K1-K3 with ``out`` apart from their inputs and ``out`` the updated
+    input itself (their CUDA pointers carry no ``__restrict__``), K4 and K5
+    with ``out`` apart: each bit for bit the fresh-output call."""
+    from repro_torch.kernels.particle.kernel import particle_update_cuda
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+    from repro_torch.kernels.saxpy.kernel import (saxpy_cuda,
+                                                  saxpy_record_cuda)
+    from repro_torch.kernels.saxpy.ops import SAXPY_SPEC
+
+    x = _randn(dev, dtype, 2**20 + 3, seed=1)
+    y = _randn(dev, dtype, 2**20 + 3, seed=2)
+    want = saxpy_cuda(1.75, x, y)
+    out = torch.empty_like(y)
+    assert saxpy_cuda(1.75, x, y, out=out) is out
+    assert torch.equal(out, want)
+    assert saxpy_cuda(1.75, x, y, out=y) is y
+    assert torch.equal(y, want)
+    for fn, spec, c in ((saxpy_record_cuda, SAXPY_SPEC, 2),
+                        (particle_update_cuda, PARTICLE_SPEC, 6)):
+        rec = RecordArray(_randn(dev, dtype, c, 2**16, seed=3), spec,
+                          Layout.SOA).with_layout(layout)
+        want = fn(rec, 0.01)
+        apart = RecordArray(torch.empty_like(rec.data), spec, layout)
+        assert fn(rec, 0.01, out=apart) is apart
+        assert torch.equal(apart.data, want.data)
+        assert fn(rec, 0.01, out=rec) is rec
+        assert torch.equal(rec.data, want.data)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stencil_kernels_write_out_bit_for_bit(dev, dtype):
+    from repro_torch.kernels.eikonal.kernel import eikonal_fim_cuda
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    u = shock_bubble_init(256, 384, device=dev).to(getattr(torch, dtype))
+    for ax in (1, 2):
+        u = pad_boundary_only(u, axis=ax, width=1,
+                              boundary=Boundary.TRANSMISSIVE)
+    for layout in (Layout.AOS, Layout.SOA):
+        rec = RecordArray(u, EULER_SPEC, Layout.SOA).with_layout(layout)
+        want = flux_difference_cuda(rec, 0.1, 0.05)
+        out = RecordArray(torch.empty_like(want.data), EULER_SPEC, layout)
+        assert flux_difference_cuda(rec, 0.1, 0.05, out=out) is out
+        assert torch.equal(out.data, want.data)
+        with pytest.raises(ValueError, match="overlaps an input"):
+            flux_difference_cuda(rec, 0.1, 0.05, out=RecordArray(
+                rec.data.reshape(-1)[:want.data.numel()].view(
+                    want.data.shape), EULER_SPEC, layout))
+    g = torch.Generator(device=dev).manual_seed(4)
+    phi = torch.rand(258, 514, generator=g, device=dev).to(
+        getattr(torch, dtype))
+    mask = torch.rand(256, 512, generator=g, device=dev) < 0.05
+    want = eikonal_fim_cuda(phi, mask, 1 / 256, inner=4, block=(8, 128))
+    out = torch.empty_like(want)
+    assert eikonal_fim_cuda(phi, mask, 1 / 256, inner=4, block=(8, 128),
+                            out=out) is out
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_region_capture_on_a_one_card_mesh(dev, overlap, donate):
+    """Four shards of cuda:0 under ``regions=True``: the step is one
+    captured graph holding every shard's K4 (and, overlapped, the copy
+    stream's block copies as branches), bit for bit the eager mesh run;
+    later calls replay it without calling the wrapper."""
+    from repro_torch.core import clear_executable_cache
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.physics.euler import shock_bubble_init
+
+    clear_executable_cache()
+    mesh = _card_mesh((2, 2), ("gx", "gy"))
+    g, (_, out) = workloads.build_flux_graph(128, 256, mesh=mesh,
+                                             overlap=overlap)
+    u0 = shock_bubble_init(128, 256, device=dev)
+    eager = Executor(g, mesh=mesh)
+    want = eager.read(eager.run(eager.init_state(u=u0), 3), out).data
+    ex = Executor(g, mesh=mesh, regions=True, donate=donate)
+    got = ex.read(ex.run(ex.init_state(u=u0), 3), out).data
+    assert torch.equal(got, want)
+    stats = ex.cache_stats()
+    assert stats["trace_events"] == 1 and stats["copy_backs"] == 0
+    flux_difference_cuda.launches = 0
+    got = ex.read(ex.run(ex.init_state(u=u0), 3), out).data
+    assert flux_difference_cuda.launches == 0
+    assert torch.equal(got, want)
+    assert ex.cache_stats() == stats
+    clear_executable_cache()

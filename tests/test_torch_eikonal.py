@@ -27,14 +27,18 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-3, 1.6e-2)}
 
 def _inputs(shape, dtype, seed=0):
     """A haloed phi with values spread over a few cells' distance (both
-    Godunov branches, pinned sources among them) and a ~5 % source mask."""
+    Godunov branches, pinned sources among them) and a ~5 % source mask.
+    Each package gets its own copy: on the CPU ``jnp.asarray`` takes a
+    64-byte-aligned numpy buffer without copying it, so a tensor from
+    ``torch.from_numpy`` of the same array would be JAX's buffer too."""
     rng = np.random.default_rng(seed)
     nx, ny = shape
     phi = rng.uniform(0.0, 8.0 / nx, (nx + 2, ny + 2)).astype(np.float32)
     mask = rng.random(shape) < 0.05
-    return ((jnp.asarray(phi).astype(getattr(jnp, dtype)), jnp.asarray(mask)),
-            (torch.from_numpy(phi).to(getattr(torch, dtype)),
-             torch.from_numpy(mask)))
+    return ((jnp.array(phi, copy=True).astype(getattr(jnp, dtype)),
+             jnp.array(mask, copy=True)),
+            (torch.from_numpy(phi.copy()).to(getattr(torch, dtype)),
+             torch.from_numpy(mask.copy())))
 
 
 def _close(got, want, tol):

@@ -380,13 +380,16 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
 @pytest.mark.parametrize("option", ["mesh", "partition"])
 def test_unported_options_raise_with_their_roadmap_item(option):
     """What is left of the mesh refuses with its ROADMAP item: region
-    compile on a mesh ("mesh"), and measured tuning of a partitioned
-    graph on a mesh ("partition")."""
+    compile on a mesh over several cards ("mesh", item 8's 3(c); the
+    refusal comes before any card is touched), and measured tuning of a
+    partitioned graph on a mesh ("partition", 3(b))."""
     mesh = port.make_mesh((4,), ("d",), devices=["cpu"] * 4)
     t = port.DistTensor("p", (64,), partition=("d",))
     g = port.Graph(name="part").split(lambda x: x, t)
-    kw, item = {}, {"mesh": "item 8", "partition": "item 8"}[option]
+    kw, item = {}, {"mesh": "item 8, 3\\(c\\)",
+                    "partition": "item 8, 3\\(b\\)"}[option]
     if option == "mesh":
+        mesh = port.Mesh({"d": 2}, ["cuda:0", "cuda:1"])
         kw["regions"] = True
     else:
         kw["tune"] = "auto"

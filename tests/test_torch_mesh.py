@@ -20,6 +20,7 @@ same values; a sum over shards folds in another order, so within
 float32 1e-6 relative), a conditional loop over partitioned tensors, the
 mesh's placement helpers and its refusals."""
 
+import gc
 import json
 import warnings
 
@@ -584,8 +585,7 @@ def test_make_mesh_refuses_cards_that_do_not_exist():
     assert mesh.neighbour(0, "b", -1, wrap=True) == 1
 
 
-@pytest.mark.parametrize("kw", [{"regions": True}, {"tune": "auto"},
-                                {"tune": "load"}])
+@pytest.mark.parametrize("kw", [{"tune": "auto"}, {"tune": "load"}])
 def test_what_is_left_of_the_mesh_raises_with_its_roadmap_item(kw):
     mesh = _mesh((2,), ("d",))
     t = port.DistTensor("t", (8,), partition=("d",))
@@ -628,3 +628,257 @@ def test_the_ladder_and_the_schedules_work_on_a_mesh(schedule):
     assert [d.site for d in ex.plan.degradations] == ["halo.block"]
     got = ex.read(ex.run(state, 3), u).data
     assert torch.equal(got, want)
+
+
+# -- region compile on the mesh (regions=True) --------------------------------
+#
+# On a CPU mesh the pieces run through the same code and static buffers as
+# on the card (one buffer per shard), without capture; each case equals
+# regions=False bit for bit and the reference's default
+# Executor(mesh=..., regions=True) at the tolerances above.
+
+def _regions(g, mesh, donate, **kw):
+    return port.Executor(g, mesh=mesh, regions=True, donate=donate, **kw)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_regions_halo_exchange_1d(jax_side, overlap, donate):
+    mesh = _mesh((4,), ("gx",))
+    src = port.DistTensor("src", (64,), partition=("gx",), halo=(1,),
+                          boundary=port.Boundary.TRANSMISSIVE)
+    dst = port.DistTensor("dst", (64,), partition=("gx",))
+    g = port.Graph()
+    g.split(_diff, port.concurrent_padded_access(src), dst, overlap=overlap)
+    x0 = torch.arange(64, dtype=torch.float32) ** 2
+    eager = port.Executor(g, mesh=mesh)
+    want = eager.read(eager(eager.init_state(src=x0)), dst)
+    ex = _regions(g, mesh, donate)
+    st = ex(ex.init_state(src=x0))
+    assert isinstance(st["dst"], port.ShardedArray)
+    got = ex.read(st, dst)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), jax_side[f"halo1d-{overlap}"])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("boundary", list(port.Boundary))
+def test_regions_halo_corners_2d_all_policies(jax_side, boundary, overlap):
+    mesh = _mesh((4, 2), ("gx", "gy"))
+    src = port.DistTensor("src", (16, 12), partition=("gx", "gy"),
+                          halo=(1, 2), boundary=boundary,
+                          boundary_constant=3.5)
+    dst = port.DistTensor("dst", (16, 12), partition=("gx", "gy"))
+    g = port.Graph()
+    g.split(_sten, port.concurrent_padded_access(src), dst, overlap=overlap)
+    x0 = _t(jax_side["corners-x0"])
+    eager = port.Executor(g, mesh=mesh)
+    want = eager.read(eager(eager.init_state(src=x0)), dst)
+    ex = _regions(g, mesh, True)
+    for _ in range(2):
+        got = ex.read(ex(ex.init_state(src=x0)), dst)
+        assert torch.equal(got, want)
+    np.testing.assert_allclose(
+        got.numpy(), jax_side[f"corners-{boundary.name}-{overlap}"],
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("unsplit", [False, True])
+def test_regions_euler_2d_matches_eager_and_reference(jax_side, unsplit,
+                                                      overlap, donate):
+    mesh = _mesh((2, 4), ("gx", "gy"))
+    u0 = _t(jax_side["euler-U0"])
+    eager, u = workloads.build_euler_solver(64, 32, mesh=mesh,
+                                            overlap=overlap, unsplit=unsplit)
+    want = eager.run(eager.init_state(u=u0), 5)
+    ex, _ = workloads.build_euler_solver(64, 32, mesh=mesh, overlap=overlap,
+                                         unsplit=unsplit, regions=True,
+                                         donate=donate)
+    st = ex.run(ex.init_state(u=u0), 5)
+    assert torch.equal(ex.read(st, u).data, eager.read(want, u).data)
+    for k in ("smax", "mass"):
+        assert torch.equal(st[k], want[k])
+    key = f"euler-{unsplit}-False"
+    np.testing.assert_allclose(ex.read(st, u).data.numpy(), jax_side[key],
+                               rtol=1e-5, atol=1e-6)
+    assert float(st["smax"]) == pytest.approx(float(jax_side[key + "-smax"]),
+                                              rel=1e-5)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_regions_kernel_graphs_2d(jax_side, overlap):
+    """The flux and eikonal graph functions on (2, 4) under regions: K4's
+    and K5's plain versions write each shard's buffer (``out=``; the
+    overlapped lowering stitches into it), bit for bit the eager mesh
+    run."""
+    mesh = _mesh((2, 4), ("gx", "gy"))
+    u = port.DistTensor("u", (32, 16), spec=EULER_SPEC,
+                        layout=port.Layout.SOA, partition=("gx", "gy"),
+                        halo=(1, 1), boundary=port.Boundary.TRANSMISSIVE)
+    du = port.DistTensor("du", (32, 16), spec=EULER_SPEC,
+                         layout=port.Layout.SOA, partition=("gx", "gy"))
+    g = make_flux_difference_graph(u, du, 0.1, 0.2, overlap=overlap)
+    u0 = _t(jax_side["flux-U0"])
+    eager = port.Executor(g, mesh=mesh)
+    want = eager.read(eager(eager.init_state(u=u0)), du).data
+    ex = _regions(g, mesh, True)
+    got = ex.read(ex(ex.init_state(u=u0)), du).data
+    assert torch.equal(got, want)
+    assert ex.cache_stats()["copy_backs"] == 0
+    np.testing.assert_allclose(got.numpy(), jax_side[f"flux-{overlap}"],
+                               rtol=1e-5, atol=1e-6)
+
+    phi0 = torch.full((32, 16), 10.0)
+    phi0[16, 8] = 0.0
+    mask0 = torch.zeros((32, 16), dtype=torch.bool)
+    mask0[16, 8] = True
+    phi = port.DistTensor("phi", (32, 16), partition=("gx", "gy"),
+                          halo=(1, 1))
+    mask = port.DistTensor("mask", (32, 16), dtype=torch.bool,
+                           partition=("gx", "gy"))
+    g = make_eikonal_graph(phi, mask, 1.0 / 32, overlap=overlap)
+    eager = port.Executor(g, mesh=mesh)
+    want = eager.read(eager.run(eager.init_state(phi=phi0, mask=mask0), 6),
+                      phi)
+    ex = _regions(g, mesh, False)
+    got = ex.read(ex.run(ex.init_state(phi=phi0, mask=mask0), 6), phi)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), jax_side[f"eikonal-{overlap}"],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["SOA", "AOS"])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_regions_flux_on_a_mesh_is_bitwise_the_unsharded_run(layout,
+                                                             overlap):
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    lay = port.Layout[layout]
+    g, (u, out) = workloads.build_flux_graph(16, 24, layout=lay, mesh=mesh,
+                                             overlap=overlap)
+    g0, _ = workloads.build_flux_graph(16, 24, layout=lay)
+    u0 = shock_bubble_init(16, 24, device="cpu")
+    ex0 = port.Executor(g0, device="cpu")
+    want = ex0.read(ex0.run(ex0.init_state(u=u0), 2), out).data
+    for donate in (False, True):
+        ex = _regions(g, mesh, donate)
+        got = ex.read(ex.run(ex.init_state(u=u0), 2), out).data
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_regions_eikonal_solve_loops_over_partitioned_tensors(donate):
+    """The conditional loop under regions on a mesh: one piece for the
+    body, built once; the solve takes the unsharded iterations and ends
+    at its phi bit for bit; a second solve and a second executor build
+    nothing."""
+    mesh = _mesh((2, 4), ("gx", "gy"))
+    inp = workloads.eikonal_inputs(32)
+    init = {"phi": torch.from_numpy(inp["phi"]),
+            "mask": torch.from_numpy(inp["mask"])}
+    g0, (phi, _), conv0 = workloads.build_eikonal_graph(
+        32, inner=4, block=(4, 8), max_iters=200)
+    ex0 = port.Executor(g0, device="cpu")
+    want = ex0.read(ex0(ex0.init_state(**init)), phi)
+    g, _, conv = workloads.build_eikonal_graph(32, inner=4, block=(4, 8),
+                                               mesh=mesh, max_iters=200)
+    ex = _regions(g, mesh, donate)
+    st = ex(ex.init_state(**init))
+    assert conv.iterations == conv0.iterations > 0
+    assert float(st["res"]) == 0.0
+    assert torch.equal(ex.read(st, phi), want)
+    built = port.executable_cache_stats()["trace_events"]
+    assert ex.cache_stats()["copy_backs"] == 0
+    st = ex(ex.init_state(**init))
+    assert torch.equal(ex.read(st, phi), want)
+    del ex, st    # under donate=True a live executor keeps its entry
+    gc.collect()
+    again = _regions(g, mesh, donate)
+    assert torch.equal(again.read(again(again.init_state(**init)), phi), want)
+    assert port.executable_cache_stats()["trace_events"] == built
+
+
+@pytest.mark.parametrize("reducer", ["SumReducer", "MaxReducer",
+                                     "MaximumReducer", "OrReducer"])
+def test_regions_reductions_fold_the_shards(reducer):
+    mesh = _mesh((2, 2), ("a", "b"))
+    rng = np.random.default_rng(3)
+    is_int = reducer == "OrReducer"
+    x0 = (rng.integers(0, 64, (8, 6)).astype(np.int32) if is_int
+          else rng.uniform(0.5, 1.5, (8, 6)).astype(np.float32))
+    dtype = torch.int32 if is_int else torch.float32
+    for partition in (("a", "b"), ("a", None)):
+        t = port.DistTensor("t", (8, 6), dtype=dtype, partition=partition)
+        r = port.make_reduction_result("r", dtype=dtype)
+        g = port.Graph().reduce(t, r, getattr(port, reducer)())
+        eager = port.Executor(g, mesh=mesh)
+        want = eager(eager.init_state(t=torch.from_numpy(x0)))["r"]
+        ex = _regions(g, mesh, True)
+        assert torch.equal(ex(ex.init_state(t=torch.from_numpy(x0)))["r"],
+                           want)
+
+
+def test_regions_host_node_on_a_mesh():
+    """A host node between device regions on a mesh: it reads the gathered
+    value of its step, async and sync, as the eager mesh run does."""
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    seen = {}
+    for mode in ("eager", "sync", "async"):
+        log = seen[mode] = []
+
+        class Log:
+            def __call__(self, x, s):
+                log.append((float(x.sum()), float(s)))
+
+        u = port.DistTensor("u", (8, 8), partition=("gx", "gy"), halo=(1, 1))
+        v = port.DistTensor("v", (8, 8), partition=("gx", "gy"))
+        s = port.make_reduction_result("s")
+        g = port.Graph()
+        g.split(lambda p, _v: p[1:-1, 1:-1] + p[:-2, 1:-1],
+                port.concurrent_padded_access(u), v)
+        g.then_reduce(v, s, port.SumReducer())
+        g.then(Log(), exec_kind=port.ExecutionKind.Cpu, args=(v, s))
+        g.then_split(lambda x, _u: x * 0.5, v, u)
+        opts = {} if mode == "eager" else {
+            "regions": True, "donate": True,
+            "async_regions": mode == "async"}
+        ex = port.Executor(g, mesh=mesh, **opts)
+        st = ex.run(ex.init_state(u=torch.arange(64.0).reshape(8, 8)), 3)
+        seen[mode + " u"] = ex.read(st, u)
+    assert seen["sync"] == seen["async"] == seen["eager"]
+    assert len(seen["eager"]) == 3
+    assert torch.equal(seen["sync u"], seen["eager u"])
+
+
+def test_regions_on_a_mesh_capture_nothing_in_steady_state():
+    """One build per piece; further calls and a second executor over an
+    equal graph build nothing (the plan signature keys the mesh)."""
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    g, (u, out) = workloads.build_flux_graph(16, 24, mesh=mesh, overlap=True)
+    u0 = shock_bubble_init(16, 24, device="cpu")
+    ex = _regions(g, mesh, False)
+    ex.run(ex.init_state(u=u0), 2)
+    stats = ex.cache_stats()
+    assert stats["trace_events"] == 1
+    ex.run(ex.init_state(u=u0), 3)
+    assert ex.cache_stats() == stats
+    g2, _ = workloads.build_flux_graph(16, 24, mesh=mesh, overlap=True)
+    two = _regions(g2, mesh, False)
+    two(two.init_state(u=u0))
+    assert two.cache_stats()["trace_events"] == 1
+    assert two.cache_stats()["hits"] >= 1
+    other = _mesh((2, 2), ("gx", "gy"))
+    g3, _ = workloads.build_flux_graph(16, 24, mesh=other, overlap=True)
+    assert port.plan_signature(_regions(g3, other, False)) == \
+        port.plan_signature(ex)
+
+
+def test_regions_over_several_cards_raise_naming_their_item():
+    """Region compile over the shards of several cards is ROADMAP 3(c);
+    the refusal comes at construction, before any card is touched."""
+    mesh = port.Mesh({"d": 4}, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"])
+    t = port.DistTensor("t", (8,), partition=("d",))
+    g = port.Graph().split(lambda x: x + 1.0, t, writes=(0,))
+    with pytest.raises(NotImplementedError, match="3\\(c\\)"):
+        port.Executor(g, mesh=mesh, regions=True)
