@@ -25,26 +25,45 @@ result line):
    graph on a 4096 x 4096 shock-bubble interior (checked against the
    plain version on the card) and the Table 5 eikonal solve on a 4096 x
    4096 grid, a conditional loop run until no cell changes (checked
-   against the plain loop on the card and the exact distance); every
-   kernel's launch count is read from each graph's run, the counts set to
-   0 just before it;
-   then the measured autotuner: the particle step graph (2^24 particles
+   against the plain loop on the card and the exact distance), each
+   graph through ``Executor(g, regions=False)`` (one launch a kernel
+   call) and then through ``Executor(g)`` at the executor's defaults
+   (``regions=True, donate=True``, as the JAX package's: a build calls
+   each wrapper twice, the eager warm-up and the capture, and replays
+   call none), the two states bit for bit, ms per step both ways; every
+   kernel's launch count is read from each run, the counts set to 0
+   just before it;
+   then the measured autotuner at the defaults (each candidate timed as
+   a captured graph): the particle step graph (2^24 particles
    per species, tiles left to the registry) and the flux graph (4096 x
    4096) each constructed with ``Executor(g, tune="auto")`` under a fresh
    tuning cache in ``build/``; the tuned plan's state after 100 steps
    held against the heuristic plan's (bitwise, or the kernels' parity
    limit), both timed per step and one step of each traced with
    ``torch.profiler``, and a second construction checked to load the
-   decision with zero new measurements;
-   then LM serving through ``Batcher`` -> ``Executor``: qwen3-8b at its
+   decision with zero new measurements; the wrappers called twice a
+   kernel call site a capture (one a measured candidate, one more for
+   the heuristic plan when it lost);
+   then LM serving through ``Batcher`` -> ``Executor`` at the defaults
+   (the decode step captured once, the prefills eager): qwen3-8b at its
    published width and depth (36 layers, bf16, random weights from a
    seeded generator, made on the card) and mamba2-130m at its published
    config, each answering 8 requests (prompts of 2048, 2048, 1536, 1536,
    1000, 1000, 517 and 517 tokens, 32 new tokens each, 4 batch slots,
    ``max_seq`` 2112), through the ``Batcher`` as ``launch/serve.py``
    builds it (prefill-ahead on).  Checked: the flash-attention kernel
-   (K6) launched once per attention layer per prefill and the SSD kernel
-   (K7) once per Mamba layer per prefill; the batcher's token streams
+   (K6) called once per attention layer per request (its eager prefill)
+   and the SSD kernel (K7) likewise per Mamba layer; the serve
+   launcher's smoke checks (the decode captured once; a fresh worker
+   ``Batcher`` over the same weights serving the 8 requests with no new
+   decode capture and equal streams), with tokens/s with and without
+   the decode capture; the two batchers, both live, stepped in turn
+   (ms a step against one alone, the bytes moved out a step, streams
+   unchanged); ragged traffic of 8 distinct lengths (2048 ... 300) with
+   the batcher's eager prefills and with one capture per length
+   (``captured_prefills``, for comparison), tokens/s each and equal streams; each length's
+   captured prefill alone (first call, replay, memory) and the 8
+   requests on those replays; the batcher's token streams
    equal the uniform loop's (``legacy_generate``) for each equal-length
    pair; the kernel route's last-position prefill logits within
    ``LOGIT_TOL`` of the plain route's on the same weights, and a
@@ -54,7 +73,7 @@ result line):
    (K4's AoSoA through its ops wrapper): ``out`` apart from the inputs,
    and for K1-K3 ``out`` the updated input itself, each bit for bit the
    fresh-output call; then the four graphs of phase 3 at their sizes run with
-   ``Executor(g)`` and with ``Executor(g, regions=True)`` under
+   ``Executor(g, regions=False)`` and with ``Executor(g, regions=True)`` under
    ``donate=False`` and ``donate=True`` from the same inputs: the final
    states equal bit for bit in every field (the eikonal solve in the same
    745 iterations), zero captures in steady state and for a second
@@ -62,9 +81,12 @@ result line):
    equal to the eager run on it (the kernels were recorded into the
    graph, not run once), ms per step or iteration and the device busy
    share of one profiled step both ways; then the 8 requests of qwen3-8b
-   and mamba2-130m served again, the decode executor eager and under
-   ``regions=True, donate=True``, with equal token streams, tokens/s and
-   decode ms per step both ways.  Launch counts: the wrappers' counts
+   and mamba2-130m served again, the batcher's executors eager
+   (``regions=False``) and under ``regions=True, donate=True``, with
+   equal token streams, tokens/s and decode ms per step both ways (under
+   regions one capture per prompt length holding K6 or K7 once a layer,
+   and the decode graph copying no layer's cache).  Launch counts: the
+   wrappers' counts
    set to 0 before each executor's first call and read after it (a
    build calls each wrapper twice a step, the eager warm-up and the
    capture), then set to 0 again and read after every later call
@@ -112,6 +134,21 @@ result line):
    launches them, zero captures in steady state and for a second
    executor, with ms per step, device ms and busy share printed.  The
    eager mesh runs' K4/K5 launches join the kernels line's;
+3e. measured tuning on a mesh and the paper's examples, at the defaults:
+   the flux graph at 4096 x 4096 on the (2, 2) mesh of the card under
+   ``tune="auto"`` and an empty tuning cache (the candidates measured
+   and proposed, the search's seconds and captures, the winner, ms per
+   step of the heuristic and the tuned plan; the tuned state bit for bit
+   the heuristic plan's unless a tile changed, then within the flux
+   limit; a second construction loading the decision with zero
+   measurements); ``examples/particles_torch.py`` at 2^24 particles a
+   species for 100 steps (its closed-form check) and
+   ``examples/euler2d_torch.py`` at 1024 x 512 for 20 steps with
+   ``--devices 4 --px 2 --overlap`` against one shard (the state within
+   rtol 1e-5, atol 1e-6; every printed smax and rho range equal); the
+   tuning's and the particle example's wrapper calls are checked (twice
+   a kernel call site a capture) and join the kernels line's.  The
+   device memory at each phase's peak is printed;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -189,6 +226,9 @@ TUNE_CHECK_STEPS = 100
 TUNE_CACHE = os.path.join(REPO, "build", "tune-cache")
 # LM serving: 8 requests, two of each prompt length, 4 batch slots
 LM_PROMPTS = (2048, 2048, 1536, 1536, 1000, 1000, 517, 517)
+# ragged traffic: every prompt length new
+LM_RAGGED = (2048, 1800, 1536, 1280, 1000, 768, 517, 300)
+LM_INTERLEAVE_STEPS = 12
 LM_GEN, LM_SLOTS, LM_MAX_SEQ = 32, 4, 2112
 # K6 at the qwen3-8b prefill shape (B, Hq, Hkv, S, D), K7 at mamba2-130m's
 # (B, S, H, P, N, chunk)
@@ -474,26 +514,31 @@ def ssd_work(B: int, S: int, H: int, P: int, N: int, L: int,
 
 
 def tune_graph(what: str, g, inputs: dict, limits: dict, card: str,
-               zero_counts, read_counts) -> dict:
+               zero_counts, read_counts, mesh=None,
+               strict: bool = False) -> dict:
     """Construct ``Executor(g, tune="auto", tune_inputs=inputs)`` on the
-    card, then run the heuristic and the tuned plan ``TUNE_CHECK_STEPS``
-    steps each from ``inputs`` (and one more step of each under
-    ``torch.profiler``, after the counts are read).  Fails unless every
-    state value of the
-    tuned plan equals the heuristic plan's within ``limits`` (state key ->
-    max |difference|; 0 means bitwise) and a second construction loads
-    the decision from the cache with zero measurements.  Returns the
-    launch counts of the whole phase (search, both runs) and the
-    readings."""
+    card (on ``mesh`` when given), at the executor's defaults: every
+    candidate is timed as a captured graph, one capture each.  Then run
+    the heuristic and the tuned plan ``TUNE_CHECK_STEPS`` steps each from
+    ``inputs`` (and one more step of each under ``torch.profiler``, after
+    the counts are read).  Fails unless every state value of the tuned
+    plan equals the heuristic plan's within ``limits`` (state key -> max
+    |difference|; 0 means bitwise; with ``strict``, bitwise unless the
+    decision changed a tile) and a second construction loads the
+    decision from the cache with zero measurements.  Returns the launch
+    counts of the whole phase (search, both runs), the captures it made
+    (each calls every wrapper of the graph twice: the warm-up and the
+    capture) and the readings."""
     import torch
 
     from repro_torch.core import Executor
     from repro_torch.tuning import search as tune_search
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    tuned = Executor(g, tune="auto", tune_inputs=inputs)
+    tuned = Executor(g, mesh=mesh, tune="auto", tune_inputs=inputs)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     dec = tuned.plan.tuning
@@ -501,23 +546,15 @@ def tune_graph(what: str, g, inputs: dict, limits: dict, card: str,
         raise AssertionError(f"tune {what}: decision from {dec.source}, "
                              f"expected a measured one (fresh cache)")
     log(f"tune {what}: {tuned.describe_tuning()}")
-    base = Executor(g)
+    base = Executor(g, mesh=mesh)       # the heuristic plan, at the defaults
     want, base_ms = run_steps(base, base.init_state(**inputs),
                               TUNE_CHECK_STEPS)
     got, tuned_ms = run_steps(tuned, tuned.init_state(**inputs),
                               TUNE_CHECK_STEPS)
     counts = read_counts()
-    # where each plan's step goes: one more step of each under the profiler
-    for name, ex, st, wall_ms in (("heuristic", base, want, base_ms),
-                                  ("tuned", tuned, got, tuned_ms)):
-        by_kernel = device_time_by_kernel(lambda: ex.run(st, 1), warmup=1)
-        busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
-        log(f"tune {what} {name} step: device busy {busy_ms:.4f} ms of "
-            f"{wall_ms:.3f} ms wall per step ({card})")
-        for kname, (us, n) in sorted(by_kernel.items(),
-                                     key=lambda kv: -kv[1][0])[:8]:
-            log(f"  {us / 1e3:.4f} ms, {n} launches: {kname[:100]}")
     for key, lim in limits.items():
+        if strict and not dec.tiles:
+            lim = 0.0         # a change of layouts alone: bit for bit
         t = base.tensors.get(key)
         pairs = ([(f"{key}.{f}", tuned.read(got, t).field(f),
                    base.read(want, t).field(f)) for f in t.spec.names]
@@ -532,38 +569,64 @@ def tune_graph(what: str, g, inputs: dict, limits: dict, card: str,
             if not (same or err <= lim):
                 raise AssertionError(f"tune {what}: {name} of the tuned "
                                      f"plan differs from the heuristic's")
+    # the fields compared are views of the returned states, which the
+    # runs below may move out (the executor refuses while a view lives)
+    del pairs, a, b
+    # where each plan's step goes: one more step of each under the
+    # profiler (each donates its state: they are compared above)
+    for name, ex, st, wall_ms in (("heuristic", base, want, base_ms),
+                                  ("tuned", tuned, got, tuned_ms)):
+        by_kernel = device_time_by_kernel(lambda: ex.run(st, 1), warmup=1)
+        busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+        log(f"tune {what} {name} step: device busy {busy_ms:.4f} ms of "
+            f"{wall_ms:.3f} ms wall per step ({card})")
+        for kname, (us, n) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:8]:
+            log(f"  {us / 1e3:.4f} ms, {n} launches: {kname[:100]}")
     measured = tune_search.STATS["measurements"]
-    again = Executor(g, tune="auto", tune_inputs=inputs).plan.tuning
+    again = Executor(g, mesh=mesh, tune="auto",
+                     tune_inputs=inputs).plan.tuning
     if again.source != "cache" or \
             tune_search.STATS["measurements"] != measured:
         raise AssertionError(f"tune {what}: the second construction came "
                              f"from {again.source} with "
                              f"{tune_search.STATS['measurements'] - measured}"
                              f" new measurements")
-    # each timed call of the search runs TUNE_STEPS steps: the first,
-    # one more warm-up, then the measured iterations
-    steps = sum((2 + m.iters) * tune_search.TUNE_STEPS
-                for m in dec.measurements) + 2 * TUNE_CHECK_STEPS
+    # one capture a measured candidate (its first timed call; the losers'
+    # entries go after the search), and one more for the heuristic plan
+    # unless it won (then the tuned executor and ``base`` share its
+    # entry; otherwise ``tuned`` shares the winner's)
+    captures = dec.measured + (1 if dec.applied else 0)
     chosen = ", ".join(
         [f"{k}={v.name}" for k, v in sorted(dec.layouts.items())]
         + [f"{k}={v!r}" for k, v in sorted(dec.tiles.items())]) \
         or "the heuristic plan"
     log(f"tune {what}: search {search_s:.3f} s wall, {dec.proposed} "
-        f"proposed / {dec.pruned} pruned / {dec.measured} measured; chose "
-        f"{chosen}; per step heuristic {base_ms:.3f} ms, tuned "
-        f"{tuned_ms:.3f} ms (median of {TUNE_CHECK_STEPS}); the second "
-        f"construction loaded it from the cache with 0 measurements "
+        f"proposed / {dec.pruned} pruned / {dec.measured} measured, one "
+        f"capture each; chose {chosen}; per step heuristic {base_ms:.3f} "
+        f"ms, tuned {tuned_ms:.3f} ms (median of {TUNE_CHECK_STEPS}, both "
+        f"at the defaults); the second construction loaded it from the "
+        f"cache with 0 measurements; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
         f"({card})")
-    return {"counts": counts, "steps": steps, "search_s": search_s,
-            "base_ms": base_ms, "tuned_ms": tuned_ms}
+    return {"counts": counts, "captures": captures, "search_s": search_s,
+            "base_ms": base_ms, "tuned_ms": tuned_ms, "decision": dec}
 
 
 def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     """Serve ``arch`` at its published config through ``Batcher`` ->
-    ``Executor`` on the card; check launches, token streams against
-    ``legacy_generate`` and the kernel route's prefill logits against the
-    plain route's.  Returns the launch counts of the batcher's run and
-    its measurements."""
+    ``Executor`` on the card, at the defaults (the decode step captured
+    once, the prefills eager); check launches, the serve launcher's smoke
+    checks (the decode captured once; a fresh worker ``Batcher`` serving
+    the same requests with no new decode capture and equal streams),
+    token streams against ``legacy_generate`` and the kernel route's
+    prefill logits against the plain route's.  Measures tokens/s with
+    the decode capture and without it (the worker); two batchers of one
+    signature stepped in turn; ragged traffic of 8 new lengths with
+    eager prefills and with one capture per length; and each captured
+    prefill's first call and memory, with the repeated lengths served on
+    the replays.  Returns the launch counts of the batcher's run and its
+    measurements."""
     import numpy as np
     import torch
 
@@ -591,35 +654,126 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
                for n in LM_PROMPTS]
 
     # the main path: the batcher as serve.py builds it (prefill-ahead on),
-    # timed from outside; one prefill per request
+    # timed from outside; the decode step captured on its first call, one
+    # eager prefill per request
     batcher = Batcher(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ,
                       log=log)
+    if not (batcher.executor.regions and batcher.executor.donate):
+        raise AssertionError(f"{arch}: the batcher's decode executor is not "
+                             f"at regions=True, donate=True")
     reqs = [batcher.submit(p, max_new_tokens=LM_GEN) for p in prompts]
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    batcher.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    toks, wall, step_ms = served(batcher, reqs, zero_counts)
     counts = read_counts()
-    n_tok = sum(len(r.generated) for r in reqs)
-    # decode ms per step: the gaps between the batcher's own harvest
-    # stamps (every token after a request's first), admissions included
-    harvests = sorted({t for r in reqs for t in r.token_times[1:]})
-    step_ms = statistics.median(
-        (b - a) * 1e3 for a, b in zip(harvests, harvests[1:]))
     log(f"main path {arch}: {len(reqs)} requests, {batcher.steps} decode "
-        f"steps, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"steps, {toks} tokens in {wall:.3f} s = {toks / wall:.1f} "
         f"tokens/s; decode {step_ms:.3f} ms per step (median gap between "
         f"harvests, 4 slots); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
-    if any(len(r.generated) != LM_GEN or r.status != "done" for r in reqs):
-        raise AssertionError(f"{arch}: the batcher did not serve every "
-                             f"request in full")
+    # each request's prefill runs eagerly: K6/K7 once per layer each
+    lengths = sorted(set(LM_PROMPTS), reverse=True)
     expect = {"flash_attention": kinds.count("A") * len(reqs),
               "ssd_intra_chunk": kinds.count("M") * len(reqs)}
+    stats = batcher.cache_stats()
+    if stats["decode"]["trace_events"] != 1 or sorted(stats["prefill"]) \
+            != sorted(lengths) or any(
+                ex.regions for _, ex in batcher._prefill.values()):
+        raise AssertionError(f"{arch}: captures {json.dumps(stats)}; "
+                             f"expected the decode step once and eager "
+                             f"prefills")
+    log(f"[smoke] {arch}: decode captured once across {batcher.steps} "
+        f"steps; the {len(lengths)} prompt lengths' prefills eager")
+
+    # the launcher's fresh-worker check, which also times the serving
+    # without the decode capture: a new Batcher over the same weights
+    # shares the decode entry (its plan signature is the first's)
+    worker = Batcher(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                     log=log)
+    if worker.executor.plan.signature != batcher.executor.plan.signature:
+        raise AssertionError(f"{arch}: the worker's decode plan differs")
+    decode_caps = batcher.executor.cache_stats()["trace_events"]
+    wreqs = [worker.submit(p, max_new_tokens=LM_GEN) for p in prompts]
+    warm_tok, warm_wall, _ = served(worker, wreqs, zero_counts)
+    new_caps = worker.executor.cache_stats()["trace_events"] - decode_caps
+    if new_caps or [r.generated for r in wreqs] != \
+            [r.generated for r in reqs]:
+        raise AssertionError(f"{arch}: the fresh worker made {new_caps} "
+                             f"decode captures, or its streams differ")
+    log(f"[smoke] {arch}: a fresh worker served the {len(wreqs)} requests "
+        f"with 0 new decode captures and equal streams: {warm_tok} tokens "
+        f"in {warm_wall:.3f} s = {warm_tok / warm_wall:.1f} tokens/s "
+        f"without the decode capture; {toks / wall:.1f} tokens/s with it "
+        f"(the batcher's run) ({card})")
+
+    # two live batchers of one signature stepped in turn: each step moves
+    # the other's returned state out onto a copy and copies its own in
+    inter = interleaved(arch, card, batcher, worker, prompts, reqs)
+    del worker, wreqs
+
+    # ragged traffic, every prompt length new: the batcher's eager
+    # prefills against one capture per length
+    ragged = {}
+    rprompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in LM_RAGGED]
+    for mode, make in (("eager", Batcher), ("captured", captured_prefills())):
+        rb = make(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ, log=log)
+        rreqs = [rb.submit(p, max_new_tokens=LM_GEN) for p in rprompts]
+        rtok, rwall, _ = served(rb, rreqs, zero_counts)
+        ragged[mode] = {"tok_s": rtok / rwall,
+                        "streams": [r.generated for r in rreqs],
+                        "captures": sum(
+                            ex.cache_stats()["trace_events"]
+                            for _, ex in rb._prefill.values() if ex.regions)}
+        log(f"ragged {arch} {mode} prefills: {len(rreqs)} requests of "
+            f"{len(set(LM_RAGGED))} distinct lengths, {rtok} tokens in "
+            f"{rwall:.3f} s = {rtok / rwall:.1f} tokens/s; "
+            f"{ragged[mode]['captures']} prefill captures ({card})")
+        del rb, rreqs
+        gc.collect()
+    if ragged["captured"]["streams"] != ragged["eager"]["streams"] or \
+            ragged["captured"]["captures"] != len(set(LM_RAGGED)):
+        raise AssertionError(f"ragged {arch}: captured prefills gave other "
+                             f"streams, or not one capture per length")
+
+    # repeated lengths with captured prefills: each length's capture alone
+    # (first call, replay, memory), then the 8 requests on the replays
+    capb = captured_prefills()(cfg, params, batch=LM_SLOTS,
+                               max_seq=LM_MAX_SEQ, log=log)
+    captures = {}
+    for n in lengths:
+        prompt = next(p for p in prompts if len(p) == n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        pst = capb._prefill_state(prompt)[2]
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() - held
+        kept = torch.cuda.memory_allocated() - held
+        del pst
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        capb._prefill_state(prompt)
+        torch.cuda.synchronize()
+        captures[n] = {"first_ms": first_ms,
+                       "replay_ms": (time.perf_counter() - t) * 1e3,
+                       "peak_gib": peak / 2**30, "kept_gib": kept / 2**30}
+        log(f"  prefill capture {arch} {n} tokens: first call "
+            f"{first_ms:.1f} ms, a replay {captures[n]['replay_ms']:.3f} "
+            f"ms; {peak / 2**30:.3f} GiB above the memory before it at "
+            f"its peak, {kept / 2**30:.3f} GiB kept by the entry ({card})")
+    creqs = [capb.submit(p, max_new_tokens=LM_GEN) for p in prompts]
+    cap_tok, cap_wall, _ = served(capb, creqs, zero_counts)
+    if [r.generated for r in creqs] != [r.generated for r in reqs]:
+        raise AssertionError(f"{arch}: captured prefills gave other "
+                             f"streams")
+    log(f"repeated {arch}: the {len(creqs)} requests on captured prefills, "
+        f"every length captured before: {cap_tok / cap_wall:.1f} tokens/s; "
+        f"on eager prefills {warm_tok / warm_wall:.1f} ({card})")
+    del capb, creqs
+    gc.collect()
     # prefill ms per request: a separate pass through the batcher's own
-    # prefill executors (built by the run), synchronised on both sides
+    # (eager) prefill executors, synchronised on both sides
     prefill_ms = []
     for prompt in prompts:
         torch.cuda.synchronize()
@@ -728,8 +882,108 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         for name, (us, count) in top:
             log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
     return {"counts": counts, "expect": expect, "wall": wall,
-            "tok_s": n_tok / wall, "step_ms": step_ms,
-            "prefill_ms": prefill_ms, "logit_err": err, "busy": busy}
+            "tok_s": toks / wall, "warm_tok_s": warm_tok / warm_wall,
+            "step_ms": step_ms, "prefill_ms": prefill_ms,
+            "captures": captures, "captured_tok_s": cap_tok / cap_wall,
+            "ragged": {k: v["tok_s"] for k, v in ragged.items()},
+            "interleaved": inter, "logit_err": err, "busy": busy}
+
+
+def captured_prefills():
+    """``Batcher`` with each prompt length's prefill captured once, at the
+    executor's defaults, where the batcher runs its prefills eagerly: the
+    alternative the serving phase measures against them."""
+    from repro_torch.core.executor import Executor
+    from repro_torch.launch.steps import make_prefill_graph
+    from repro_torch.runtime.batcher import Batcher
+
+    class CapturedPrefills(Batcher):
+        def _prefill_for(self, prompt_len: int):
+            if prompt_len not in self._prefill:
+                pg = make_prefill_graph(self.cfg, self.params,
+                                        prompt_len=prompt_len,
+                                        max_seq=self.max_seq)
+                self._prefill[prompt_len] = (pg, Executor(pg.graph,
+                                                          self.device))
+            return self._prefill[prompt_len]
+
+    return CapturedPrefills
+
+
+def served(batcher, reqs, zero_counts) -> tuple:
+    """Drain ``batcher`` (its requests ``reqs`` submitted), timed on the
+    host clock between two synchronisations; the launch counts are set
+    to 0 just before.  Returns the tokens, the seconds and the decode ms
+    per step (the median gap between the batcher's harvests)."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(len(r.generated) != r.max_new_tokens or r.status != "done"
+           for r in reqs):
+        raise AssertionError("the batcher did not serve every request in "
+                             "full")
+    harvests = sorted({t for r in reqs for t in r.token_times[1:]})
+    step_ms = statistics.median(
+        (b - a) * 1e3 for a, b in zip(harvests, harvests[1:]))
+    return sum(len(r.generated) for r in reqs), wall, step_ms
+
+
+def interleaved(arch: str, card: str, one, two, prompts, reqs) -> dict:
+    """Two live batchers of one decode signature (``one`` and ``two``,
+    drained) given the first ``LM_SLOTS`` prompts each, stepped in turn
+    for ``LM_INTERLEAVE_STEPS`` pairs, then ``one`` alone as long: ms a
+    step both ways, and the bytes moved out onto copies a step.  Both
+    must then finish with the streams of ``reqs``."""
+    import torch
+
+    ex = one.executor
+    mine = [one.submit(p, max_new_tokens=LM_GEN)
+            for p in prompts[:LM_SLOTS]]
+    theirs = [two.submit(p, max_new_tokens=LM_GEN)
+              for p in prompts[:LM_SLOTS]]
+    one.step()
+    two.step()                      # both admitted
+    torch.cuda.synchronize()
+    moved = ex.cache_stats()["moved_out_bytes"]
+    t0 = time.perf_counter()
+    for _ in range(LM_INTERLEAVE_STEPS):
+        one.step()
+        two.step()
+    torch.cuda.synchronize()
+    turn_ms = (time.perf_counter() - t0) * 1e3 / (2 * LM_INTERLEAVE_STEPS)
+    per_step = (ex.cache_stats()["moved_out_bytes"] - moved) \
+        / (2 * LM_INTERLEAVE_STEPS)
+    one.step()                      # takes its state back: one more move
+    torch.cuda.synchronize()
+    moved = ex.cache_stats()["moved_out_bytes"]
+    t0 = time.perf_counter()
+    for _ in range(LM_INTERLEAVE_STEPS):
+        one.step()
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t0) * 1e3 / LM_INTERLEAVE_STEPS
+    alone_moved = ex.cache_stats()["moved_out_bytes"] - moved
+    one.run()
+    two.run()
+    if [r.generated for r in mine] != [r.generated for r in reqs[:LM_SLOTS]] \
+            or [r.generated for r in theirs] != \
+            [r.generated for r in reqs[:LM_SLOTS]] or alone_moved:
+        raise AssertionError(f"interleaved {arch}: the two batchers' "
+                             f"streams differ from the first run's, or a "
+                             f"step alone moved {alone_moved} bytes")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in one.state.values())
+    log(f"interleaved {arch}: two batchers of one signature stepped in "
+        f"turn, {LM_INTERLEAVE_STEPS} pairs: {turn_ms:.3f} ms a step, "
+        f"{per_step:.0f} bytes moved out a step (the decode state holds "
+        f"{state_bytes}); one alone {alone_ms:.3f} ms a step, 0 bytes "
+        f"moved; streams equal the first run's ({card})")
+    return {"turn_ms": turn_ms, "alone_ms": alone_ms,
+            "moved_per_step": per_step, "state_bytes": state_bytes}
 
 
 def bits_equal(a, b) -> bool:
@@ -772,13 +1026,18 @@ REGION_KERNELS = {"saxpy_probe": {"saxpy": 2},
                   "particle_step": {"saxpy_record": 1, "particle_update": 2},
                   "flux": {"flux_difference": 1},
                   "eikonal_solve": {"eikonal_fim": 1}}
-KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", "12saxpy_kernelI"),
+KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", ("12saxpy_kernelI",)),
                   "saxpy_record": ("::saxpy_record_kernel<",
-                                   "19saxpy_record_kernelI"),
+                                   ("19saxpy_record_kernelI",)),
                   "particle_update": ("::particle_kernel<",
-                                      "15particle_kernelI"),
-                  "flux_difference": ("::flux_kernel<", "11flux_kernelI"),
-                  "eikonal_fim": ("::fim_kernel<", "10fim_kernelI")}
+                                      ("15particle_kernelI",)),
+                  "flux_difference": ("::flux_kernel<",
+                                      ("11flux_kernelI",)),
+                  "eikonal_fim": ("::fim_kernel<", ("10fim_kernelI",)),
+                  "flash_attention": ("::attn_", ("15attn_f32_kernelI",
+                                                  "17attn_wgmma_kernelI")),
+                  "ssd_intra_chunk": ("::ssd_", ("16ssd_chunk_kernelI",
+                                                 "16ssd_wgmma_kernelI"))}
 GRAPH_DUMPS = os.path.join("build", "graph-dumps")
 # a memcpy node of CUDA's DOT print (cudaGraphDebugDotFlagsVerbose), with
 # its extent in bytes, and the mangled name of PyTorch's copy kernel (a
@@ -894,8 +1153,8 @@ class GraphNodes:
             graph.debug_dump(path)
             with open(path) as f:
                 text = f.read()
-            for k, (_, sym) in KERNEL_SYMBOLS.items():
-                counts[k] += text.count(sym)
+            for k, (_, syms) in KERNEL_SYMBOLS.items():
+                counts[k] += sum(text.count(sym) for sym in syms)
             self.memcpys += [int(w) * int(h) * int(d)
                              for w, h, d in MEMCPY_NODE.findall(text)]
             self.copy_kernels += text.count(COPY_KERNEL_SYMBOL)
@@ -1117,7 +1376,7 @@ def regions_phase(card: str, zero_counts, counts_now) -> dict:
                 log(f"  {us / 1e3:.4f} ms, {count} launches: {kname[:90]}")
 
         per_step = REGION_KERNELS[name]
-        eager = Executor(g)
+        eager = Executor(g, regions=False)
         want0, eager_ms = drive(eager, inp0)
         iters0 = converging.iterations if converging else steps
         want1, _ = drive(eager, inp1)
@@ -1251,7 +1510,7 @@ def serve_regions(arch: str, card: str, zero_counts, counts_now) -> dict:
     expect = {"flash_attention": kinds.count("A") * len(prompts),
               "ssd_intra_chunk": kinds.count("M") * len(prompts)}
     runs = {}
-    for mode, opts in (("eager", {}),
+    for mode, opts in (("eager", {"regions": False}),
                        ("regions", {"regions": True, "donate": True})):
         batcher = Batcher(cfg, params, batch=LM_SLOTS, max_seq=LM_MAX_SEQ,
                           log=log, executor_opts=opts)
@@ -1415,7 +1674,7 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
         return state, (time.perf_counter() - t0) * 1e3 / steps
 
     # -- equality, each regions run from a cold cache
-    eager = Executor(g)
+    eager = Executor(g, regions=False)
     diag.reset()
     zero_counts()
     want, _ = whole(eager)
@@ -1779,7 +2038,7 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
         g, (_, f_t) = workloads.build_flux_graph(
             FLUX_N, FLUX_N, lam_x=FLUX_LAM, lam_y=FLUX_LAM, mesh=mesh,
             overlap=overlap)
-        ex = Executor(g, mesh=mesh)
+        ex = Executor(g, mesh=mesh, regions=False)
         state = ex.init_state(u=u0)
         zero_counts()
         state, ms = run_steps(ex, state, FLUX_STEPS)
@@ -1859,7 +2118,7 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
         g, (phi_t, _), conv = workloads.build_eikonal_graph(
             EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
             mesh=mesh)
-        ex = Executor(g, mesh=mesh)
+        ex = Executor(g, mesh=mesh, regions=False)
         state = ex.init_state(**eik)
         zero_counts()
         torch.cuda.synchronize()
@@ -1910,7 +2169,7 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
                                    ("(2, 2) overlap", mesh22, True)):
             ex, u = workloads.build_euler_solver(
                 EULER_NX, EULER_NY, mesh=mesh, overlap=overlap,
-                unsplit=unsplit)
+                unsplit=unsplit, regions=False)
             if ex.plan.overlap_fallbacks:
                 raise AssertionError(f"euler {tag}: fallbacks "
                                      f"{ex.plan.overlap_fallbacks}")
@@ -1969,6 +2228,125 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
             tag: r[3] for tag, r in runs.items()}
         del runs, U_ref
     del U0
+    torch.cuda.empty_cache()
+    return out
+
+
+def load_example(name: str):
+    """The module of ``examples/{name}.py`` (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(card: str, zero_counts, counts_now) -> dict:
+    """Phase 3e: measured tuning on a mesh and the paper's examples on the
+    port, all at the executor's defaults.  The flux graph at 4096^2 on a
+    (2, 2) mesh of the card under ``tune="auto"`` and an empty tuning
+    cache (``tune_graph``: the tuned state against the heuristic plan's,
+    bit for bit unless a tile changed; a second construction loads the
+    decision with zero measurements); then ``examples/particles_torch.py``
+    at 2^24 particles a species for 100 steps (its closed-form check), and
+    ``examples/euler2d_torch.py`` at 1024 x 512 for 20 steps on one shard
+    and on ``--devices 4 --px 2 --overlap``: the four-shard state within
+    rtol 1e-5, atol 1e-6 of the one-shard run's, every printed smax and
+    rho range equal.  Returns the readings and the launches."""
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.core import clear_executable_cache, make_mesh
+    from repro_torch.physics.euler import shock_bubble_init
+    from repro_torch.tuning import cache as tune_cache
+
+    out = {"launches": {}}
+    u0 = shock_bubble_init(FLUX_N, FLUX_N, device=torch.device("cuda"))
+
+    def add(counts):
+        for k, n in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+
+    # -- the (2, 2) flux mesh under tune="auto", from an empty cache -------
+    os.environ["REPRO_TUNE_CACHE"] = TUNE_CACHE
+    shutil.rmtree(TUNE_CACHE, ignore_errors=True)
+    tune_cache.clear_memo()
+    mesh = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
+    g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
+                                      lam_y=FLUX_LAM, mesh=mesh)
+    run = tune_graph("mesh flux (2, 2)", g, {"u": u0},
+                     {"u": 0.0, "flux": FLUX_TOL["float32"]}, card,
+                     zero_counts, counts_now, mesh=mesh, strict=True)
+    # one K4 launch a shard a step: each capture calls the wrapper twice
+    # a shard (the warm-up and the capture)
+    check_counts("tune mesh flux (2, 2) wrapper calls", run["counts"],
+                 {"flux_difference": 2 * mesh.size * run["captures"]})
+    add(run["counts"])
+    out["tune"] = {k: run[k] for k in ("search_s", "base_ms", "tuned_ms",
+                                       "captures")}
+    dec = run["decision"]
+    out["tune"].update(proposed=dec.proposed, measured=dec.measured,
+                       winner=dec.describe().splitlines()[1:3])
+    del g, run, dec, u0
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- examples/particles_torch.py, 2^24 a species, 100 steps ------------
+    particles = load_example("particles_torch")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = particles.main(["--n", str(PARTICLE_N), "--steps",
+                          str(PARTICLE_STEPS)])
+    counts = counts_now()
+    check_counts("examples/particles_torch.py wrapper calls", counts,
+                 {k: 2 * n for k, n in
+                  REGION_KERNELS["particle_step"].items()})
+    add(counts)
+    out["particles"] = {"first_s": res["first_s"], "step_ms": res["step_ms"],
+                        "vmax": res["vmax"]}
+    log(f"examples/particles_torch.py --n {PARTICLE_N} --steps "
+        f"{PARTICLE_STEPS}: closed form holds (rtol, atol 1e-4), vmax "
+        f"{res['vmax']:.4f}; first step (the build) {res['first_s']:.3f} s, "
+        f"then {res['step_ms']:.3f} ms per step; wrapper calls "
+        f"{json.dumps(counts)} (the build); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    del res
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- examples/euler2d_torch.py, 1024 x 512, 20 steps, 1 and 4 shards ---
+    euler = load_example("euler2d_torch")
+    size = ["--nx", str(EULER_NX), "--ny", str(EULER_NY), "--steps",
+            str(EULER_STEPS)]
+    one = euler.main(size)
+    four = euler.main(size + ["--devices", "4", "--px", "2", "--overlap"])
+    err = max_err(four["U"], one["U"], 1e-6,
+                  "examples/euler2d_torch.py --devices 4 vs 1", rtol=1e-5)
+    for a, b in zip(four["rows"], one["rows"]):
+        if (a["smax"], a["rho_min"], a["rho_max"]) != \
+                (b["smax"], b["rho_min"], b["rho_max"]):
+            raise AssertionError(f"examples/euler2d_torch.py: step "
+                                 f"{a['step']} prints {a} on four shards, "
+                                 f"{b} on one")
+    if four["executor"].plan.overlap_fallbacks or not four["halo_blocks"]:
+        raise AssertionError("examples/euler2d_torch.py --devices 4: no "
+                             "halo blocks, or an overlap fallback")
+    out["euler"] = {k: {"first_s": r["first_s"], "step_ms": r["step_ms"]}
+                    for k, r in (("1", one), ("4", four))}
+    log(f"examples/euler2d_torch.py {EULER_NX} x {EULER_NY}, "
+        f"{EULER_STEPS} steps: --devices 4 --px 2 --overlap within "
+        f"max |diff| {err:.3e} of one shard, smax and rho range equal at "
+        f"every printed step ({four['halo_blocks']} halo blocks); ms per "
+        f"step one shard {one['step_ms']:.3f}, four {four['step_ms']:.3f}; "
+        f"first step {one['first_s']:.3f} s, {four['first_s']:.3f} s "
+        f"({card})")
+    del one, four
+    clear_executable_cache()
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -2265,14 +2643,41 @@ def main() -> int:
     def read_counts(path):
         path_launches[path] = {k: w.launches for k, w in wrappers.items()}
 
+    def at_defaults(name, g, inp, steps, want):
+        """The graph through ``Executor(g)`` at the executor's defaults
+        (regions, donation): the wrappers called twice a kernel call site
+        by the build (its eager warm-up and its capture) and never by a
+        replay; the state bit for bit ``want`` (the ``regions=False``
+        run's); its ms per step, and the device memory at its peak."""
+        torch.cuda.reset_peak_memory_stats()
+        ex = Executor(g)
+        if not (ex.regions and ex.donate):
+            raise AssertionError("Executor(g) is not at regions=True, "
+                                 "donate=True")
+        zero_counts()
+        state, ms = run_steps(ex, ex.init_state(**inp), steps)
+        read_counts(f"{name} (defaults)")
+        expect[f"{name} (defaults)"] = {
+            k: 2 * n for k, n in REGION_KERNELS[name].items()}
+        check_bits(f"main path {name} at the defaults", state, want)
+        wall_defaults[name] = ms
+        log(f"main path {name} at the defaults: bit for bit the "
+            f"regions=False run's; {ms:.3f} ms per step (median of "
+            f"{steps}), regions=False {wall[name]:.3f}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"allocated ({card})")
+
+    expect = {}
+    wall_defaults = {}
     g, (x_t, y_bc, y_nbc) = workloads.build_saxpy_graph(SAXPY_N, SAXPY_A)
-    ex = Executor(g)
+    ex = Executor(g, regions=False)
     rng = np.random.default_rng(0)
     x0 = rng.standard_normal(SAXPY_N, dtype=np.float32)
     state = ex.init_state(x=x0)
     zero_counts()
     state, wall["saxpy_probe"] = run_steps(ex, state, SAXPY_STEPS)
     read_counts("saxpy_probe")
+    at_defaults("saxpy_probe", g, {"x": x0}, SAXPY_STEPS, state)
     want = torch.from_numpy(x0).to(dev)
     acc = torch.zeros_like(want)
     for _ in range(SAXPY_STEPS):
@@ -2283,19 +2688,22 @@ def main() -> int:
 
     g, (ions, electrons, field), vmax = workloads.build_particle_graph(
         PARTICLE_N)
-    ex = Executor(g)
+    ex = Executor(g, regions=False)
     fields = workloads.particle_fields(PARTICLE_N)
     specs = {"ions": (PARTICLE_SPEC, Layout.AOS),
              "electrons": (PARTICLE_SPEC, Layout.AOSOA),
              "field": (SAXPY_SPEC, Layout.SOA)}
-    state = ex.init_state(**{
+    inp = {
         k: RecordArray.from_fields(spec, {f: torch.from_numpy(v).to(dev)
                                           for f, v in fields[k].items()},
                                    lay)
-        for k, (spec, lay) in specs.items()})
+        for k, (spec, lay) in specs.items()}
+    state = ex.init_state(**inp)
     zero_counts()
     state, wall["particle_step"] = run_steps(ex, state, PARTICLE_STEPS)
     read_counts("particle_step")
+    at_defaults("particle_step", g, inp, PARTICLE_STEPS, state)
+    del inp
     span = PARTICLE_STEPS * workloads.DT
     for t, key in ((ions, "ions"), (electrons, "electrons")):
         x_t0 = torch.from_numpy(fields[key]["x"]).to(dev)
@@ -2312,24 +2720,25 @@ def main() -> int:
     g, (u_t, flux_t) = workloads.build_flux_graph(FLUX_N, FLUX_N,
                                                   lam_x=FLUX_LAM,
                                                   lam_y=FLUX_LAM)
-    ex = Executor(g)
+    ex = Executor(g, regions=False)
     u0 = shock_bubble_init(FLUX_N, FLUX_N, device=dev)
     state = ex.init_state(u=u0)
     zero_counts()
     state, wall["flux"] = run_steps(ex, state, FLUX_STEPS)
     read_counts("flux")
+    at_defaults("flux", g, {"u": u0}, FLUX_STEPS, state)
     plain_g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
                                             lam_y=FLUX_LAM, use_kernel=False)
-    plain_ex = Executor(plain_g)
+    plain_ex = Executor(plain_g, regions=False)
     plain = plain_ex(plain_ex.init_state(u=u0))
     max_err(state[flux_t.name], plain[flux_t.name], FLUX_TOL["float32"],
             "main path flux graph vs plain graph")
     del state, plain, plain_ex, ex
 
-    def solve_eikonal(use_kernel: bool):
-        """One eikonal solve through ``Executor(g)``; returns the final
-        state, the iteration count, the solve's wall time and the median
-        wall time of one iteration (each ended by the predicate's
+    def solve_eikonal(use_kernel: bool, **opts):
+        """One eikonal solve through ``Executor(g, **opts)``; returns the
+        final state, the iteration count, the solve's wall time and the
+        median wall time of one iteration (each ended by the predicate's
         device-to-host read)."""
         g, _, converging = workloads.build_eikonal_graph(
             EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
@@ -2343,7 +2752,7 @@ def main() -> int:
             return go
 
         body.conditional(timed)
-        ex = Executor(g)
+        ex = Executor(g, **opts)
         state = ex.init_state(**eik)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2355,10 +2764,25 @@ def main() -> int:
             statistics.median(per_iter)
 
     zero_counts()
-    state, iters, solve_s, iter_ms = solve_eikonal(True)
+    state, iters, solve_s, iter_ms = solve_eikonal(True, regions=False)
     read_counts("eikonal_solve")
     wall["eikonal_solve"] = iter_ms
-    plain, plain_iters, plain_s, plain_iter_ms = solve_eikonal(False)
+    zero_counts()
+    got, d_iters, d_solve_s, d_iter_ms = solve_eikonal(True)
+    read_counts("eikonal_solve (defaults)")
+    expect["eikonal_solve (defaults)"] = {"eikonal_fim": 2}
+    if d_iters != iters:
+        raise AssertionError(f"eikonal solve at the defaults: {d_iters} "
+                             f"iterations, {iters} with regions=False")
+    check_bits("main path eikonal_solve at the defaults", got, state)
+    wall_defaults["eikonal_solve"] = d_iter_ms
+    log(f"main path eikonal_solve at the defaults: bit for bit the "
+        f"regions=False solve's in {d_iters} iterations; solve "
+        f"{d_solve_s:.3f} s, {d_iter_ms:.3f} ms per iteration (median), "
+        f"regions=False {solve_s:.3f} s, {iter_ms:.3f} ms ({card})")
+    del got
+    plain, plain_iters, plain_s, plain_iter_ms = solve_eikonal(
+        False, regions=False)
     log(f"main path eikonal_solve: {iters} iterations, solve {solve_s:.3f} "
         f"s, {iter_ms:.3f} ms per iteration (median); plain loop "
         f"{plain_iters} iterations, {plain_s:.3f} s, {plain_iter_ms:.3f} ms "
@@ -2381,11 +2805,12 @@ def main() -> int:
                              "distance in the band")
     del state, plain, dist, band
 
-    expect = {"saxpy_probe": {"saxpy": 2 * SAXPY_STEPS},
-              "particle_step": {"saxpy_record": PARTICLE_STEPS,
-                                "particle_update": 2 * PARTICLE_STEPS},
-              "flux": {"flux_difference": FLUX_STEPS},
-              "eikonal_solve": {"eikonal_fim": iters}}
+    expect.update({
+        "saxpy_probe": {"saxpy": 2 * SAXPY_STEPS},
+        "particle_step": {"saxpy_record": PARTICLE_STEPS,
+                          "particle_update": 2 * PARTICLE_STEPS},
+        "flux": {"flux_difference": FLUX_STEPS},
+        "eikonal_solve": {"eikonal_fim": iters}})
     launches = {k: 0 for k in wrappers}
     for path, counts in list(path_launches.items()):
         log(f"main path launches {path}: {json.dumps(counts)}")
@@ -2395,13 +2820,14 @@ def main() -> int:
                                      f"expected {expect[path].get(k, 0)}")
             launches[k] += n
     for k, ms in wall.items():
-        log(f"wall per step {k} (median): {ms:.3f} ms ({card})")
+        log(f"wall per step {k} (median): {ms:.3f} ms at regions=False, "
+            f"{wall_defaults[k]:.3f} ms at the defaults ({card})")
 
     # where the solve's time goes: device time by kernel over one more
     # whole solve under torch.profiler, against the unprofiled wall time
     g, _, _ = workloads.build_eikonal_graph(
         EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N)
-    ex = Executor(g)
+    ex = Executor(g, regions=False)
     state = ex.init_state(**eik)
     torch.cuda.synchronize()
     kernel_us = device_time_by_kernel(lambda: ex(state))
@@ -2444,17 +2870,18 @@ def main() -> int:
                       "field": TOL["float32"], "vmax": 0.0},
                      card, zero_counts, counts_now)
     path_launches["tune particle_step"] = run["counts"]
-    expect["tune particle_step"] = {"particle_update": 2 * run["steps"],
-                                    "saxpy_record": run["steps"]}
-    del inputs
+    expect["tune particle_step"] = {
+        k: 2 * n * run["captures"]
+        for k, n in REGION_KERNELS["particle_step"].items()}
+    del inputs, run
     g, _ = workloads.build_flux_graph(FLUX_N, FLUX_N, lam_x=FLUX_LAM,
                                       lam_y=FLUX_LAM)
     run = tune_graph("flux", g, {"u": u0},
                      {"u": 0.0, "flux": FLUX_TOL["float32"]},
                      card, zero_counts, counts_now)
     path_launches["tune flux"] = run["counts"]
-    expect["tune flux"] = {"flux_difference": run["steps"]}
-    del u0, g
+    expect["tune flux"] = {"flux_difference": 2 * run["captures"]}
+    del u0, g, run
     gc.collect()
     torch.cuda.empty_cache()
     for path in ("tune particle_step", "tune flux"):
@@ -2490,18 +2917,33 @@ def main() -> int:
 
     # -- 3b. outputs in place, and region compile: the same graphs and
     # serving, regions=True ----------------------------------------------
+    def peak(phase):
+        gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"phase {phase} peak {gib:.2f} GiB allocated ({card})")
+        torch.cuda.reset_peak_memory_stats()
+
+    peak("3")
     out_checks(card, eik_mid, eik["mask"])
     reg = regions_phase(card, zero_counts, counts_now)
     lm_reg = {arch: serve_regions(arch, card, zero_counts, counts_now)
               for arch in ("qwen3-8b", "mamba2-130m")}
+    peak("3b")
 
     # -- 3c. async regions over the particle step with a host diagnostic --
     asy = async_phase(card, zero_counts, counts_now)
+    peak("3c")
 
     # -- 3d. a mesh of four shards on the card: flux, eikonal, Euler ------
     msh = mesh_phase(card, zero_counts, counts_now, eik)
     for k, n in msh["launches"].items():
         launches[k] += n
+    peak("3d")
+
+    # -- 3e. measured tuning on a mesh, and the paper's examples ----------
+    exa = examples_phase(card, zero_counts, counts_now)
+    for k, n in exa["launches"].items():
+        launches[k] += n
+    peak("3e")
 
     # -- 4. times -----------------------------------------------------------
     results = {}
@@ -2681,9 +3123,27 @@ def main() -> int:
         f"{f32_ms:.4f} ms ({card})")
     del x, dts, A, Bm, C
     for arch, run in lm_runs.items():
-        log(f"serve {arch}: {run['tok_s']:.1f} tokens/s, decode "
-            f"{run['step_ms']:.3f} ms per step, prefill ms per request "
-            f"{[round(ms, 3) for _, ms in run['prefill_ms']]} ({card})")
+        caps = {n: [round(c["first_ms"], 1), round(c["peak_gib"], 3),
+                    round(c["kept_gib"], 3)]
+                for n, c in run["captures"].items()}
+        inter = run["interleaved"]
+        log(f"serve {arch} at the defaults: {run['tok_s']:.1f} tokens/s "
+            f"with the decode capture, {run['warm_tok_s']:.1f} without; "
+            f"decode {run['step_ms']:.3f} ms per step, eager prefill ms "
+            f"per request {[round(ms, 3) for _, ms in run['prefill_ms']]}; "
+            f"ragged (8 new lengths) eager prefills "
+            f"{run['ragged']['eager']:.1f} tokens/s, captured "
+            f"{run['ragged']['captured']:.1f}; repeated lengths on captured "
+            f"replays {run['captured_tok_s']:.1f}; prefill captures by "
+            f"length (first call ms, peak GiB, kept GiB) {json.dumps(caps)};"
+            f" two batchers in turn {inter['turn_ms']:.3f} ms a step and "
+            f"{inter['moved_per_step']:.0f} bytes moved out a step, alone "
+            f"{inter['alone_ms']:.3f} ms ({card})")
+    t = exa["tune"]
+    log(f"tune mesh flux (2, 2) at the defaults: search {t['search_s']:.3f} "
+        f"s, {t['measured']} of {t['proposed']} candidates measured, "
+        f"{t['captures']} captures; {' '.join(t['winner'])}; ms per step "
+        f"heuristic {t['base_ms']:.3f}, tuned {t['tuned_ms']:.3f} ({card})")
     for name, row in reg.items():
         log(f"regions {name}: ms per "
             f"{'iteration' if name == 'eikonal_solve' else 'step'} eager "

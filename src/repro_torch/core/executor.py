@@ -16,29 +16,31 @@ The single-process counterpart of the JAX package's ``Executor``:
   the tensor's boundary policy, and on a mesh from the neighbour shards
   (``core/halo.py``'s transfer schedule; below);
 * host (Cpu) nodes and ``sync()`` wait for the device, then run their
-  callback — under ``regions=True`` on the host pool by default (below).
+  callback — on the host pool by default (below).
 
-With ``regions=False`` (the default) every segment runs eagerly: node
+The defaults are the reference's: ``regions=True`` and ``donate=True``.
+With ``regions=False`` (the escape hatch) every segment runs eagerly: node
 functions are called in wave order, each wave against a snapshot of the
 state — the reference's per-segment dispatch (its ``regions=False``
 path).  Node functions return new tensors and never write a state buffer
 in place, so a caller's state dict is never modified.
 
-**Region compile** (``regions=True``).  The plan's segments are grouped
-into regions (``schedule.group_regions``): runs of ``device`` and
-``loop`` segments, and each ``host`` / ``host_loop`` segment alone.  The
-reference lowers a device region to ONE executable with its loops as
-``lax.while_loop``; CUDA graphs have no data-dependent loop, so here a
-device region is k pieces, which ``describe_dag()`` prints: each maximal
-loop-free run of segments (with the boundary relayouts and halo fills
-between them) is one graph, and each loop body is one graph, replayed
-while the host predicate holds (one device-to-host read per check, as
-eagerly).  On the card a piece's first run executes its segments eagerly
-on a side stream (so that ``nvcc`` builds and first-launch set-up happen
-outside capture; this is that call's result), then captures them into a
-``torch.cuda.CUDAGraph``; every later run replays it.  On the CPU a piece
-runs its segments through the same code and the same buffers, without
-capture.  Either way:
+**Region compile** (``regions=True``, the default).  The plan's segments
+are grouped into regions (``schedule.group_regions``): runs of
+``device`` and ``loop`` segments, and each ``host`` / ``host_loop``
+segment alone.  The reference lowers a device region to ONE executable
+with its loops as ``lax.while_loop``; CUDA graphs have no data-dependent
+loop, so here a device region is k pieces, which ``describe_dag()``
+prints: each maximal loop-free run of segments (with the boundary
+relayouts and halo fills between them) is one graph, and each loop body
+is one graph, replayed while the host predicate holds (one
+device-to-host read per check, as eagerly).  On the card a piece's first
+run executes its segments eagerly on a side stream (so that ``nvcc``
+builds and first-launch set-up happen outside capture; this is that
+call's result), then captures them into a ``torch.cuda.CUDAGraph``;
+every later run replays it.  On the CPU a piece runs its segments
+through the same code and the same buffers, without capture.  Either
+way:
 
 * each graph reads from, and writes into, **static buffers** (one per
   state key, storage shape and dtype; a partitioned key has one per
@@ -56,8 +58,10 @@ capture.  Either way:
   arg of the key, not through a padded copy), its function is marked
   :func:`~repro_torch.core.graph.in_place` (K1-K3 and the KV writes read
   each element before they write it) and no other arg of it lies there,
-  and (iii) no other key's value lies in the buffer (a value a later
-  node, piece, host callback or the caller still reads).  On a mesh the
+  (iii) no other key's value lies in the buffer (a value a later node,
+  piece, host callback or the caller still reads), and (iv) the buffer
+  is stored in the layout of the node's record args of its type (a
+  kernel writes ``out`` in its input's layout).  On a mesh the
   per-shard programs write their shard's buffer; the overlapped lowering
   stitches its interior and strip outputs into it;
 * every other output is a new tensor, copied into its key's buffer at the
@@ -71,12 +75,27 @@ capture.  Either way:
 * **donation**: with ``donate=False`` the caller's tensors are never
   modified and a returned tensor is never overwritten later — a call
   copies in what its graphs read and clones out what they wrote, once a
-  call (not per step or loop iteration).  With ``donate=True`` the
-  returned state's tensors ARE the static buffers, which the next call
-  overwrites (the reference's donation: a donated input must not be used
-  again); an incoming tensor that already is its buffer skips the
-  copy-in, so in-place writes into a returned state (the batcher's
-  admission) land in the buffers directly;
+  call (not per step or loop iteration).  With ``donate=True`` (the
+  default) a call returns *aliases* of the static buffers: new tensor
+  objects over the buffers' storage, which the entry holds weakly as its
+  live state.  The reference's contract holds: (1) the caller's input is
+  never written, it is copied in; (2) a returned state passed back (each
+  key its own alias) is donated: the call skips its copy-in, and the
+  caller must not use it again; (3) a returned state that is not passed
+  back keeps its values whatever later calls of this or another executor
+  of the same signature do: a call whose input is not the live state
+  first moves each live alias out, re-pointing it (``Tensor.set_``) onto
+  a clone of its buffer (``cache_stats()["moved_out"]``); an alias nobody
+  holds any more costs nothing; (4) an in-place write into a returned
+  state before it is passed back lands in the buffers (the batcher's
+  admission).  So a steady loop ``state = ex.run(state, n)`` copies
+  nothing, and only a switch between states costs one copy.  A view
+  taken of a returned tensor (a slice, ``.view()``, ``.numpy()``, a
+  record's field) lies in the buffer and cannot be re-pointed: a call
+  that would move its state out raises ``RuntimeError`` naming the key
+  rather than overwrite what the view shows (clone what you keep).
+  Two live executors of one signature called in turn therefore move a
+  whole state out and copy one in on every call;
 * nothing falls back: a capture that fails (a node that syncs the host,
   ``.item()`` or ``bool()`` of a CUDA tensor, inside a device region)
   raises an error naming the piece and the node.  Host regions run
@@ -85,17 +104,18 @@ capture.  Either way:
 
 The **executable cache** is process-wide, keyed by :func:`plan_signature`
 and the device (a captured graph belongs to one device): a second
-executor with an equal signature reuses the region programs and their
-graphs with zero captures (``cache_stats()``).  Under ``donate=True`` an
-entry is leased to one live executor at a time (its returned state holds
-the buffers); a second executor then builds its own entry.  A captured
+executor with an equal signature reuses the region programs, their
+graphs and their buffers with zero captures (``cache_stats()``), under
+either ``donate`` (the live state moves out as above).  A captured
 graph reads the tensors in its nodes' closures (a model's weights), so
 an entry lives while an executor uses it or while every graph it was
 built from lives: once no executor holds it and one of those graphs is
-collected, the entry goes, with its graphs, buffers and pool.  An
-incoming tensor that lies in another key's static buffer (a donated
-state passed back under swapped keys) is cloned when the call starts,
-before any buffer is written.
+collected, the entry goes, with its graphs, buffers and pool; aliases
+that outlive it keep their storage, not the entry.  An incoming tensor
+that lies in another key's static buffer (a view of a returned tensor)
+is cloned when the call starts, before any buffer is written; a live
+alias passed under another key is moved out first, so it is copied in
+like any tensor.
 
 A conditional subgraph (paper §5.3.6) is a ``loop`` segment, or a
 ``host_loop`` when its body holds a host node; both run with while
@@ -173,12 +193,12 @@ graph holding every shard's programs and the halo block copies; in the
 overlapped lowering the copy stream forks from the capture stream and
 joins it through events, so the block copies are branches of the graph
 beside the interior programs (blocks are allocated during capture, from
-the entry's pool).  Not on a mesh yet, each raising
-``NotImplementedError`` that names ROADMAP item 8: ``regions=True`` over
-several cards (3(c)) and ``tune`` other than ``"off"`` (3(b)).
-
-The defaults stay ``regions=False`` and ``donate=False`` (the reference's
-are True); flipping them is a ROADMAP item of its own.
+the entry's pool).  ``tune`` measures on a mesh as without one: each
+candidate is an executor over the same mesh, its layouts pass
+``validate_mesh`` and its tiles tile every shard and strip the kernels
+see.  Not on a mesh yet: ``regions=True`` over several cards raises
+``NotImplementedError`` naming ROADMAP item 8, 3(c); ``regions=False``
+runs such a mesh eagerly.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when no GPU is present.  Pass ``device="cpu"`` to run the kernels' plain
@@ -189,6 +209,7 @@ from __future__ import annotations
 
 import enum as enum_lib
 import functools
+import gc
 import hashlib
 import inspect
 import math
@@ -228,7 +249,6 @@ __all__ = ["Executor", "execute", "DegradationEvent", "ExecutableCacheEntry",
            "executable_cache_stats", "layout_candidates", "plan_signature",
            "solve_layouts"]
 
-_ITEM_TUNE_MESH = "ROADMAP item 8, 3(b) (measured tuning over a mesh)"
 _ITEM_CARDS = ("ROADMAP item 8, 3(c) (multi-card runs: region compile "
                "over the shards of several cards)")
 
@@ -681,8 +701,9 @@ class LayoutPlan:
     the boundary conversions of one pass, ``dag`` the dependency DAG
     with its segment placement, ``regions`` the segments grouped into
     regions (``schedule.group_regions``), ``region_graphs`` the graphs
-    each device region runs as under ``regions=True`` (filled by
-    :meth:`Executor.describe_dag`), ``signature`` the 12-hex digest of
+    each device region runs as under ``regions=True`` (filled as its
+    programs are built, and by :meth:`Executor.describe_dag`),
+    ``signature`` the 12-hex digest of
     the :func:`plan_signature`, ``cache`` the executable-cache entry once
     a region ran (None with ``regions=False``), ``tuning`` the
     measured autotuner's
@@ -1162,10 +1183,12 @@ class ExecutableCacheEntry:
     to the graphs whose closures the programs read (a large tensor is
     keyed by ``id`` in the signature, so it must outlive every graph that
     reads it), ``pins`` those graphs held while ``users`` (live executors
-    that fetched the entry) is above 0.  Under ``donate=True`` an entry
-    with a user is leased to it.  ``lock`` is held by a call for as
-    long as it uses the buffers: two executors that share the entry on
-    two threads take turns."""
+    that fetched the entry) is above 0.  ``live`` is the state the last
+    ``donate=True`` call returned: per buffer (by ``id``) a weak
+    reference to its alias, the buffer and its key; ``moved_out`` counts
+    the aliases moved onto clones (and ``moved_out_bytes`` their bytes).
+    ``lock`` is held by a call for as long as it uses the buffers: two
+    executors that share the entry on two threads take turns."""
 
     key: tuple
     executables: dict = dfield(default_factory=dict)
@@ -1180,6 +1203,9 @@ class ExecutableCacheEntry:
     graphs: list = dfield(default_factory=list)
     pins: list = dfield(default_factory=list)
     users: int = 0
+    live: dict = dfield(default_factory=dict)
+    moved_out: int = 0
+    moved_out_bytes: int = 0
     lock: Any = dfield(default_factory=threading.RLock)
 
     def buffer(self, name: str, shape, dtype: torch.dtype,
@@ -1220,6 +1246,46 @@ class ExecutableCacheEntry:
                                 value.dtype)
         return self.buffer(name, value.shape, value.dtype, value.device)
 
+    def alias(self, buf):
+        """The live alias of ``buf`` (a buffer or a ShardedArray of
+        buffers): the one the last call returned while someone holds it,
+        else a new one.  The references to each buffer's storage are
+        counted as it is handed out, so that :meth:`take_back` can tell
+        a view the caller took since."""
+        held = self.live.get(id(buf))
+        alias = held[0]() if held is not None else None
+        if alias is None:
+            alias = _alias(buf)
+        self.live[id(buf)] = (weakref.ref(alias), buf, self.owners[id(buf)],
+                              tuple(_uses(t) for t in _tensors(buf)))
+        return alias
+
+    def take_back(self, state: dict) -> set:
+        """Start of a call on this entry: each live alias that ``state``
+        holds under its own key is donated (replaced by its buffer, whose
+        ``id`` is returned); every other live alias still held is moved out
+        onto a clone, so that it keeps its values.  A returned state that
+        is not passed back but is still seen through a view of its
+        storage (a slice, ``.view()``, ``.numpy()``, a field of a record),
+        which no move can re-point, raises before any alias moves."""
+        donated, moves = set(), []
+        for bid, (ref, buf, name, counted) in list(self.live.items()):
+            alias = ref()
+            if alias is not None and state.get(name) is alias:
+                state[name] = buf
+                donated.add(bid)
+                continue
+            _refuse_views(name, buf, alias, counted, state)
+            moves.append((bid, alias, buf))
+        for bid, alias, buf in moves:
+            del self.live[bid]
+            if alias is not None:
+                for a, b in zip(_tensors(alias), _tensors(buf)):
+                    a.set_(b.clone())
+                    self.moved_out += 1
+                    self.moved_out_bytes += b.numel() * b.element_size()
+        return donated
+
     def pin(self, graph: Graph) -> None:
         """Keep ``graph`` alive while the entry has users, and drop the
         entry once it has none and ``graph`` is collected."""
@@ -1239,19 +1305,55 @@ class ExecutableCacheEntry:
         return release
 
 
-# (plan signature, device type, device index) -> entries.  Under
-# donate=True a key holds one entry per executor alive at once; otherwise
-# one.  An entry outlives its executors while the graphs it was built
-# from live (that is the reuse); clear_executable_cache() drops them all.
-_EXECUTABLE_CACHE: dict[tuple, list[ExecutableCacheEntry]] = {}
+def _uses(t: torch.Tensor) -> int:
+    """The references to ``t``'s storage: every tensor and view over it,
+    every array exported from it, and the handle this count takes."""
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
+
+
+def _refuse_views(name: str, buf, alias, counted: tuple,
+                  state: dict) -> None:
+    """Raise when the storage of ``name``'s buffer ``buf`` has more
+    references than when its alias was handed out (``counted``; one
+    fewer once the alias is gone), other than the tensors ``state``
+    passes in (a view passed as an input is cloned before any buffer is
+    written): a view the caller kept, which would show the next call's
+    values."""
+    gone = alias is None
+    mine = set() if gone else {id(t) for t in _tensors(alias)}
+    for t, n in zip(_tensors(buf), counted):
+        store = _storage(t)
+        passed = {id(x) for v in state.values() for x in _tensors(v)
+                  if id(x) not in mine and _storage(x) == store}
+        if _uses(t) - len(passed) > n - gone:
+            gc.collect()            # a view in a dead reference cycle
+            if _uses(t) - len(passed) > n - gone:
+                raise RuntimeError(
+                    f"the returned state's {name!r} is still seen through "
+                    f"a view of its storage (a slice, .view(), .numpy(), "
+                    f"a field of a record), and this call would overwrite "
+                    f"what it shows: clone what you keep, pass the state "
+                    f"back, or build the executor with donate=False")
+
+
+def _alias(buf):
+    """A new tensor object over ``buf``'s storage (for a ShardedArray,
+    shard by shard), which :meth:`ExecutableCacheEntry.take_back` can
+    re-point without touching the buffer."""
+    if isinstance(buf, ShardedArray):
+        return ShardedArray([_alias(t) for t in buf.shards], buf.placement,
+                            buf.shape)
+    return torch.empty(0, dtype=buf.dtype, device=buf.device).set_(buf)
+
+
+# (plan signature, device type, device index) -> entry.  An entry outlives
+# its executors while the graphs it was built from live (that is the
+# reuse); clear_executable_cache() drops them all.
+_EXECUTABLE_CACHE: dict[tuple, ExecutableCacheEntry] = {}
 
 
 def _evict(entry: ExecutableCacheEntry) -> None:
-    entries = _EXECUTABLE_CACHE.get(entry.key)
-    if entries is None:
-        return
-    entries[:] = [e for e in entries if e is not entry]
-    if not entries:
+    if _EXECUTABLE_CACHE.get(entry.key) is entry:
         del _EXECUTABLE_CACHE[entry.key]
 
 
@@ -1285,7 +1387,7 @@ def drop_executables(signature: tuple) -> None:
 
 def executable_cache_stats() -> dict:
     """Counters summed over the process-wide executable cache."""
-    entries = [e for es in _EXECUTABLE_CACHE.values() for e in es]
+    entries = list(_EXECUTABLE_CACHE.values())
     return {
         "plans": len(_EXECUTABLE_CACHE),
         "entries": len(entries),
@@ -1718,16 +1820,19 @@ class Executor:
     exchange and the overlapped interior/boundary lowering (see the
     module docstring); the executor's device is then the mesh's first.
 
-    ``regions=True`` runs each device region as captured CUDA graphs
-    over static buffers (on the CPU: the same code without capture),
-    which nodes that take ``out=`` write in place, and ``donate`` says
-    whether the returned state may be those buffers (see the module
+    ``regions=True`` (the default, as the reference's) runs each device
+    region as captured CUDA graphs over static buffers (on the CPU: the
+    same code without capture), which nodes that take ``out=`` write in
+    place; ``donate=True`` (the default) returns aliases of those buffers
+    under the reference's contract for a returned state (see the module
     docstring); on a mesh too, when its shards share one device; every
-    result equals ``regions=False``'s bit for bit.
+    result equals ``regions=False``'s (the per-segment escape hatch) bit
+    for bit.
 
     ``tune`` is ``"off"`` (the heuristics), ``"load"`` (apply a cached
     decision, heuristics on a miss, never measure) or ``"auto"`` (measure
-    on a miss and persist): ``tune_budget`` bounds the search (a
+    on a miss and persist; on a mesh too, each candidate over the same
+    mesh): ``tune_budget`` bounds the search (a
     :class:`~repro_torch.tuning.search.TuneBudget` or a dict of its
     fields) and ``tune_inputs`` are the ``init_state`` overrides every
     candidate is timed on.
@@ -1745,15 +1850,16 @@ class Executor:
 
     Example::
 
-        ex = Executor(graph)                  # on the GPU
+        ex = Executor(graph)          # on the GPU: captured CUDA graphs
         state = ex.run(ex.init_state(), steps=100)
-        mesh = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
-        ex = Executor(graph, mesh=mesh)       # four shards on one card
-        ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
-        ex = Executor(graph, regions=True)    # captured CUDA graphs
-        ex = Executor(graph, mesh=mesh, regions=True)   # one per piece
+        state = ex.run(state, steps=100)      # donated: no copy
         print(ex.describe_dag(), ex.cache_stats())
+        eager = Executor(graph, regions=False)   # per-segment dispatch
+        ex_cpu = Executor(graph, device="cpu")   # plain PyTorch versions
+        mesh = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
+        ex = Executor(graph, mesh=mesh)       # four shards, one graph
         ex = Executor(graph, tune="auto")     # measures once, persists
+        ex = Executor(graph, mesh=mesh, tune="auto")   # ... on the mesh
         print(ex.describe_tuning())           # what won, and why
         print(ex.plan.describe())             # DAG, regions, ladder, tuning
     """
@@ -1775,7 +1881,7 @@ class Executor:
                  mesh: Any = None, tune: str = "off",
                  tune_budget: Optional[Any] = None,
                  tune_inputs: Optional[dict[str, Any]] = None,
-                 regions: bool = False, donate: bool = False,
+                 regions: bool = True, donate: bool = True,
                  async_regions: bool = True,
                  host_timeout: Optional[float] = None,
                  degrade: bool = True, demote_after: int = 2,
@@ -1792,11 +1898,9 @@ class Executor:
                                 f"{type(mesh).__name__}")
             if regions and len(set(mesh.devices)) > 1:
                 raise NotImplementedError(
-                    f"regions=True on a mesh over several devices is "
-                    f"{_ITEM_CARDS}")
-            if tune != "off":
-                raise NotImplementedError(
-                    f"tune={tune!r} on a mesh is {_ITEM_TUNE_MESH}")
+                    f"regions=True (the default) on a mesh over several "
+                    f"devices is {_ITEM_CARDS}; regions=False runs it "
+                    f"eagerly")
             if device is not None and \
                     resolve_device(device) != mesh.devices[0]:
                 raise ValueError(f"device {device} is not the mesh's "
@@ -1982,6 +2086,8 @@ class Executor:
         self._collect_halo_schedule()
         self.plan.regions = schedule_lib.group_regions(
             [k for k, _ in self._segments])
+        # filled as region programs are built (and by describe_dag)
+        self.plan.region_graphs = {} if self.regions else None
         self.plan.region_edges = schedule_lib.region_dag(self.dag,
                                                          self.plan.regions)
         # the barrier bit per region: a barrier host region drains the pool
@@ -2073,23 +2179,16 @@ class Executor:
 
     def _entry(self) -> ExecutableCacheEntry:
         """This plan's executable-cache entry, fetched on first use and
-        leased to this executor until it is collected.  Under
-        ``donate=True`` an entry another live executor uses is never
-        shared."""
+        leased to this executor until it is collected; every live
+        executor of the signature shares it."""
         if self._cache is not None:
             return self._cache
         key = self._cache_key()
         lease = self._leases.get(key)
         if lease is None:
-            entries = _EXECUTABLE_CACHE.setdefault(key, [])
-            entry = None
-            if self.donate:
-                entry = next((e for e in entries if e.users == 0), None)
-            elif entries:
-                entry = entries[0]
+            entry = _EXECUTABLE_CACHE.get(key)
             if entry is None:
-                entry = ExecutableCacheEntry(key)
-                entries.append(entry)
+                entry = _EXECUTABLE_CACHE[key] = ExecutableCacheEntry(key)
             lease = self._leases[key] = (entry, entry.acquire(self))
         self._cache = self.plan.cache = lease[0]
         return self._cache
@@ -2103,30 +2202,27 @@ class Executor:
             if kind == "host_loop":
                 yield from self._sub_executor(i)._entries()
 
-    def _unalias(self, state: dict) -> dict:
-        """``state`` with every tensor that lies in another key's static
-        buffer cloned, so that no buffer is written before every key that
-        holds it has been read (``ex({"a": st["b"], "b": st["a"]})`` on a
-        donated ``st``).  A buffer is known by its ``id``; any other
-        tensor is looked up by its storage (a view of a buffer); a
+    def _take_in(self, state: dict) -> tuple[dict, set]:
+        """The state a call starts from: each live alias passed back under
+        its own key replaced by its buffer (donated; their ``id``s are
+        returned), every other live alias moved out onto a clone
+        (:meth:`ExecutableCacheEntry.take_back`), then every tensor that
+        lies in another key's static buffer (a view of a returned tensor)
+        cloned, so that no buffer is written before every key that holds
+        it has been read.  Tensors are looked up by storage; a
         ShardedArray shard by shard."""
-        owners: dict = {}
+        out = dict(state)
+        donated: set = set()
         storages: dict = {}
         for e in self._entries():
-            owners.update(e.owners)
+            donated |= e.take_back(out)
             storages.update(e.storages)
-        out = dict(state)
-        if not owners:
-            return out
-        for k, x in state.items():
-            for t in _tensors(x):
-                owner = owners.get(id(t))
-                if owner is None:
-                    owner = storages.get(_storage(t), k)
-                if owner != k:
-                    out[k] = _clone(x)
-                    break
-        return out
+        if not storages:
+            return out, donated
+        for k, x in list(out.items()):
+            if any(storages.get(_storage(t), k) != k for t in _tensors(x)):
+                out[k] = _clone(x)
+        return out, donated
 
     def cache_stats(self) -> dict:
         """Live executable-cache counters of this plan (``regions=True``).
@@ -2139,7 +2235,10 @@ class Executor:
         make at their ends into the static buffers, each piece run once
         (one step of a device-only graph; one iteration of a loop body):
         the outputs not written in place, which aliasing forces.  A
-        capture replays its build's copies."""
+        capture replays its build's copies.  ``moved_out`` and
+        ``moved_out_bytes`` count, over the entry's life, the returned
+        aliases moved onto clones because a call did not take them back
+        (``donate=True``: a switch between states)."""
         c = self._entry()
         pieces = [p for e in self._entries() for prog in e.executables.values()
                   for p in _pieces(prog.steps) if p.out_bufs is not None]
@@ -2147,7 +2246,9 @@ class Executor:
                 "executables": len(c.executables), "builds": c.builds,
                 "hits": c.hits, "trace_events": c.trace_events,
                 "copy_backs": sum(p.copies[0] for p in pieces),
-                "copy_back_bytes": sum(p.copies[1] for p in pieces)}
+                "copy_back_bytes": sum(p.copies[1] for p in pieces),
+                "moved_out": c.moved_out,
+                "moved_out_bytes": c.moved_out_bytes}
 
     # -- layout plumbing ---------------------------------------------------
     def _eff_in(self, t: DistTensor, layouts: dict[str, Layout]) -> DistTensor:
@@ -2478,9 +2579,21 @@ class Executor:
         arg of ``name``, not through a padded copy), its function is marked
         :func:`~repro_torch.core.graph.in_place`, and no other arg of it
         lies there; (iii) no other key's value lies in ``buf`` (a value a
-        later node, piece, host callback or the caller still reads).
+        later node, piece, host callback or the caller still reads);
+        (iv) ``buf`` is stored in the layout of every record arg of the
+        key's record type (a kernel writes ``out`` in its input's layout;
+        the output is copied back otherwise).
         ``own_reads=False`` skips (ii) for the overlapped lowering, which
         stitches its outputs after every program of the node has run."""
+        written = next((t for t in self._write_tensors(node)
+                        if t.name == name), None)
+        if written is not None and written.is_record:
+            lay = self._eff_in(written, layouts).layout
+            for a in node.args:
+                t, _ = _tensor_arg(a)
+                if t is not None and t.spec == written.spec and \
+                        self._eff_in(t, layouts).layout is not lay:
+                    return False
         stores = _storages(buf)
         for other in level:
             if other is not node and any(
@@ -2910,7 +3023,10 @@ class Executor:
             entry.pin(self.graph)
         elif key not in self._fetched:
             entry.hits += 1
-        self._fetched.add(key)
+        if key not in self._fetched:
+            self._fetched.add(key)
+            self.plan.region_graphs.setdefault(region.index,
+                                               _count_graphs(prog.steps))
         return prog
 
     def _async_ctx(self, enabled: Optional[bool] = None) \
@@ -2994,15 +3110,21 @@ class Executor:
                 self.eager_relayouts += sub.eager_relayouts - before
 
     def _finish(self, st: _CallState) -> dict:
-        """The state a call returns: under ``donate=True`` the static
-        buffers themselves; otherwise a clone of each buffer a piece
-        wrote, and the value staged in for each buffer only read."""
+        """The state a call returns: under ``donate=True`` the live alias
+        of each static buffer (the entry's returned state from now on);
+        otherwise a clone of each buffer a piece wrote, and the value
+        staged in for each buffer only read."""
         state = st.state
-        if not self.donate:
-            for k, v in state.items():
-                if id(v) in st.buffers:
-                    orig = None if k in st.written else st.origin.get(k)
-                    state[k] = _clone(v) if orig is None else orig
+        entries = list(self._entries()) if self.donate else ()
+        for k, v in state.items():
+            if id(v) not in st.buffers:
+                continue
+            if self.donate:
+                state[k] = next(e for e in entries
+                                if id(v) in e.owners).alias(v)
+            else:
+                orig = None if k in st.written else st.origin.get(k)
+                state[k] = _clone(v) if orig is None else orig
         return state
 
     # -- execution -----------------------------------------------------------
@@ -3056,8 +3178,9 @@ class Executor:
         """Execute the whole graph ``steps`` times (graphs are built once,
         executed many — paper §5.3).  Under ``regions=True`` a device-only
         graph replays its captured step ``steps`` times, copying in once
-        and cloning out once (unless ``donate=True``); every step count
-        shares that one capture.  Pooled host callbacks have all run when
+        and returning aliases of its buffers (``donate=True``) or clones
+        (``donate=False``) once; every step count shares that one
+        capture.  Pooled host callbacks have all run when
         it returns (the first failure re-raises here).  A failure is
         reported to the ladder (:meth:`record_failure`), a success counts
         as a clean pass."""
@@ -3075,7 +3198,9 @@ class Executor:
                     with ExitStack() as held:
                         for entry in self._entries():
                             held.enter_context(entry.lock)
-                        st = _CallState(self._unalias(state), ctx)
+                        state, donated = self._take_in(state)
+                        st = _CallState(state, ctx)
+                        st.buffers |= donated
                         for _ in range(steps):
                             self._run_regions(st)
                         self._restore_initial_layouts(st.state)

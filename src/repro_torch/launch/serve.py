@@ -9,13 +9,15 @@ record state tensor; :class:`~repro_torch.runtime.batcher.Batcher` admits
 requests into the decode executor's batch slots.  On the GPU (the default)
 prefill attention runs on the K6 kernel and the Mamba-2 SSD on K7.
 
-``--smoke`` takes the arch's reduced config and asserts that the
-batcher's token streams equal :func:`legacy_generate`'s, the uniform
-prefill + decode loop.  The JAX package's further smoke checks (decode
-traced once, a fresh worker with zero new traces) have no counterpart:
-the launcher's decode executor is eager (``Batcher(executor_opts=
-{"regions": True, "donate": True})`` captures it; ``chip_smoke.py``
-checks those streams).
+The batcher's decode executor takes the executor's defaults
+(``regions=True, donate=True``): the decode step is captured once and
+replayed; its prefills run eagerly.
+``--smoke`` takes the arch's reduced config and asserts the JAX
+package's three smoke checks: the batcher's token streams equal
+:func:`legacy_generate`'s, the uniform prefill + decode loop; the steady
+decode loop is captured exactly once; and a freshly built worker
+``Batcher`` with the same decode plan signature serves the same prompts
+with zero new decode captures and equal streams.
 """
 
 from __future__ import annotations
@@ -103,7 +105,8 @@ def _prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:
 
 def serve_ripple(cfg, params, args):
     """Serve through the Batcher; with ``--smoke`` check it against the
-    uniform loop token for token."""
+    uniform loop token for token, its decode captured once, and a fresh
+    worker serving with zero new decode captures."""
     from ..runtime.batcher import Batcher
 
     B = args.batch
@@ -129,6 +132,31 @@ def serve_ripple(cfg, params, args):
             raise AssertionError(
                 f"ripple/legacy argmax mismatch:\n{gen}\nvs\n{legacy}")
         print("[smoke] ripple == legacy argmax sequences  OK")
+
+        # the steady decode loop captured exactly once
+        captures = batcher.cache_stats()["decode"]["trace_events"]
+        if captures != 1:
+            raise AssertionError(f"decode captured {captures} times over "
+                                 f"{batcher.steps} steps")
+        print(f"[smoke] decode captured once across {batcher.steps} "
+              f"steps  OK")
+
+        # a freshly built worker serves with zero new decode captures
+        before = batcher.executor.cache_stats()["trace_events"]
+        worker = Batcher(cfg, params, batch=B, max_seq=max_seq)
+        wreqs = [worker.submit(p, max_new_tokens=args.gen) for p in prompts]
+        worker.run()
+        wgen = np.stack([r.generated for r in wreqs])
+        after = worker.executor.cache_stats()["trace_events"]
+        if worker.executor.plan.signature != batcher.executor.plan.signature:
+            raise AssertionError("fresh worker: another plan signature")
+        if after != before:
+            raise AssertionError(f"fresh worker captured anew: {before} -> "
+                                 f"{after} captures")
+        if not (wgen == gen).all():
+            raise AssertionError(f"fresh worker's streams differ:\n{wgen}"
+                                 f"\nvs\n{gen}")
+        print("[smoke] fresh worker served with 0 new decode captures  OK")
     return gen
 
 

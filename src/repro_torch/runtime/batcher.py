@@ -25,13 +25,20 @@ request's prompt + generated tokens anew.
 On the GPU a decode step's kernels are queued and the call returns
 before they finish, so ``prefill_ahead`` queues the queue head's prefills
 behind the step before the batcher reads the step's tokens.
-``executor_opts`` go to the decode executor: ``{"regions": True,
-"donate": True}`` replays the decode step as one captured CUDA graph
-whose static buffers ARE ``self.state``, so admission's in-place writes
-land in them.  Prefill executors stay eager: each is built per prompt
-length and run once per request, so a capture would cost more than it
-saves.  :meth:`cache_stats` reports the executors' relayout counts and,
-under ``regions=True``, the decode executor's executable-cache counters.
+
+The decode executor takes the executor's defaults, as the reference's
+does (``regions=True, donate=True``), and ``executor_opts`` override them
+(``{"regions": False}``: per-segment dispatch).  Under the defaults the
+decode step replays one captured CUDA graph, and ``self.state`` holds
+aliases of its static buffers, so admission's in-place writes land in
+them.  The prefill executors, one per prompt length, run eagerly
+(``regions=False``): a capture per length pays only where exact prompt
+lengths repeat many times, and costs a few tenths of a second and a
+static copy of the prefill's state a length, where an eager prefill
+costs tens of milliseconds and keeps nothing on the device between
+calls (``PERF.md``).  :meth:`cache_stats` reports the executors'
+relayout counts and, under ``regions=True``, the decode executor's
+executable-cache counters.
 """
 
 from __future__ import annotations
@@ -176,8 +183,8 @@ class Batcher:
             pg = make_prefill_graph(self.cfg, self.params,
                                     prompt_len=prompt_len,
                                     max_seq=self.max_seq)
-            self._prefill[prompt_len] = (pg, Executor(pg.graph,
-                                                      self.device))
+            self._prefill[prompt_len] = (pg, Executor(
+                pg.graph, self.device, regions=False))
         return self._prefill[prompt_len]
 
     def _admit_ready(self) -> None:

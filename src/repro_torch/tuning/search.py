@@ -383,8 +383,11 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
     """JOINT search over per-key layouts × per-kernel tiles (plus
     per-segment layout refinements), cost-ranked so only the budgeted
     top fraction is measured; every measured candidate is a real run of
-    a fresh ``Executor`` on the caller's device, schedule and overrides,
-    timed on ``init_state(**tune_inputs)``."""
+    a fresh ``Executor`` on the caller's device or mesh, schedule and
+    overrides, timed on ``init_state(**tune_inputs)``.  On a mesh the
+    layout axes hold only layouts that pass ``validate_mesh``, and the
+    tile axes only tiles that tile every shape a kernel was called at
+    (each shard, each strip of the overlapped lowering)."""
     from ..core import executor as executor_lib
 
     budget = TuneBudget.coerce(budget)
@@ -398,12 +401,11 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
                     for si, d in executor._segment_overrides.items()}
         for si, d in (seg_layouts or {}).items():
             seg_over.setdefault(si, {}).update(d)
-        # timed as the caller will run: regions, donation and async
-        # host regions included.  The caller's state is never modified
-        # either way (a donating executor copies it into its buffers), so
-        # every call starts from it.  The ladder is off: a transient
-        # failure while timing must not demote a candidate mid-search
-        ex = Executor(graph, executor.device,
+        # timed as the caller will run: on its mesh, with regions,
+        # donation and async host regions.  The ladder is off: a
+        # transient failure while timing must not demote a candidate
+        # mid-search
+        ex = Executor(graph, executor.device, mesh=executor.mesh,
                       layout_overrides={**executor._layout_overrides,
                                         **layouts},
                       schedule=executor.schedule,
@@ -415,6 +417,10 @@ def measure_plan(executor, key: str, budget=None) -> TuningDecision:
         state = ex.init_state(**executor._tune_inputs)
 
         def run_once():
+            # every call starts from the inputs (a loop graph then runs
+            # its whole loop each time); an executor never writes its
+            # caller's tensors, and the state a call returned is dropped
+            # before the next, so nothing moves out
             return ex.run(dict(state), TUNE_STEPS)
 
         recorder = tiles_lib.record_tile_use() if probe else nullcontext()

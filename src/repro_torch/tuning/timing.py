@@ -22,8 +22,12 @@ __all__ = ["time_fn", "time_fn_split", "time_fn_budget"]
 
 
 def _cuda_devices(result, out: set) -> set:
-    """The CUDA devices of every tensor in ``result`` (a tensor, or dicts /
-    lists / tuples of them, such as an ``Executor.run`` state)."""
+    """The CUDA devices of every tensor in ``result`` (a tensor, a
+    ShardedArray's shards, or dicts / lists / tuples of them, such as an
+    ``Executor.run`` state)."""
+    shards = getattr(result, "shards", None)
+    if shards is not None:
+        result = shards
     if isinstance(result, torch.Tensor):
         if result.is_cuda:
             out.add(result.device)

@@ -435,7 +435,7 @@ def test_prop_async_equals_sync(seed, layout, donate):
     callbacks, across layouts and donation modes, and equal to the eager
     per-segment path."""
     g, overrides, keys = build_random_graph(seed, layout)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     want = eager.run(eager.init_state(**overrides()), 2)
     outs = {}
     for mode in (True, False):

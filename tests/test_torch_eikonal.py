@@ -230,9 +230,10 @@ def test_eikonal_graph_reaches_the_kernel_by_default(monkeypatch, inner,
 
     calls = []
 
-    def fake_cuda(p, m, h, *, inner, block):
+    def fake_cuda(p, m, h, *, inner, block, out=None):
         calls.append((inner, block))
-        return ops.eikonal_fim_ref(p, m, h, inner=inner, block=block)
+        return ops.eikonal_fim_ref(p, m, h, inner=inner, block=block,
+                                   out=out)
 
     monkeypatch.setattr(ops, "on_cuda", lambda t: True)
     monkeypatch.setattr(ops, "eikonal_fim_cuda", fake_cuda)

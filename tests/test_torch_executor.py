@@ -362,9 +362,9 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
 
     calls = []
 
-    def fake_cuda(rec, lam_x, lam_y):
+    def fake_cuda(rec, lam_x, lam_y, out=None):
         calls.append(rec.layout)
-        return ops.flux_difference_ref(rec, lam_x, lam_y)
+        return ops.flux_difference_ref(rec, lam_x, lam_y, out=out)
 
     monkeypatch.setattr(ops, "on_cuda", lambda t: True)
     monkeypatch.setattr(ops, "flux_difference_cuda", fake_cuda)
@@ -377,24 +377,19 @@ def test_flux_graph_reaches_the_kernel_by_default(monkeypatch, use_kernel,
     assert len(calls) == launches
 
 
-@pytest.mark.parametrize("option", ["mesh", "partition"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_unported_options_raise_with_their_roadmap_item(option):
     """What is left of the mesh refuses with its ROADMAP item: region
     compile on a mesh over several cards ("mesh", item 8's 3(c); the
-    refusal comes before any card is touched), and measured tuning of a
-    partitioned graph on a mesh ("partition", 3(b))."""
-    mesh = port.make_mesh((4,), ("d",), devices=["cpu"] * 4)
+    refusal comes before any card is touched, and names the eager escape
+    hatch), whether ``regions=True`` is named or the default."""
     t = port.DistTensor("p", (64,), partition=("d",))
     g = port.Graph(name="part").split(lambda x: x, t)
-    kw, item = {}, {"mesh": "item 8, 3\\(c\\)",
-                    "partition": "item 8, 3\\(b\\)"}[option]
-    if option == "mesh":
-        mesh = port.Mesh({"d": 2}, ["cuda:0", "cuda:1"])
-        kw["regions"] = True
-    else:
-        kw["tune"] = "auto"
-    with pytest.raises(NotImplementedError, match=item):
-        port.Executor(g, mesh=mesh, **kw)
+    mesh = port.Mesh({"d": 2}, ["cuda:0", "cuda:1"])
+    for kw in ({"regions": True}, {}):
+        with pytest.raises(NotImplementedError,
+                           match="item 8, 3\\(c\\).*regions=False"):
+            port.Executor(g, mesh=mesh, **kw)
 
 
 # -- conditional loops (paper §5.3.6) ----------------------------------------
@@ -523,7 +518,7 @@ def test_loop_relayouts_count_on_the_enclosing_executor():
     g.split(lambda x: x.map_data(torch.zeros_like),
             port.preferred_layout(r, port.Layout.SOA), writes=(0,))
     g.then(body)
-    ex = port.Executor(g, device="cpu")
+    ex = port.Executor(g, device="cpu", regions=False)
     assert [k for k, _ in ex._segments] == ["device", "loop"]
     assert ex.plan.relayouts == [port.RelayoutStep(1, "r", port.Layout.SOA,
                                                    port.Layout.AOSOA)]

@@ -249,7 +249,7 @@ def test_regions_exchange_through_the_executor(case, boundary):
     g = tcore.Graph().split(lambda s, _d: _window_sum(s, widths),
                             tcore.concurrent_padded_access(src), dst)
     x0 = torch.from_numpy(x)
-    eager = tcore.Executor(g, mesh=mesh)
+    eager = tcore.Executor(g, mesh=mesh, regions=False)
     want = eager.read(eager(eager.init_state(src=x0)), dst)
     ex = tcore.Executor(g, mesh=mesh, regions=True, donate=True)
     for _ in range(2):

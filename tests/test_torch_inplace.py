@@ -146,7 +146,7 @@ def test_main_path_graphs_copy_nothing_back(graph, donate):
     """Every written key of the four graphs lands in its static buffer:
     no copy at a piece's end, the states equal ``regions=False``'s."""
     g, make, run = _main_path(graph)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     want = run(eager, make(eager))
     ex = Executor(g, device="cpu", regions=True, donate=donate)
     _equal(run(ex, make(ex)), want)
@@ -239,7 +239,7 @@ def test_a_sibling_reader_keeps_the_level_snapshot(donate, reader_first):
     """Rule (i): a level runs against one snapshot, so a node whose key a
     sibling reads writes a new tensor, not the shared buffer."""
     g = _sibling_graph(reader_first)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     assert len(eager._segments[0][1][0]) == 2        # one level, two nodes
     a0 = torch.arange(64.0)
     want = eager.run(eager.init_state(a=a0), 3)
@@ -279,7 +279,7 @@ def test_an_alias_of_the_buffer_keeps_it_from_a_writer():
     g.then_split(in_place(lambda x, out=None: torch.mul(x, 3.0, out=out)),
                  a, writes=(0,))
     a0 = torch.arange(32.0)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     want = eager(eager.init_state(a=a0))
     for donate in (False, True):
         ex = Executor(g, device="cpu", regions=True, donate=donate)
@@ -340,16 +340,16 @@ def test_decode_writes_its_caches_in_place(arch):
     prompts = [rng.integers(1, tc.vocab_size, (n,)).astype(np.int32)
                for n in (3, 5, 4)]
     want_n = (4, 3, 5)
-    eager, _ = _decode_stats(tc, tp, prompts, want_n, {})
+    eager, _ = _decode_stats(tc, tp, prompts, want_n, {"regions": False})
     got, b = _decode_stats(tc, tp, prompts, want_n,
                            {"regions": True, "donate": True})
     assert got == eager
     stats = b.cache_stats()["decode"]
     caches = {t.name: b.state[t.name] for s in b.dg.slots for t in s.tensors}
-    bufs = {id(v) for v in b.executor._cache.buffers.values()}
+    bufs = {v.data_ptr() for v in b.executor._cache.buffers.values()}
     layer = min(sum(b.state[t.name].numel() * b.state[t.name].element_size()
                     for t in s.tensors) for s in b.dg.slots)
-    assert all(id(v) in bufs for v in caches.values())
+    assert all(v.data_ptr() in bufs for v in caches.values())
     assert stats["copy_back_bytes"] < layer
     if arch == "qwen3-8b":   # only the residual h goes through a copy
         h = b.state["h"]
@@ -369,7 +369,7 @@ def test_a_donated_sharded_state_passed_back_swapped():
                                             torch.add(y, y))),
            args=(a, b), writes=(0, 1))
     ex = Executor(g, mesh=mesh, regions=True, donate=True)
-    eager = Executor(g, mesh=mesh)
+    eager = Executor(g, mesh=mesh, regions=False)
     st = ex(ex.init_state(a=torch.arange(16.0), b=-torch.arange(16.0)))
     assert isinstance(st["a"], port.ShardedArray)
     inp = {"a": st["b"], "b": st["a"]}

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and nothing falls back
-to the CPU when no GPU is present."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
+import JAX or the JAX package, and nothing falls back to the CPU when no
+GPU is present."""
 
 import os
 import shutil
@@ -44,6 +45,31 @@ def test_port_imports_neither_jax_nor_the_reference():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20   # every port module was imported
+
+
+_IMPORT_EXAMPLES = r"""
+import importlib.util, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+loaded = [k for k, v in sys.modules.items() if v is not None and (
+    k == "repro" or k.startswith("repro.") or k.split(".")[0] == "jax")]
+assert not loaded, loaded
+print(len(sys.argv) - 1)
+"""
+
+
+def test_port_examples_import_neither_jax_nor_the_reference():
+    examples = [os.path.join(REPO, "examples", f"{name}_torch.py")
+                for name in ("quickstart", "particles", "euler2d")]
+    path = os.pathsep.join(p for p in (os.path.join(REPO, "src"),
+                                       os.environ.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES,
+                          *examples], env=_env(path), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 3
 
 
 def test_chip_smoke_without_a_gpu_fails_with_no_result():

@@ -585,13 +585,146 @@ def test_make_mesh_refuses_cards_that_do_not_exist():
     assert mesh.neighbour(0, "b", -1, wrap=True) == 1
 
 
-@pytest.mark.parametrize("kw", [{"tune": "auto"}, {"tune": "load"}])
-def test_what_is_left_of_the_mesh_raises_with_its_roadmap_item(kw):
-    mesh = _mesh((2,), ("d",))
-    t = port.DistTensor("t", (8,), partition=("d",))
-    g = port.Graph().split(lambda x: x + 1.0, t, writes=(0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        port.Executor(g, mesh=mesh, **kw)
+# -- measured tuning on a mesh (ROADMAP 3(b)) ---------------------------------
+
+TUNE_N = 32
+TUNE_BUDGET = {"max_measure": 4, "max_proposals": 16}
+
+
+@pytest.fixture
+def tune_env(monkeypatch, tmp_path):
+    """An empty tuning cache and zeroed tuner counters; yields the search
+    module (its ``STATS``)."""
+    from repro_torch.tuning import cache, search
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune-cache"))
+    cache.clear_memo()
+    search.reset_stats()
+    yield search
+    cache.clear_memo()
+
+
+def _flux_tuned(mesh, tune, overlap=False, **kw):
+    g, (u, flux) = workloads.build_flux_graph(TUNE_N, TUNE_N, mesh=mesh,
+                                              overlap=overlap)
+    inputs = {"u": shock_bubble_init(TUNE_N, TUNE_N, device="cpu")}
+    ex = port.Executor(g, mesh=mesh, tune=tune, tune_inputs=inputs,
+                       tune_budget=TUNE_BUDGET, **kw)
+    return ex, inputs, (u, flux)
+
+
+def _read_soa(ex, state, tensors):
+    return {t.name: ex.read(state, t).with_layout(port.Layout.SOA).data
+            for t in tensors}
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_tune_auto_on_a_mesh_measures_mesh_valid_candidates(tune_env,
+                                                            monkeypatch,
+                                                            overlap):
+    """``tune="auto"`` on a (2, 2) mesh: every candidate is an executor
+    over the same mesh (so each of its layouts passed ``validate_mesh``),
+    the tuned state equals the heuristic plan's, and a second
+    construction loads the decision with zero measurements."""
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    built = []
+    init = port.Executor.__init__
+
+    def spy(self, graph, *a, **kw):
+        init(self, graph, *a, **kw)
+        built.append(self)
+
+    monkeypatch.setattr(port.Executor, "__init__", spy)
+    ex, inputs, tensors = _flux_tuned(mesh, "auto", overlap=overlap)
+    dec = ex.plan.tuning
+    assert dec.source == "measured" and dec.measured >= 2
+    assert dec.proposed >= dec.measured
+    candidates = built[:-1]                   # the last is ``ex`` itself
+    assert len(candidates) == dec.measured
+    for cand in candidates:
+        assert cand.mesh is mesh
+        for name, lay in cand.plan.initial.items():
+            cand.tensors[name].with_(layout=lay).validate_mesh(mesh)
+    heur = port.Executor(ex.graph, mesh=mesh)
+    got = _read_soa(ex, ex.run(ex.init_state(**inputs), 2), tensors)
+    want = _read_soa(heur, heur.run(heur.init_state(**inputs), 2), tensors)
+    for k in want:
+        if dec.tiles:             # the flux tolerance where tiles changed
+            torch.testing.assert_close(got[k], want[k], rtol=1e-4,
+                                       atol=1e-4)
+        else:
+            assert torch.equal(got[k], want[k]), k
+    before = tune_env.STATS["measurements"]
+    again, _, _ = _flux_tuned(mesh, "auto", overlap=overlap)
+    assert again.plan.tuning.source == "cache"
+    assert tune_env.STATS["measurements"] == before
+    assert again.plan.signature == ex.plan.signature
+
+
+def test_tune_load_on_a_mesh_never_measures(tune_env):
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    ex, _, _ = _flux_tuned(mesh, "load")
+    assert ex.plan.tuning.source == "heuristic"
+    assert tune_env.STATS["measurements"] == 0
+    _flux_tuned(mesh, "auto")
+    measured = tune_env.STATS["measurements"]
+    assert measured >= 2
+    ex, _, _ = _flux_tuned(mesh, "load")
+    assert ex.plan.tuning.source == "cache"
+    assert tune_env.STATS["measurements"] == measured
+
+
+def test_a_mesh_tuning_decision_is_not_loaded_on_another_mesh(tune_env):
+    """The tuning key is the plan signature, which carries the mesh's
+    shape and axes: a decision measured on (4,) is a miss on (2, 2) and
+    without a mesh."""
+    from repro_torch.tuning.search import tuning_key
+
+    four, _, _ = _flux_tuned(_mesh((4,), ("gx",)), "auto")
+    assert four.plan.tuning.source == "measured"
+    square, _, _ = _flux_tuned(_mesh((2, 2), ("gx", "gy")), "load")
+    assert square.plan.tuning.source == "heuristic"
+    assert tuning_key(square) != tuning_key(four)
+    whole, _, _ = _flux_tuned(None, "load", device="cpu")
+    assert whole.plan.tuning.source == "heuristic"
+
+
+@pytest.mark.parametrize("overlap,n", [(False, 128), (True, 132)])
+def test_mesh_tile_candidates_tile_every_shard_and_strip(tune_env, overlap,
+                                                         n):
+    """K5's frozen-halo tiles (``inner > 1``, ``block=None``) on a (2, 2)
+    mesh: the kernel is called per shard, and with the overlapped
+    lowering per interior and boundary strip; a tile that does not tile
+    every one of those shapes is never proposed.  Synchronously the
+    shards' tiles are measured; overlapped, the one-cell strips admit
+    none but the default."""
+    from repro_torch.kernels.eikonal.kernel import TILE_KERNEL
+    from repro_torch.kernels.stencil.kernel import check_block
+    from repro_torch.tuning.tiles import record_tile_use
+
+    mesh = _mesh((2, 2), ("gx", "gy"))
+    phi = port.DistTensor("phi", (n, n), partition=("gx", "gy"),
+                          halo=(1, 1), boundary=port.Boundary.TRANSMISSIVE)
+    mask = port.DistTensor("mask", (n, n), dtype=torch.bool,
+                           partition=("gx", "gy"))
+    g = make_eikonal_graph(phi, mask, 1.0 / n, inner=4, block=None,
+                           overlap=overlap)
+    inputs = {k: torch.from_numpy(v)
+              for k, v in workloads.eikonal_inputs(n).items()}
+    probe = port.Executor(g, mesh=mesh)
+    with record_tile_use() as used:
+        probe.run(probe.init_state(**inputs), 1)
+    shapes = {shape for shape, _ in used[TILE_KERNEL]}
+    assert len(shapes) == (3 if overlap else 1)   # interior, two strips
+    ex = port.Executor(g, mesh=mesh, tune="auto", tune_inputs=inputs,
+                       tune_budget={"measure_all": True})
+    dec = ex.plan.tuning
+    tiles = [eval(m.candidate.split(f"{TILE_KERNEL}=")[1])
+             for m in dec.measurements if f"{TILE_KERNEL}=" in m.candidate]
+    assert bool(tiles) == (not overlap)
+    for tile in tiles + list(dec.tiles.values()):
+        for shape in shapes:
+            check_block(shape, tile)
 
 
 def test_a_partitioned_tensor_without_a_mesh_runs_whole():
@@ -651,7 +784,7 @@ def test_regions_halo_exchange_1d(jax_side, overlap, donate):
     g = port.Graph()
     g.split(_diff, port.concurrent_padded_access(src), dst, overlap=overlap)
     x0 = torch.arange(64, dtype=torch.float32) ** 2
-    eager = port.Executor(g, mesh=mesh)
+    eager = port.Executor(g, mesh=mesh, regions=False)
     want = eager.read(eager(eager.init_state(src=x0)), dst)
     ex = _regions(g, mesh, donate)
     st = ex(ex.init_state(src=x0))
@@ -672,7 +805,7 @@ def test_regions_halo_corners_2d_all_policies(jax_side, boundary, overlap):
     g = port.Graph()
     g.split(_sten, port.concurrent_padded_access(src), dst, overlap=overlap)
     x0 = _t(jax_side["corners-x0"])
-    eager = port.Executor(g, mesh=mesh)
+    eager = port.Executor(g, mesh=mesh, regions=False)
     want = eager.read(eager(eager.init_state(src=x0)), dst)
     ex = _regions(g, mesh, True)
     for _ in range(2):
@@ -721,7 +854,7 @@ def test_regions_kernel_graphs_2d(jax_side, overlap):
                          layout=port.Layout.SOA, partition=("gx", "gy"))
     g = make_flux_difference_graph(u, du, 0.1, 0.2, overlap=overlap)
     u0 = _t(jax_side["flux-U0"])
-    eager = port.Executor(g, mesh=mesh)
+    eager = port.Executor(g, mesh=mesh, regions=False)
     want = eager.read(eager(eager.init_state(u=u0)), du).data
     ex = _regions(g, mesh, True)
     got = ex.read(ex(ex.init_state(u=u0)), du).data
@@ -739,7 +872,7 @@ def test_regions_kernel_graphs_2d(jax_side, overlap):
     mask = port.DistTensor("mask", (32, 16), dtype=torch.bool,
                            partition=("gx", "gy"))
     g = make_eikonal_graph(phi, mask, 1.0 / 32, overlap=overlap)
-    eager = port.Executor(g, mesh=mesh)
+    eager = port.Executor(g, mesh=mesh, regions=False)
     want = eager.read(eager.run(eager.init_state(phi=phi0, mask=mask0), 6),
                       phi)
     ex = _regions(g, mesh, False)
@@ -812,7 +945,7 @@ def test_regions_reductions_fold_the_shards(reducer):
         t = port.DistTensor("t", (8, 6), dtype=dtype, partition=partition)
         r = port.make_reduction_result("r", dtype=dtype)
         g = port.Graph().reduce(t, r, getattr(port, reducer)())
-        eager = port.Executor(g, mesh=mesh)
+        eager = port.Executor(g, mesh=mesh, regions=False)
         want = eager(eager.init_state(t=torch.from_numpy(x0)))["r"]
         ex = _regions(g, mesh, True)
         assert torch.equal(ex(ex.init_state(t=torch.from_numpy(x0)))["r"],

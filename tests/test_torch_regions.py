@@ -137,7 +137,7 @@ GRAPHS = ["saxpy", "particle", "flux", "eikonal"]
 @pytest.mark.parametrize("graph", GRAPHS)
 def test_regions_equal_eager_bit_for_bit(graph, donate, schedule):
     g, make, run = _main_path(graph)
-    eager = Executor(g, device="cpu", schedule=schedule)
+    eager = Executor(g, device="cpu", schedule=schedule, regions=False)
     want = run(eager, make(eager))
     ex = Executor(g, device="cpu", regions=True, donate=donate,
                   schedule=schedule)
@@ -156,7 +156,7 @@ def test_regions_follow_inputs_that_change_after_the_build(graph):
     ex = Executor(g, device="cpu", regions=True, donate=True)
     run(ex, make(ex))
     g2, make2, run2 = _main_path(graph, seed=1)
-    eager = Executor(g2, device="cpu")
+    eager = Executor(g2, device="cpu", regions=False)
     want = run2(eager, make2(eager))
     builds = ex.cache_stats()["trace_events"]
     _equal(run(ex, make2(ex)), want)
@@ -246,7 +246,7 @@ def test_eikonal_phi_prev_holds_the_old_phi(donate):
     assert not torch.equal(out["phi"], phi0)
     assert torch.equal(out["change"], (out["phi"] - phi0).abs())
     left[0] = 1
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     _equal(out, eager(eager.init_state(phi=phi0, mask=inp["mask"])))
 
 
@@ -287,10 +287,10 @@ def test_donated_buffers_passed_back_under_other_keys(shape, case):
     key reads the value it was given, as with ``regions=False``."""
     g = _two_key_graph(shape)
     ex = Executor(g, device="cpu", regions=True, donate=True)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     st = ex(ex.init_state(a=torch.arange(16.0), b=-torch.arange(16.0)))
-    bufs = {id(b) for b in ex._cache.buffers.values()}
-    assert {id(st["a"]), id(st["b"])} <= bufs
+    bufs = {b.data_ptr() for b in ex._cache.buffers.values()}
+    assert {st["a"].data_ptr(), st["b"].data_ptr()} <= bufs   # aliases
     fresh = torch.full((16,), 7.0)
     inp = ({"a": st["b"], "b": st["a"]} if case == "swapped"
            else {"a": st["b"], "b": fresh})
@@ -349,7 +349,7 @@ def test_two_executors_of_one_signature_interleaved(donate):
     one = Executor(g, device="cpu", regions=True, donate=donate)
     two = Executor(g, device="cpu", regions=True, donate=donate)
     assert plan_signature(one) == plan_signature(two)
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     s1, s2 = make(one), _particle_state(two, seed=1)
     e1, e2 = dict(s1), dict(s2)
     for _ in range(3):
@@ -357,7 +357,7 @@ def test_two_executors_of_one_signature_interleaved(donate):
         e1, e2 = eager(e1), eager(e2)
     _equal(s1, e1)
     _equal(s2, e2)
-    assert (one._cache is two._cache) == (not donate)
+    assert one._cache is two._cache       # under either donate
 
 
 def test_a_dead_donating_executor_frees_its_entry():
@@ -378,7 +378,7 @@ def test_tuner_keeps_only_the_winners_executables(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune-cache"))
     tune_cache.clear_memo()
     g, make, _ = _main_path("particle")
-    eager = Executor(g, device="cpu")
+    eager = Executor(g, device="cpu", regions=False)
     inputs = make(eager)
     ex = Executor(g, device="cpu", regions=True, donate=True, tune="auto",
                   tune_inputs=inputs,
@@ -495,7 +495,7 @@ def test_region_equals_sequential_per_segment_dispatch():
 
 def test_regions_false_run_escapes_the_cache_machinery():
     g = _chain_graph()
-    ex = Executor(g, device="cpu")
+    ex = Executor(g, device="cpu", regions=False)
     st = ex.run(ex.init_state(u=torch.ones(8, 8)), steps=3)
     assert ex._cache is None
     assert port.executable_cache_stats()["plans"] == 0
@@ -524,21 +524,23 @@ def test_describe_dag_shows_regions_and_cache():
     assert "region 0 (device): seg0..seg3 (4 segments -> 4 graphs)" in out
     assert f"plan signature {ex.plan.signature}" in out
     assert "executable cache: 0 executables" in out
-    eager = Executor(build_relayout_chain(), device="cpu").describe_dag()
+    eager = Executor(build_relayout_chain(), device="cpu",
+                     regions=False).describe_dag()
     assert "each segment dispatched eagerly" in eager
 
 
 def test_plan_signature_keys_donation():
     assert plan_signature(Executor(_chain_graph(), device="cpu",
                                    donate=True)) \
-        != plan_signature(Executor(_chain_graph(), device="cpu"))
+        != plan_signature(Executor(_chain_graph(), device="cpu",
+                                   donate=False))
 
 
 def test_donate_false_keeps_inputs_and_copies():
     u = DistTensor("u", (128, 128))
     g = Graph()
     g.split(lambda x: x + 1.0, u, writes=(0,))
-    ex = Executor(g, device="cpu", regions=True)
+    ex = Executor(g, device="cpu", regions=True, donate=False)
     st = ex.init_state()
     st1 = ex(st)
     st2 = ex(st1)
@@ -557,8 +559,9 @@ def test_donate_true_returns_the_static_buffers():
     st = ex.init_state()
     st1 = ex(st)
     assert torch.equal(st["u"], torch.zeros(128, 128))    # copied in
-    buf = st1["u"]
-    assert any(buf is b for b in ex._cache.buffers.values())
+    buf = st1["u"]           # an alias of the static buffer
+    assert any(buf.data_ptr() == b.data_ptr()
+               for b in ex._cache.buffers.values())
     buf[0, 0] = 10.0           # an in-place write lands in the buffer
     st2 = ex(st1)
     assert st2["u"] is buf     # no copy-in: the buffer is read in place
@@ -576,7 +579,7 @@ def test_host_loop_sub_executor_built_once():
     g = Graph()
     g.split(lambda v: torch.full_like(v, 3.0), x, writes=(0,))
     g.then(loop)
-    ex = Executor(g, device="cpu", regions=True)
+    ex = Executor(g, device="cpu", regions=True, donate=False)
     assert "host_loop" in [k for k, _ in ex._segments]
     st = ex.run(ex.init_state(), steps=2)
     assert len(ex._sub_execs) == 1

@@ -140,6 +140,33 @@ def test_submit_validation(served):
         b.submit(np.ones(MAX_SEQ, np.int32))
 
 
+def test_distinct_prompt_lengths_leave_one_cache_entry(served):
+    """Traffic of ever new prompt lengths at the defaults: the prefill
+    executors run eagerly, so however many lengths are served the
+    executable cache holds the decode step's entry alone, and the streams
+    equal an all-eager batcher's."""
+    import repro_torch.core as tcore
+
+    tc, tp, _, _, _, _ = served
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, tc.vocab_size, (L,)).astype(np.int32)
+               for L in range(2, 14)]
+    want = [r.generated for r in _serve(
+        Batcher(tc, tp, batch=2, max_seq=MAX_SEQ,
+                executor_opts={"regions": False}),
+        prompts, [2] * len(prompts))]
+    tcore.clear_executable_cache()
+    try:
+        b = Batcher(tc, tp, batch=2, max_seq=MAX_SEQ)
+        assert [r.generated for r in _serve(b, prompts,
+                                            [2] * len(prompts))] == want
+        assert sorted(b._prefill) == list(range(2, 14))
+        assert not any(ex.regions for _, ex in b._prefill.values())
+        assert tcore.executable_cache_stats()["entries"] == 1
+    finally:
+        tcore.clear_executable_cache()
+
+
 def test_regions_batcher_gives_the_same_streams_and_frees_its_entry(served):
     """The decode executor under ``regions=True, donate=True`` (admission
     writes into its static buffers) serves the reference's streams; a

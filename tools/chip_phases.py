@@ -4,8 +4,10 @@
     python3 tools/chip_phases.py [--repeat N] PHASE [PHASE ...]
 
 PHASE is ``out`` (K1-K5's ``out=`` against their fresh-output calls),
-``regions`` (phase 3b's four graphs), ``serve`` (phase 3b's two served
-models), ``async`` (phase 3c) or ``mesh`` (phase 3d).  Each phase runs as
+``lm`` (phase 3's two served models at the defaults, with the serve
+launcher's smoke checks), ``regions`` (phase 3b's four graphs), ``serve``
+(phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
+3d) or ``examples`` (phase 3e: tuning on a mesh and the examples).  Each phase runs as
 ``chip_smoke.py`` runs it, with its checks, ``--repeat`` times in a row;
 a failed check is printed and the next run goes on.  The kernels are
 built first.  Exits non-zero if any run failed.
@@ -22,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-PHASES = ("out", "regions", "serve", "async", "mesh")
+PHASES = ("out", "lm", "regions", "serve", "async", "mesh", "examples")
 
 
 def main() -> int:
@@ -78,12 +80,16 @@ def main() -> int:
 
     runs = {
         "out": lambda: cs.out_checks(card, eik_mid(), eik["mask"]),
+        "lm": lambda: [cs.serve_lm(arch, card, zero_counts, counts_now)
+                       for arch in ("qwen3-8b", "mamba2-130m")],
         "regions": lambda: cs.regions_phase(card, zero_counts, counts_now),
         "serve": lambda: [cs.serve_regions(arch, card, zero_counts,
                                            counts_now)
                           for arch in ("qwen3-8b", "mamba2-130m")],
         "async": lambda: cs.async_phase(card, zero_counts, counts_now),
-        "mesh": lambda: cs.mesh_phase(card, zero_counts, counts_now, eik)}
+        "mesh": lambda: cs.mesh_phase(card, zero_counts, counts_now, eik),
+        "examples": lambda: cs.examples_phase(card, zero_counts,
+                                              counts_now)}
 
     def eik_mid():
         """The eikonal kernel's mid-solve input of chip_smoke.py."""
