@@ -149,6 +149,35 @@ result line):
    tuning's and the particle example's wrapper calls are checked (twice
    a kernel call site a capture) and join the kernels line's.  The
    device memory at each phase's peak is printed;
+3f. training (``train_phase``) — qwen3-8b at its published width cut to
+   4 layers (bf16, AdamW, ``remat="full"``; 36 layers need ~98 GB of
+   weights, gradients and moments): 5 steps on one repeated
+   ``SyntheticLM`` batch of 2 x 2048 through ``launch/train.py``'s
+   ``build_trainer``, the loss finite and falling, ms a step, tokens/s,
+   peak memory and 6 N tokens over the step time at 989 TFLOP/s, K6
+   twice a layer a step (forward and remat recompute; its backward is the
+   plain version recomputed), one profiled step (K6 against its
+   backward), and K6's forward and backward timed alone at that shape;
+   the gradient gate: the kernel route's gradients of one batch against
+   ``use_kernel=False``'s within ``GRAD_REL_TOL`` per parameter, the
+   projections into K6 (``wq``/``wk``/``wv``) and K7
+   (``wx``/``wB``/``wC``/``wdt``) non-zero, and the kernel's output
+   detached (what the route did before its ``autograd.Function``) outside
+   the limit, for qwen3-8b and mamba2-130m (float32: its gradients at
+   random init amplify one bf16 step of y_intra many times); then
+   mamba2-130m at its
+   published config, batch 8 x 2048, through the ``Supervisor`` with a
+   ``CheckpointManager`` (a temporary directory, deleted) every 2 steps,
+   8 steps under ``torch.use_deterministic_algorithms(True)``, clean and
+   with ``Fault("supervisor.step", step=5)``: the faulted run restores
+   step 4 and replays, every loss and the final parameters, moments and
+   step bit for bit the clean run's, K7 twice a layer a step; each save's
+   ms and bytes and the recovery's ms; a mamba2-130m step alone and the
+   largest kernels of a profiled one (also of qwen3-8b's); the
+   ``Prefetcher`` bringing the batches onto the card; ``examples/train_lm_torch.py --steps 50``;
+   the serve launcher's ``--smoke --chaos`` (both archs) and ``--smoke
+   --legacy`` in this process.  (a)'s and the supervised runs' K6/K7
+   launches join the kernels line's;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -255,6 +284,28 @@ LM_KERNEL_TOL = {
 # H100 readings 5.66e-2 (qwen3-8b) and 1.05e-1 (mamba2-130m, both routes
 # rounding y_intra to bf16); the wrong variants read 5.8 and 2.9
 LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25}
+# phase 3f, training: qwen3-8b at its published width cut to 4 layers
+# (36 need ~98 GB for bf16 weights and gradients and float32 moments),
+# 5 steps on one repeated batch of 2 x 2048; mamba2-130m at its published
+# config, batch 8 x 2048, 8 steps under the Supervisor with a checkpoint
+# every 2 steps and a step fault before step 5
+TRAIN_QWEN_LAYERS, TRAIN_QWEN_BATCH, TRAIN_QWEN_STEPS = 4, 2, 5
+TRAIN_SEQ = 2048
+TRAIN_MAMBA_BATCH, TRAIN_MAMBA_STEPS = 8, 8
+TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 2, 5
+# the gradient gate: per parameter, the kernel route's gradient against
+# the plain route's as relative L2 difference (the two routes' forwards
+# differ by the kernel's rounding against the plain version's), and the
+# parameters whose gradient passes through the kernel alone.  qwen3-8b
+# runs in bf16 (H100 reading: 9.4e-3).  mamba2-130m's gradients at random
+# init amplify a difference of one bf16 step in y_intra to relative
+# differences of 1-6 (H100 reading 6.2 in bf16; 1.75 on the CPU for a
+# 0.4 % perturbation of the plain version), so its gate runs the
+# published config in float32, where K7 and the plain version differ at
+# ~1e-6 relative (the CPU emulation: ~2e-4 for a 1e-6 perturbation)
+GRAD_REL_TOL = {"qwen3-8b": 3e-2, "mamba2-130m": 2e-2}
+GRAD_NEEDED = {"qwen3-8b": {"wq", "wk", "wv"},
+               "mamba2-130m": {"wx", "wB", "wC", "wdt"}}
 
 
 def log(msg: str) -> None:
@@ -828,26 +879,28 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         raise AssertionError(f"{arch}: prefill logits outside the limit")
     if expect["flash_attention"]:
         what = "attention without its causal mask"
-        real = model_attention.flash_attention_cuda
-        model_attention.flash_attention_cuda = \
+        real = model_attention.flash_attention_fn
+        model_attention.flash_attention_fn = \
             lambda *a, **kw: real(*a, **{**kw, "causal": False})
         try:
             wrong = logits()
         finally:
-            model_attention.flash_attention_cuda = real
+            model_attention.flash_attention_fn = real
     else:
         what = "SSD without the chunk states"
-        real = ssd_ops.ssd_intra_chunk_cuda
+        real = ssd_ops.SsdIntraChunkFn
 
-        def no_states(*a, **kw):
-            y, st = real(*a, **kw)
-            return y, torch.zeros_like(st)
+        class NoStates:
+            @staticmethod
+            def apply(*a):
+                y, st = real.apply(*a)
+                return y, torch.zeros_like(st)
 
-        ssd_ops.ssd_intra_chunk_cuda = no_states
+        ssd_ops.SsdIntraChunkFn = NoStates
         try:
             wrong = logits()
         finally:
-            ssd_ops.ssd_intra_chunk_cuda = real
+            ssd_ops.SsdIntraChunkFn = real
     werr = float((wrong - want).abs().max())
     log(f"{arch} wrong variant ({what}): max |difference| {werr:.4e} "
         f"against the plain route (limit {LOGIT_TOL[arch]:g})")
@@ -2351,7 +2404,483 @@ def examples_phase(card: str, zero_counts, counts_now) -> dict:
     return out
 
 
+def grad_rel_diffs(a: dict, b: dict) -> dict:
+    """Per parameter ||a - b|| / ||b||, in float32 (0 where both are 0)."""
+    out = {}
+    for name, want in b.items():
+        w = want.float()
+        num = float((a[name].float() - w).norm())
+        den = float(w.norm())
+        out[name] = num / den if den else (0.0 if num == 0 else float("inf"))
+    return out
+
+
+def grad_gate(arch: str, params, batch, cfg, detach, card: str) -> dict:
+    """Phase 3f(b): the kernel route's gradients of one batch against the
+    plain route's (``use_kernel=False``), parameter by parameter, within
+    ``GRAD_REL_TOL[arch]`` relative L2; the projections that feed the
+    kernel (``needed``) must get a non-zero gradient; and the same
+    gradients with the kernel's output detached (``detach``: a context
+    that patches the model to drop the kernel's gradient, what the route
+    did before its ``autograd.Function``) must fall outside the limit."""
+    import torch
+
+    from repro_torch.models.lm import forward_loss
+
+    def loss_and_grads(params, batch, cfg, use_kernel=True):
+        # a gradient the route never reaches reads 0 (the detached variant
+        # leaves the projections into the kernel out of the graph, where
+        # the train step's autograd.grad would raise)
+        names, leaves = zip(*params.named_parameters())
+        loss = forward_loss(params, batch, cfg, use_kernel=use_kernel)[0]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), dict(zip(names, grads))
+
+    needed = GRAD_NEEDED[arch]
+    lim = GRAD_REL_TOL[arch]
+    t0 = time.perf_counter()
+    loss_k, kern = loss_and_grads(params, batch, cfg)
+    loss_p, plain = loss_and_grads(params, batch, cfg, use_kernel=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rel = grad_rel_diffs(kern, plain)
+    worst = max(rel, key=rel.get)
+    zero = [n for n in kern if n.rsplit(".", 1)[-1] in needed
+            and float(kern[n].float().norm()) == 0.0]
+    log(f"grad gate {arch} ({cfg.param_dtype}, {cfg.n_layers} layers, "
+        f"batch {tuple(batch['tokens'].shape)}): loss kernel route "
+        f"{float(loss_k):.6f}, plain "
+        f"{float(loss_p):.6f}; {len(rel)} parameters, max relative L2 "
+        f"difference {rel[worst]:.3e} ({worst}; limit {lim:g}); median "
+        f"{statistics.median(rel.values()):.3e}; both routes {secs:.2f} s "
+        f"({card})")
+    for part in sorted(needed):
+        vals = [v for n, v in rel.items() if n.rsplit(".", 1)[-1] == part]
+        log(f"grad gate {arch} {part}: relative L2 difference max "
+            f"{max(vals):.3e} over {len(vals)} layers")
+    if zero:
+        raise AssertionError(f"{arch}: zero gradient through the kernel for "
+                             f"{zero}")
+    if rel[worst] > lim:
+        raise AssertionError(f"{arch}: {worst} gradient {rel[worst]:.3e} "
+                             f"from the plain route's, limit {lim:g}")
+    del kern
+    with detach():
+        _, cut = loss_and_grads(params, batch, cfg)
+    rel_cut = grad_rel_diffs(cut, plain)
+    bad = sorted(n for n, v in rel_cut.items() if v > lim)
+    log(f"grad gate {arch} wrong variant (the kernel's output detached): "
+        f"{len(bad)} parameters outside the limit, max "
+        f"{max(rel_cut.values()):.3e} ({bad[:3]}...)")
+    if not bad:
+        raise AssertionError(f"{arch}: the gradient limit does not see the "
+                             f"kernel's output detached")
+    return {"max_rel": rel[worst], "worst": worst,
+            "detached_max": max(rel_cut.values())}
+
+
+def log_top_kernels(what: str, by_kernel: dict, wall_ms: float,
+                    card: str, n: int = 6) -> float:
+    """Log the device time of ``by_kernel`` (name -> (us, launches)) against
+    ``wall_ms`` and its ``n`` largest kernels; returns the device ms."""
+    busy = sum(us for us, _ in by_kernel.values()) / 1e3
+    log(f"{what}: device {busy:.2f} ms of {wall_ms:.1f} ms a step "
+        f"({100 * busy / wall_ms:.1f} % busy; the profiled step's trace) "
+        f"({card})")
+    for name, (us, count) in sorted(by_kernel.items(),
+                                    key=lambda kv: -kv[1][0])[:n]:
+        log(f"  {us / 1e3:.3f} ms, {count} launches: {name[:90]}")
+    return busy
+
+
+class TimedCheckpoints:
+    """A ``CheckpointManager`` that records each save: the step, the
+    milliseconds ``save`` held the caller (the host snapshot, and the wait
+    for a write still in flight) and the bytes of the snapshot."""
+
+    def __init__(self, directory: str):
+        from repro_torch.checkpoint import CheckpointManager
+
+        self.mgr = CheckpointManager(directory)
+        self.saves = []
+
+    def save(self, step, tree, extra=None, blocking=False):
+        from repro_torch.checkpoint import named_leaves
+
+        t0 = time.perf_counter()
+        self.mgr.save(step, tree, extra, blocking=blocking)
+        nbytes = sum(t.nbytes for _, t, _ in named_leaves(tree))
+        self.saves.append((step, (time.perf_counter() - t0) * 1e3, nbytes))
+
+    def __getattr__(self, name):
+        return getattr(self.mgr, name)
+
+
+def train_phase(card: str, zero_counts, counts_now) -> dict:
+    """Phase 3f: the training path on the card.  (a) qwen3-8b at its
+    published width cut to ``TRAIN_QWEN_LAYERS`` layers, bf16, AdamW,
+    ``remat="full"``: ``TRAIN_QWEN_STEPS`` steps on one repeated
+    ``SyntheticLM`` batch (seed 0) of ``TRAIN_QWEN_BATCH`` x ``TRAIN_SEQ``
+    through ``launch/train.build_trainer``'s step, the loss finite and
+    falling; ms a step, tokens/s, peak memory, model FLOP utilisation;
+    K6 twice a layer a step (the forward and the remat recompute), and in
+    one profiled step the device time of K6 against its plain-recompute
+    backward, also timed alone at the training shape.  (b) the gradient
+    gate (``grad_gate``) on one batch of (a)'s model and of mamba2-130m
+    at its published config in float32 (see ``GRAD_REL_TOL``).
+    (c) mamba2-130m at its published config, batch ``TRAIN_MAMBA_BATCH`` x
+    ``TRAIN_SEQ``, through ``build_trainer`` and the ``Supervisor`` with a
+    ``CheckpointManager`` in a temporary directory (deleted afterwards),
+    a checkpoint every ``TRAIN_CKPT_EVERY`` steps, ``TRAIN_MAMBA_STEPS``
+    steps, under ``torch.use_deterministic_algorithms(True)``: once
+    without a fault and once with ``Fault("supervisor.step",
+    step=TRAIN_FAULT_STEP)``, which restores the last checkpoint and
+    replays; every step's loss, the final parameters, moments and step
+    counter bit for bit the uninterrupted run's; K7 twice a layer a step;
+    then a step of a fresh trainer alone and under the profiler.  The
+    ``Prefetcher`` first brings the phase's batches to the card, each
+    equal to its source's.  (d) ``examples/train_lm_torch.py --steps
+    50``.  (e) the serve launcher's ``--smoke --chaos`` (both archs) and
+    ``--smoke --legacy``, in this process.  Returns the readings and the
+    launches of (a) and (c); (b) compares the kernels with their plain
+    versions and (d), (e) run reduced configs, so theirs do not count."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.kernels.attention.kernel import flash_attention_fn
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.kernel import SsdIntraChunkFn
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models.attention import attention
+    from repro_torch.models.lm import param_count
+    from repro_torch.runtime import Fault, FaultPlan, Supervisor, fault_scope
+
+    dev = torch.device("cuda")
+    out = {"launches": {}}
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # -- (a) qwen3-8b, full width, depth cut ------------------------------
+    full = configs.get("qwen3-8b")
+    cfg = full.with_(n_layers=TRAIN_QWEN_LAYERS)
+    n_params = param_count(cfg)
+    log(f"train qwen3-8b: published width (d_model {cfg.d_model}, {cfg.n_heads}"
+        f" heads, {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut {full.n_layers} -> {cfg.n_layers} "
+        f"layers: {n_params} parameters (the full model's {param_count(full)}"
+        f" need ~12 bytes each for bf16 weights and gradients and float32 "
+        f"moments, over the card's 80 GB); {cfg.param_dtype}, "
+        f"{cfg.optimizer}, remat={cfg.remat}, attn_impl={cfg.attn_impl}, "
+        f"batch {TRAIN_QWEN_BATCH} x {TRAIN_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, state = build_trainer(cfg, total_steps=TRAIN_QWEN_STEPS,
+                                   device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_QWEN_BATCH, seed=0)
+    batch = on_card(data.batch_at(0))
+    zero_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_QWEN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one more step under the profiler: K6's kernels against the device
+    # time of its backward (the plain recompute) and of the whole step
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+    counts = counts_now()
+    ev = prof.key_averages()
+    k6_us = sum(e.self_device_time_total for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "attn_" in e.key)
+    step_us = sum(e.self_device_time_total for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    bwd = [e for e in ev if e.key.endswith("FlashAttentionFnBackward")]
+    bwd_us = sum(getattr(e, "device_time_total", 0.0) for e in bwd)
+    expect = 2 * TRAIN_QWEN_LAYERS * (TRAIN_QWEN_STEPS + 1)
+    out["launches"]["flash_attention"] = counts["flash_attention"]
+    if counts["flash_attention"] != expect or counts["ssd_intra_chunk"]:
+        raise AssertionError(f"train qwen3-8b: launches {counts}, expected "
+                             f"flash_attention {expect}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train qwen3-8b: losses {losses} not finite "
+                             f"and falling")
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_QWEN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / (step_s * BF16_TC_OPS_PER_S)
+    out["qwen"] = dict(losses=losses, step_ms=step_s * 1e3,
+                       first_ms=times[0] * 1e3, tok_s=tokens / step_s,
+                       peak_gib=peak_gib, mfu=mfu, k6_us=k6_us,
+                       bwd_us=bwd_us, step_us=step_us)
+    log(f"train qwen3-8b: losses {[round(x, 4) for x in losses]} (falling "
+        f"{'every step' if all(a > b for a, b in zip(losses, losses[1:])) else 'overall'}); "
+        f"{step_s * 1e3:.1f} ms a step (median of steps 2-"
+        f"{TRAIN_QWEN_STEPS}; the first {times[0] * 1e3:.1f}), "
+        f"{tokens / step_s:.0f} tokens/s, peak {peak_gib:.2f} GiB "
+        f"allocated, 6 N tokens / (step x 989 TFLOP/s) = {100 * mfu:.1f} %; "
+        f"K6 launches {counts['flash_attention']} ({card})")
+    log_top_kernels("train qwen3-8b profiled step", {
+        e.key: (e.self_device_time_total, e.count) for e in ev
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0}, step_s * 1e3, card)
+    if bwd_us:
+        log(f"train qwen3-8b profiled step: device {step_us / 1e3:.2f} ms; "
+            f"K6 kernels {k6_us / 1e3:.3f} ms over "
+            f"{2 * TRAIN_QWEN_LAYERS} launches, its backward (plain "
+            f"recompute) {bwd_us / 1e3:.3f} ms over {len(bwd) and bwd[0].count}"
+            f" calls ({card})")
+    else:
+        log(f"train qwen3-8b profiled step: device {step_us / 1e3:.2f} ms; "
+            f"K6 kernels {k6_us / 1e3:.3f} ms; its backward: not measured "
+            f"(no FlashAttentionFnBackward range in the trace) ({card})")
+    # K6 forward against its backward alone, at the training shape
+    B, S = TRAIN_QWEN_BATCH, TRAIN_SEQ
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).bfloat16()
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    pos = torch.arange(S, device=dev)
+    plain = lambda q, k, v: attention(q, k, v, qpos=pos, kpos=pos,
+                                      impl=cfg.attn_impl,
+                                      q_chunk=cfg.q_chunk,
+                                      k_chunk=cfg.k_chunk, use_kernel=False)
+    fwd_ms = time_ms(lambda: flash_attention_fn(q, k, v, plain=plain),
+                     iters=10)
+    o = flash_attention_fn(q, k, v, plain=plain)
+    grad_out = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), grad_out,
+                                                 retain_graph=True),
+                     iters=3, reps=3, warmup=1)
+    plain_fwd_ms = time_ms(lambda: plain(q.detach(), k.detach(),
+                                         v.detach()), iters=3, reps=3,
+                           warmup=1)
+    out["qwen"].update(k6_fwd_ms=fwd_ms, k6_bwd_ms=bwd_ms,
+                       plain_fwd_ms=plain_fwd_ms)
+    log(f"train K6 at ({B}, {S}, {H}/{Hkv} heads, {D}) bf16: forward "
+        f"(kernel) {fwd_ms:.4f} ms, backward (plain {cfg.attn_impl} "
+        f"recompute) {bwd_ms:.4f} ms = {bwd_ms / fwd_ms:.1f}x; the plain "
+        f"forward alone {plain_fwd_ms:.4f} ms ({card})")
+    del q, k, v, o, grad_out
+
+    # -- (b) the gradient gate ----------------------------------------------
+    import contextlib
+
+    @contextlib.contextmanager
+    def k6_detached():
+        def cut(*args, **kw):
+            with torch.no_grad():
+                return flash_attention_fn(*args, **kw)
+        model_attention.flash_attention_fn = cut
+        try:
+            yield
+        finally:
+            model_attention.flash_attention_fn = flash_attention_fn
+
+    zero_counts()
+    out["gate"] = {"qwen3-8b": grad_gate(
+        "qwen3-8b", state["params"], {k: v[:1] for k, v in batch.items()},
+        cfg, k6_detached, card)}
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class SsdDetached:
+        @staticmethod
+        def apply(*args):
+            with torch.no_grad():
+                return SsdIntraChunkFn.apply(*args)
+
+    @contextlib.contextmanager
+    def k7_detached():
+        ssd_ops.SsdIntraChunkFn = SsdDetached
+        try:
+            yield
+        finally:
+            ssd_ops.SsdIntraChunkFn = SsdIntraChunkFn
+
+    mcfg = configs.get("mamba2-130m")
+    mdata = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_MAMBA_BATCH, seed=0)
+    gcfg = mcfg.with_(param_dtype="float32", compute_dtype="float32")
+    _, mstate = build_trainer(gcfg, total_steps=TRAIN_MAMBA_STEPS,
+                              device=dev)
+    out["gate"]["mamba2-130m"] = grad_gate(
+        "mamba2-130m", mstate["params"], on_card(mdata.batch_at(0)), gcfg,
+        k7_detached, card)
+    del mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) mamba2-130m through the Supervisor, a step fault, a restore --
+    pf = Prefetcher(mdata, depth=2, device=dev)
+    try:
+        for want_step in range(TRAIN_MAMBA_STEPS):
+            step, got = pf.next()
+            want = mdata.batch_at(want_step)
+            if step != want_step or any(
+                    not torch.equal(got[key].cpu(),
+                                    torch.from_numpy(want[key]))
+                    for key in want):
+                raise AssertionError(f"prefetcher: step {step} differs "
+                                     f"from batch_at({want_step})")
+    finally:
+        pf.close()
+    log(f"prefetcher: {TRAIN_MAMBA_STEPS} batches of {TRAIN_MAMBA_BATCH} x "
+        f"{TRAIN_SEQ} on the card in order, each equal to batch_at(step)")
+
+    def supervised(ckpt_dir, plan):
+        step_fn, state = build_trainer(mcfg, total_steps=TRAIN_MAMBA_STEPS,
+                                       device=dev)
+        losses = {}
+
+        def step_and_log(state, batch):
+            state, m = step_fn(state, batch)
+            losses[int(state["step"])] = float(m["loss"])
+            return state
+
+        ckpt = TimedCheckpoints(ckpt_dir)
+        sup = Supervisor(step_fn=step_and_log, ckpt=ckpt,
+                         ckpt_every=TRAIN_CKPT_EVERY, log=log)
+        t0 = time.perf_counter()
+        with fault_scope(plan):
+            state = sup.run(state, lambda i: on_card(mdata.batch_at(i)), 0,
+                            TRAIN_MAMBA_STEPS)
+        torch.cuda.synchronize()
+        return state, losses, sup, ckpt, time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_counts()
+        want, want_losses, _, ckpt0, secs0 = supervised(
+            os.path.join(tmp, "clean"), FaultPlan([]))
+        plan = FaultPlan([Fault("supervisor.step", step=TRAIN_FAULT_STEP)])
+        got, got_losses, sup, ckpt, secs = supervised(
+            os.path.join(tmp, "faulted"), plan)
+        counts = counts_now()
+        t0 = time.perf_counter()
+        ckpt.save(TRAIN_MAMBA_STEPS, got, blocking=True)
+        write_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the clean run's steps, the faulted run's before its fault, and its
+    # replay from the last checkpoint before the fault
+    restored = TRAIN_FAULT_STEP // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    steps_run = (TRAIN_MAMBA_STEPS + TRAIN_FAULT_STEP
+                 + TRAIN_MAMBA_STEPS - restored)
+    expect = 2 * mcfg.n_layers * steps_run
+    out["launches"]["ssd_intra_chunk"] = counts["ssd_intra_chunk"]
+    if counts["ssd_intra_chunk"] != expect or counts["flash_attention"]:
+        raise AssertionError(f"train mamba2-130m: launches {counts}, "
+                             f"expected ssd_intra_chunk {expect}")
+    if not plan.exhausted() or sup.failures != 1:
+        raise AssertionError(f"train mamba2-130m: fault plan\n"
+                             f"{plan.report()}\nfailures {sup.failures}")
+    resumed = [(f, r) for f, r, _ in sup.recoveries]
+    if resumed != [(TRAIN_FAULT_STEP, TRAIN_FAULT_STEP)]:
+        raise AssertionError(f"train mamba2-130m: recoveries {resumed}")
+    if got_losses != want_losses:
+        raise AssertionError(f"train mamba2-130m: losses {got_losses} != "
+                             f"{want_losses}")
+    a = {n: t for n, t, _ in named_leaves(got)}
+    b = {n: t for n, t, _ in named_leaves(want)}
+    diff = [n for n in b if not torch.equal(a[n], b[n])]
+    if a.keys() != b.keys() or diff:
+        raise AssertionError(f"train mamba2-130m: state after the restore "
+                             f"differs in {diff[:5]}")
+    # a new batch of uniform random tokens every step: the loss stays
+    # near ln(vocab) over these 8 steps, so only its being finite is held
+    ml = [want_losses[i + 1] for i in range(TRAIN_MAMBA_STEPS)]
+    if not all(np.isfinite(ml)):
+        raise AssertionError(f"train mamba2-130m: losses {ml}")
+    gb = ckpt.saves[0][2] / 1e9
+    out["mamba"] = dict(losses=ml, saves=ckpt.saves, clean_saves=ckpt0.saves,
+                        write_ms=write_ms, recovery_ms=sup.recoveries[0][2],
+                        secs=secs, clean_secs=secs0,
+                        step_ms=sup.stats.mean * 1e3, gb=gb)
+    log(f"train mamba2-130m (published config, batch {TRAIN_MAMBA_BATCH} x "
+        f"{TRAIN_SEQ}, deterministic algorithms): losses "
+        f"{[round(x, 4) for x in ml]}; fault at step {TRAIN_FAULT_STEP} "
+        f"restored step {restored} and replayed: every loss, parameter, moment and the step counter "
+        f"bit for bit the uninterrupted run's; recovery "
+        f"{sup.recoveries[0][2]:.1f} ms; runs {secs0:.2f} s clean, "
+        f"{secs:.2f} s faulted; {sup.stats.mean * 1e3:.1f} ms a step "
+        f"(mean, completion); K7 launches {counts['ssd_intra_chunk']} "
+        f"({card})")
+    log(f"train mamba2-130m checkpoints ({gb:.3f} GB each: bf16 parameters,"
+        f" float32 moments): save() held the loop "
+        f"{[round(ms, 1) for _, ms, _ in ckpt0.saves]} ms clean, "
+        f"{[round(ms, 1) for _, ms, _ in ckpt.saves[:-1]]} ms faulted; one "
+        f"blocking save (snapshot and write) {write_ms:.1f} ms = "
+        f"{gb / write_ms * 1e3:.2f} GB/s ({card})")
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # where a mamba2-130m step's time goes: three steps of a fresh trainer
+    # with no checkpoint, then one under the profiler (its K7 launches are
+    # not the supervised runs' and are not counted)
+    step_fn, st = build_trainer(mcfg, total_steps=TRAIN_MAMBA_STEPS,
+                                device=dev)
+    batch = on_card(mdata.batch_at(0))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = step_fn(st, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(walls[1:])
+    out["mamba"]["alone_ms"] = step_ms
+    out["mamba"]["busy_ms"] = log_top_kernels(
+        f"train mamba2-130m, a step without checkpoints {step_ms:.1f} ms "
+        f"(median of steps 2-3; the first {walls[0]:.1f}); profiled step",
+        device_time_by_kernel(lambda: step_fn(st, batch)), step_ms, card)
+    del step_fn, st, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the example, (e) the serve launcher's chaos and legacy modes --
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_lm_")
+    try:
+        t0 = time.perf_counter()
+        ex_losses = load_example("train_lm_torch").main(
+            ["--steps", "50", "--ckpt-dir", tmp])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"examples/train_lm_torch.py --steps 50 on the card: loss "
+        f"{ex_losses[0]:.4f} -> {ex_losses[-1]:.4f} in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    out["example"] = (ex_losses[0], ex_losses[-1])
+    for flags in (["--arch", "qwen3-8b", "--smoke", "--chaos"],
+                  ["--arch", "mamba2-130m", "--smoke", "--chaos"],
+                  ["--smoke", "--legacy"]):
+        log(f"serve {' '.join(flags)} on the card:")
+        serve.main(flags)
+    return out
+
+
 def main() -> int:
+    # phase 3f runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's deterministic workspace setting before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2945,6 +3474,12 @@ def main() -> int:
         launches[k] += n
     peak("3e")
 
+    # -- 3f. training: qwen3-8b (K6) and mamba2-130m (K7), the supervisor -
+    trn = train_phase(card, zero_counts, counts_now)
+    for k, n in trn["launches"].items():
+        launches[k] += n
+    peak("3f")
+
     # -- 4. times -----------------------------------------------------------
     results = {}
     x, y = randn(SAXPY_N), randn(SAXPY_N)
@@ -3180,6 +3715,18 @@ def main() -> int:
             f"{runs['regions']['tok_s']:.1f}; decode ms per step eager "
             f"{runs['eager']['step_ms']:.3f}, regions "
             f"{runs['regions']['step_ms']:.3f} ({card})")
+    tq, tm = trn["qwen"], trn["mamba"]
+    log(f"train qwen3-8b ({TRAIN_QWEN_LAYERS} layers, {TRAIN_QWEN_BATCH} x "
+        f"{TRAIN_SEQ}): {tq['step_ms']:.1f} ms a step, {tq['tok_s']:.0f} "
+        f"tokens/s, peak {tq['peak_gib']:.2f} GiB, {100 * tq['mfu']:.1f} % "
+        f"of 989 TFLOP/s; K6 forward {tq['k6_fwd_ms']:.4f} ms, its plain "
+        f"recompute backward {tq['k6_bwd_ms']:.4f} ms; gradient gate max "
+        f"relative L2 {trn['gate']['qwen3-8b']['max_rel']:.3e}; train "
+        f"mamba2-130m ({TRAIN_MAMBA_BATCH} x {TRAIN_SEQ}): "
+        f"{tm['step_ms']:.1f} ms a step, checkpoint {tm['gb']:.3f} GB "
+        f"written in {tm['write_ms']:.1f} ms, recovery "
+        f"{tm['recovery_ms']:.1f} ms; gradient gate max relative L2 "
+        f"{trn['gate']['mamba2-130m']['max_rel']:.3e} ({card})")
 
     entries = []
     for name, meta in kernels.items():

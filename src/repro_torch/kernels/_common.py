@@ -12,7 +12,7 @@ from ..core.layout import Layout, RecordArray
 
 __all__ = ["DTYPE_SUFFIX", "LAYOUT_CODE", "on_cuda", "check_cuda_tensor",
            "check_out", "overlaps", "record_into", "record_out", "round_to",
-           "stream_of"]
+           "stream_of", "refuse_grad", "plain_vjp"]
 
 #: storage dtypes the kernels take -> suffix of their C entry points
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -29,6 +29,30 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: a kernel's
+    output carries no gradient, so such a call would drop it silently.
+    ``function`` names the ``torch.autograd.Function`` to call instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad and the kernel's output "
+            f"carries none; call it through {function}")
+
+
+def plain_vjp(plain, inputs: tuple, needs: tuple, grads: tuple) -> tuple:
+    """The backward of a kernel whose gradient is its plain version's:
+    recompute ``plain(*inputs)`` under grad mode and return the gradient
+    of its outputs against ``grads`` for each input whose ``needs`` entry
+    is true (None for the others)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = plain(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(ins, needs) if n]
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
 
 
 def check_cuda_tensor(t: torch.Tensor, what: str) -> str:

@@ -26,10 +26,10 @@ import torch
 
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import DTYPE_SUFFIX, stream_of
+from .._common import DTYPE_SUFFIX, plain_vjp, refuse_grad, stream_of
 
 __all__ = ["TILE_KERNEL", "DEFAULT_BLOCKS", "tile_candidates",
-           "flash_attention_cuda"]
+           "flash_attention_cuda", "FlashAttentionFn", "flash_attention_fn"]
 
 TILE_KERNEL = "attention"  # name in the tile registry
 DEFAULT_BLOCKS = (128, 128)
@@ -85,6 +85,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"flash_attention: fused kv must be (B, Hkv, "
                              f"Skv, 2, D), got {tuple(k.shape)}")
         k, v = k[..., 0, :], k[..., 1, :]
+    refuse_grad("flash_attention_cuda", "FlashAttentionFn "
+                "(flash_attention_fn)", q, k, v)
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {what} is on {t.device}, "
@@ -131,3 +133,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K6 with a gradient, in the model's layout: q ``(B, Sq, Hq, D)``, k
+    and v ``(B, Skv, Hkv, D)``.  The forward is the kernel; the backward
+    recomputes ``plain(q, k, v)`` from the saved inputs and returns its
+    gradient (the JAX package has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain, causal, window, q_offset, scale):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal, window=window,
+                             q_offset=q_offset, scale=scale,
+                             out=out.transpose(1, 2))
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(ctx.plain, ctx.saved_tensors,
+                         ctx.needs_input_grad[:3], (grad_out,)) + (None,) * 5
+
+
+def flash_attention_fn(q, k, v, *, plain, causal: bool = True,
+                       window: Optional[int] = None, q_offset: int = 0,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """K6 on ``(B, S, H, D)`` tensors with a gradient: ``plain(q, k, v)``
+    is the plain version of the same function, which the backward
+    differentiates."""
+    return FlashAttentionFn.apply(q, k, v, plain, causal, window, q_offset,
+                                  scale)

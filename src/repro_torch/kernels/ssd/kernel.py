@@ -8,6 +8,13 @@ inter-chunk scan around it is torch ops (``ref.ssd_inter_chunk``).
 bfloat16 runs on the tensor cores (``wgmma``), which read 16-byte pieces:
 it needs 16-byte-aligned x, B and C with P and N multiples of 8, and
 raises ``ValueError`` otherwise.  float32 runs on the CUDA cores.
+
+The kernel computes the forward only, as the Pallas kernel does.  On the
+training path it runs inside :class:`SsdIntraChunkFn`, whose backward
+recomputes the plain version (``ref.ssd_intra_chunk_ref``) and
+differentiates it: the JAX package trains through its plain SSD, so that
+is the gradient the reference takes.  The wrapper itself raises when grad
+mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -18,10 +25,11 @@ import torch
 
 from ...tuning.tiles import register_tile_kernel
 from .. import _build
-from .._common import check_cuda_tensor, stream_of
+from .._common import check_cuda_tensor, plain_vjp, refuse_grad, stream_of
+from .ref import ssd_intra_chunk_ref
 
 __all__ = ["TILE_KERNEL", "DEFAULT_CHUNK", "tile_candidates",
-           "ssd_intra_chunk_cuda"]
+           "ssd_intra_chunk_cuda", "SsdIntraChunkFn"]
 
 TILE_KERNEL = "ssd"       # name in the tile registry
 DEFAULT_CHUNK = 64
@@ -48,6 +56,7 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, C, *, chunk: int = DEFAULT_CHUNK):
     S/chunk, H, P, N) float32)``.  A chunk of 129-256 positions runs as
     two 128-row tiles in one block.  A chunk above 256, P above 64 or N
     above 128 is refused by the launch itself ("invalid argument")."""
+    refuse_grad("ssd_intra_chunk_cuda", "SsdIntraChunkFn", x, dt, A, Bm, C)
     sfx = check_cuda_tensor(x, "ssd x")
     for t, what in ((Bm, "ssd B"), (C, "ssd C")):
         check_cuda_tensor(t, what)
@@ -86,3 +95,25 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, C, *, chunk: int = DEFAULT_CHUNK):
 
 
 ssd_intra_chunk_cuda.launches = 0
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """K7 with a gradient: ``apply(x, dt, A, Bm, C, chunk)`` returns the
+    kernel's ``(y_intra, s_chunk)``; the backward recomputes
+    ``ssd_intra_chunk_ref`` from the saved inputs and returns its gradient
+    (the JAX package has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, chunk):
+        y, s = ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, C)
+        ctx.chunk = chunk
+        return y, s
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_s):
+        chunk = ctx.chunk
+        return plain_vjp(
+            lambda *ins: ssd_intra_chunk_ref(*ins, chunk=chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:5],
+            (grad_y, grad_s)) + (None,)

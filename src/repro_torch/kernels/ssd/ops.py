@@ -1,7 +1,8 @@
 """Public SSD op: the intra-chunk part on the K7 kernel for a CUDA tensor
 (or the wrapper raises) or its plain version for a CPU tensor, then the
 inter-chunk state scan in torch ops.  ``use_kernel=False`` asks for the
-plain version on either device."""
+plain version on either device.  On the card the kernel runs inside
+``SsdIntraChunkFn``, whose gradient is the plain version's."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 
 from ...tuning.tiles import resolve_tile
 from .._common import on_cuda
-from .kernel import DEFAULT_CHUNK, TILE_KERNEL, ssd_intra_chunk_cuda
+from .kernel import DEFAULT_CHUNK, TILE_KERNEL, SsdIntraChunkFn
 from .ref import (ssd_chunked, ssd_decode_step, ssd_inter_chunk,
                   ssd_intra_chunk_ref, ssd_naive)
 
@@ -20,10 +21,10 @@ __all__ = ["ssd", "ssd_intra_chunk", "ssd_chunked", "ssd_decode_step",
 def ssd_intra_chunk(x, dt, A, Bm, C, *, chunk: int, use_kernel: bool = True):
     """K7's function on the kernel (CUDA tensor) or its plain version."""
     if use_kernel and on_cuda(x):
-        return ssd_intra_chunk_cuda(
+        return SsdIntraChunkFn.apply(
             x.contiguous(), dt.to(torch.float32).contiguous(),
             A.to(torch.float32).contiguous(), Bm.contiguous(),
-            C.contiguous(), chunk=chunk)
+            C.contiguous(), chunk)
     return ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=chunk)
 
 

@@ -1,1 +1,2 @@
-"""Serving launch: the graph builders (steps.py) and the server (serve.py)."""
+"""Launchers: the step builders (steps.py), the server (serve.py) and the
+trainer (train.py)."""

@@ -18,6 +18,15 @@ package's three smoke checks: the batcher's token streams equal
 decode loop is captured exactly once; and a freshly built worker
 ``Batcher`` with the same decode plan signature serves the same prompts
 with zero new decode captures and equal streams.
+
+``--legacy`` serves through the uniform loop alone (:func:`serve_legacy`:
+prefill, then the whole batch decoded at one position).  ``--chaos``
+(with ``--smoke``) re-serves the same prompts under the reference's
+deterministic fault plan (two mid-decode step failures, an admission
+failure and a device-region failure inside the decode executor) and
+asserts that the ``Batcher``'s request-log replay gives the same token
+streams, that every fault fired, and that a fresh worker afterwards
+serves with zero new decode captures.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from ..core.layout import Layout
 from ..models.lm import init_lm, prefill
 from . import steps as S
 
-__all__ = ["legacy_generate", "serve_ripple", "main"]
+__all__ = ["legacy_generate", "serve_legacy", "serve_ripple", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -103,6 +112,22 @@ def _prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:
                         (batch, prompt_len)).astype(np.int32)
 
 
+def serve_legacy(cfg, params, args):
+    """Serve ``args.batch`` prompts through the uniform loop alone."""
+    B = args.batch
+    prompts = _prompts(cfg, B, args.prompt_len)
+    gen, t_prefill, t_decode = legacy_generate(
+        cfg, params, torch.from_numpy(prompts), args.gen,
+        args.prompt_len + args.gen)
+    print(f"[serve] arch={cfg.name} batch={B} prompt={args.prompt_len} "
+          f"gen={args.gen} path=legacy")
+    print(f"[serve] prefill {t_prefill*1e3:.0f}ms; decode "
+          f"{t_decode/max(args.gen-1,1)*1e3:.1f}ms/tok "
+          f"({B*(args.gen-1)/max(t_decode,1e-9):.1f} tok/s)")
+    print(f"[serve] sample generations (first 3 rows):\n{gen[:3]}")
+    return gen
+
+
 def serve_ripple(cfg, params, args):
     """Serve through the Batcher; with ``--smoke`` check it against the
     uniform loop token for token, its decode captured once, and a fresh
@@ -157,6 +182,55 @@ def serve_ripple(cfg, params, args):
             raise AssertionError(f"fresh worker's streams differ:\n{wgen}"
                                  f"\nvs\n{gen}")
         print("[smoke] fresh worker served with 0 new decode captures  OK")
+    if getattr(args, "chaos", False):
+        gen = _chaos_smoke(cfg, params, args, prompts, gen, max_seq)
+    return gen
+
+
+def _chaos_smoke(cfg, params, args, prompts, want, max_seq):
+    """Re-serve ``prompts`` under the reference's fault plan and check that
+    the request-log replay gives the streams ``want``, that every fault
+    fired, and that a fresh worker afterwards makes no new decode
+    capture."""
+    from ..runtime.batcher import Batcher
+    from ..runtime.faults import Fault, FaultPlan, fault_scope
+
+    plan = FaultPlan([
+        Fault("batcher.step", step=2, times=2),     # two mid-decode faults
+        Fault("batcher.admit", step=0),             # an admission fault
+        Fault("executor.region", nth=8),            # inside the decode
+    ])
+    batcher = Batcher(cfg, params, batch=args.batch, max_seq=max_seq,
+                      log=lambda *_: None)
+    reqs = [batcher.submit(p, max_new_tokens=args.gen) for p in prompts]
+    with fault_scope(plan):
+        batcher.run()
+    gen = np.stack([r.generated for r in reqs])
+    if not plan.exhausted():
+        raise AssertionError(f"not every fault fired:\n{plan.report()}")
+    if batcher.failures < 3:
+        raise AssertionError(f"{batcher.failures} failures, expected >= 3")
+    if not (gen == want).all():
+        raise AssertionError(
+            f"faulted ripple argmax mismatch:\n{gen}\nvs\n{want}")
+    print(f"[chaos] {batcher.failures} injected failures recovered; "
+          f"token streams identical  OK")
+
+    # after the chaos run a fresh worker still serves from the
+    # process-wide executable cache with no new decode capture
+    before = batcher.executor.cache_stats()["trace_events"]
+    worker = Batcher(cfg, params, batch=args.batch, max_seq=max_seq)
+    wreqs = [worker.submit(p, max_new_tokens=args.gen) for p in prompts]
+    worker.run()
+    wgen = np.stack([r.generated for r in wreqs])
+    after = worker.executor.cache_stats()["trace_events"]
+    if after != before:
+        raise AssertionError(f"post-chaos worker captured anew: {before} "
+                             f"-> {after}")
+    if not (wgen == want).all():
+        raise AssertionError(f"post-chaos worker's streams differ:\n{wgen}"
+                             f"\nvs\n{want}")
+    print("[chaos] fresh worker after chaos: 0 new decode captures  OK")
     return gen
 
 
@@ -167,6 +241,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--legacy", action="store_true",
+                    help="serve through the uniform loop alone")
+    ap.add_argument("--chaos", action="store_true",
+                    help="re-serve under a deterministic fault plan and "
+                         "assert request-log recovery (ripple path)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)
@@ -175,6 +254,8 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else \
         configs.get(args.arch)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if args.legacy:
+        return serve_legacy(cfg, params, args)
     return serve_ripple(cfg, params, args)
 
 

@@ -1,6 +1,13 @@
-"""Serving step builders: prefill and batched greedy decode as Ripple
-graphs on the port's ``Graph``/``Executor``, and the uniform decode step
-of the legacy loop — the serving half of ``repro.launch.steps``.
+"""Step builders, as ``repro.launch.steps``: the train step, prefill and
+batched greedy decode as Ripple graphs on the port's ``Graph``/
+``Executor``, and the uniform prefill and decode steps of the legacy
+loop.
+
+The train step (:func:`make_train_step`) differentiates ``forward_loss``
+with autograd, accumulates float32 gradients over ``cfg.microbatches``,
+clips them by their global norm and updates the parameters and the
+optimizer state in place; on the GPU its forward runs K6 / K7, whose
+gradients are their plain versions'.
 
 The decode step is a Graph with one node per layer.  Every attention
 cache is a *record* DistTensor (fields k, v over the (B, S, Hkv) or (B,
@@ -15,16 +22,17 @@ captured graph without memoising.  Under ``regions=True`` the decode
 nodes take ``out=``: each attention layer writes its token's k/v into its
 cache's static buffer in place, each Mamba layer its SSD state, and the
 head the tokens and positions, so no cache is copied per step.
-Training steps and the sharded specs of the dry run are ROADMAP queues 5
-and 2.
+The sharded specs of the dry run are not ported (ROADMAP "Not ported").
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.graph import Graph, in_place
 from ..core.layout import RecordArray
 from ..core.tensor import DistTensor
@@ -32,11 +40,80 @@ from ..models import kvcache as kvc
 from ..models.blocks import layer_decode, norm_apply
 from ..models.config import ModelConfig
 from ..models.lm import (_prefill_to_decode_cache, decode_step,
-                         decoder_pass, embed_tokens, lm_logits)
+                         decoder_pass, embed_tokens, forward_loss,
+                         lm_logits, prefill)
+from ..optim import clip_by_global_norm, cosine_schedule, make_optimizer
 
 __all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
            "PrefillGraph", "cache_state_overrides", "make_decode_graph",
-           "make_prefill_graph", "make_decode_step"]
+           "make_prefill_graph", "make_train_step", "loss_and_grads",
+           "make_prefill_step", "make_decode_step"]
+
+
+def make_train_step(cfg: ModelConfig, *, lr=None, total_steps: int = 10_000,
+                    clip_norm: float = 1.0, device: Any = None):
+    """-> ``(train_step, opt)``; ``train_step(state, batch) -> (state,
+    metrics)`` with ``state = {"params": module, "opt": opt state,
+    "step": int32 scalar tensor}`` on ``device`` (``None``: the GPU),
+    updated in place and returned, and ``metrics = {"loss",
+    "grad_norm"}`` float32 scalar tensors (no host sync in the step).
+    ``batch`` holds ``tokens`` and ``labels`` (numpy arrays or tensors;
+    they are moved to ``device``).  The parameters must require grad."""
+    dev = resolve_device(device)
+    opt = make_optimizer(cfg.optimizer,
+                         lr or cosine_schedule(3e-4, 200, total_steps))
+
+    def train_step(state, batch):
+        params = state["params"]
+        batch = {key: torch.as_tensor(v).to(dev, non_blocking=True)
+                 for key, v in batch.items()}
+        loss, grads = loss_and_grads(params, batch, cfg)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        opt.update(grads, state["opt"], params, state["step"])
+        state["step"].add_(1)
+        return state, {"loss": loss.to(torch.float32),
+                       "grad_norm": gnorm.to(torch.float32)}
+
+    return train_step, opt
+
+
+def loss_and_grads(params, batch, cfg: ModelConfig):
+    """The train step's objective and its gradients: ``(loss, {parameter
+    name: gradient})``.  With ``cfg.microbatches = k > 1`` the batch is
+    split into k row blocks, the gradients summed in float32 and divided
+    by k, and the loss is the mean of the k losses, as the reference's
+    scan; with k = 1 each gradient is in its parameter's dtype."""
+    names, leaves = zip(*params.named_parameters())
+    k = cfg.microbatches
+
+    def loss_fn(mb):
+        return forward_loss(params, mb, cfg)[0]
+
+    if k == 1:
+        loss = loss_fn(batch)
+        return loss.detach(), dict(zip(names, torch.autograd.grad(loss,
+                                                                  leaves)))
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves]
+    losses = []
+    for i in range(k):
+        mb = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+              for key, v in batch.items()}
+        loss = loss_fn(mb)
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            a.add_(g.to(torch.float32))
+        losses.append(loss.detach())
+    return torch.stack(losses).mean(), {n: a / k for n, a in zip(names, acc)}
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """The legacy loop's prefill: ``prefill_step(params, batch) ->
+    (last-token logits, caches)``."""
+
+    def prefill_step(params, batch):
+        return prefill(params, batch, cfg)
+
+    return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):

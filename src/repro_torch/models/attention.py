@@ -14,7 +14,10 @@ versions.  :func:`attention` sends ``chunked`` and ``tri`` on a CUDA
 tensor to the K6 flash-attention kernel (``kernels/attention``), which
 maps GQA heads itself (no ``repeat_kv``) and clips its KV loop to the
 visible band, so both impls run the same kernel there; on a CPU tensor, or
-with ``use_kernel=False``, they run the plain version.
+with ``use_kernel=False``, they run the plain version.  The kernel runs
+inside ``FlashAttentionFn``: its gradient is the plain version's,
+recomputed in the backward, which is what the JAX package differentiates
+when it trains (its training path runs no kernel).
 
 Decode attention (one query token against the cache) stays plain torch,
 as the JAX package computes it in jnp outside any Pallas kernel; the
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 
 from ..kernels._common import on_cuda
-from ..kernels.attention.kernel import flash_attention_cuda
+from ..kernels.attention.kernel import flash_attention_fn
 
 __all__ = ["NEG_INF", "repeat_kv", "dense_attention", "chunked_attention",
            "attention", "decode_attention"]
@@ -129,25 +132,27 @@ def chunked_attention(q, k, v, *, qpos, kpos, causal=True, window=None,
     vf = v.float().reshape(B, nk, k_chunk, Hkv, D)
     qpos_c = qpos.reshape(nq, q_chunk)
     kpos_c = kpos.reshape(nk, k_chunk)
-    acc = torch.zeros((B, nq, q_chunk, Hkv, G, D), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, nq, q_chunk, Hkv, G), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
+    # one running (acc, m, l) per query chunk, rebound and never written
+    # in place, so that autograd can differentiate the loop
+    acc = [torch.zeros((B, q_chunk, Hkv, G, D), dtype=torch.float32,
+                       device=q.device) for _ in range(nq)]
+    m = [torch.full((B, q_chunk, Hkv, G), NEG_INF, dtype=torch.float32,
+                    device=q.device) for _ in range(nq)]
+    l = [torch.zeros_like(m[0]) for _ in range(nq)]
     for qi, ki in pairs:
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, qi], kf[:, ki]) * scale
         s = s + _mask_bias(qpos_c[qi], kpos_c[ki], causal=causal,
                            window=window)
         m_blk = torch.movedim(s.amax(dim=-1), -1, 1)      # (B,Lqc,Hkv,G)
-        m_old = m[:, qi]
-        m_new = torch.maximum(m_old, m_blk)
+        m_new = torch.maximum(m[qi], m_blk)
         p = torch.exp(s - torch.movedim(m_new, 1, -1)[..., None])
-        corr = torch.exp(m_old - m_new)
-        l[:, qi] = l[:, qi] * corr + torch.movedim(p.sum(dim=-1), -1, 1)
+        corr = torch.exp(m[qi] - m_new)
+        l[qi] = l[qi] * corr + torch.movedim(p.sum(dim=-1), -1, 1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, ki])
-        acc[:, qi] = acc[:, qi] * corr[..., None] + o
-        m[:, qi] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+        acc[qi] = acc[qi] * corr[..., None] + o
+        m[qi] = m_new
+    out = torch.stack(acc, dim=1) / torch.clamp(
+        torch.stack(l, dim=1)[..., None], min=1e-30)
     return out.reshape(B, Lq, H, D).to(q.dtype)
 
 
@@ -160,15 +165,19 @@ def attention(q, k, v, *, qpos, kpos, causal=True, window=None,
     On a CUDA tensor with ``impl`` ``chunked`` or ``tri`` this is the K6
     kernel, which takes the positions as ``qpos = q_offset + arange(Lq)``
     and ``kpos = arange(Lk)`` (the model's prefill positions); the plain
-    versions read ``qpos``/``kpos`` as given.  ``use_kernel=False`` asks
+    versions read ``qpos``/``kpos`` as given.  The kernel's gradient is
+    the plain version's on the same arguments.  ``use_kernel=False`` asks
     for the plain version on either device."""
     if use_kernel and impl in ("chunked", "tri") and on_cuda(q):
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal,
-                             window=window, q_offset=q_offset, scale=scale,
-                             out=out.transpose(1, 2))
-        return out
+        def plain(q, k, v):
+            return attention(q, k, v, qpos=qpos, kpos=kpos, causal=causal,
+                             window=window, impl=impl, q_chunk=q_chunk,
+                             k_chunk=k_chunk, scale=scale,
+                             replicate_kv=replicate_kv, use_kernel=False)
+
+        return flash_attention_fn(q, k, v, plain=plain, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  scale=scale)
     if replicate_kv:
         k = repeat_kv(k, q.shape[2])
         v = repeat_kv(v, q.shape[2])

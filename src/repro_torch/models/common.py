@@ -38,7 +38,10 @@ class ParamModule(nn.Module):
 class Init:
     """Creates parameters on ``device`` in ``dtype`` from one
     ``torch.Generator`` stream (one per device type: a CUDA generator for
-    the card, so weights are made there in their own dtype)."""
+    the card, so weights are made there in their own dtype).  On the
+    ``meta`` device (no generator) it makes shapes only and allocates
+    nothing.  Parameters are made with ``requires_grad=False``, as
+    serving wants them; a trainer turns it on."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device):
@@ -55,8 +58,9 @@ class Init:
             fan_in = shape[0] if shape else 1
         std = scale / math.sqrt(max(fan_in, 1))
         t = torch.empty(shape, dtype=self.dtype, device=self.device)
-        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                              generator=self.generator)
+        if self.device.type != "meta":
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=self.generator)
         p.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
     def const(self, p: nn.Module, name: str, shape: Sequence[int],

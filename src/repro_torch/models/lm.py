@@ -1,5 +1,6 @@
-"""LM assembly: init, prefill and decode for the archs the port serves,
-built from the uniform layer blocks, as ``repro.models.lm``.
+"""LM assembly: init, the training loss, prefill and decode for the archs
+the port serves, built from the uniform layer blocks, as
+``repro.models.lm``.
 
 The parameters are an ``nn.Module`` tree named like the JAX tree:
 ``embed``, ``groups[g].p{i}`` (the JAX package stacks the groups on a
@@ -9,8 +10,10 @@ list per group where JAX stacks: ``{"groups": [{"p0": entry, ...}, ...],
 "tail": [entry, ...], "pos": int tensor}``; an entry is KV storage for an
 attention layer and ``(ssd_state, conv_state)`` for a Mamba layer.
 
-Training (``forward_loss``) and the encoder of encoder-decoder archs are
-in ROADMAP queue 5.
+``cfg.remat == "full"`` recomputes each layer group in the backward
+(``torch.utils.checkpoint``, one call per group), as the reference's
+``jax.checkpoint`` of its scanned group body.  The encoder of
+encoder-decoder archs is in ROADMAP queue 5.
 """
 
 from __future__ import annotations
@@ -20,16 +23,18 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from .blocks import (fill_attn_cache, init_layer, init_norm, layer_decode,
                      layer_forward, make_attn_cache, make_layer_cache,
                      norm_apply)
-from .common import Init, ParamModule
+from .common import Init, ParamModule, count_params
 from .config import ModelConfig
 
-__all__ = ["NEG_INF", "init_lm", "embed_tokens", "lm_logits",
-           "decoder_pass", "init_caches", "prefill", "decode_step"]
+__all__ = ["NEG_INF", "init_lm", "param_count", "embed_tokens", "lm_logits",
+           "ce_loss", "decoder_pass", "assemble_input", "forward_loss",
+           "init_caches", "prefill", "decode_step"]
 
 NEG_INF = -1e30
 
@@ -47,8 +52,20 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     (``None``: the GPU) in the config's parameter dtype.  The generator's
     device must be ``device``'s type."""
     _refuse_arch(cfg)
-    dev = resolve_device(device)
-    init = Init(generator, cfg.param_torch_dtype, dev)
+    return _build_lm(cfg, Init(generator, cfg.param_torch_dtype,
+                               resolve_device(device)))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Number of scalar parameters of ``cfg``'s model, counted from a
+    model built on the ``meta`` device: nothing is allocated, as the
+    reference's ``eval_shape``."""
+    _refuse_arch(cfg)
+    return count_params(_build_lm(cfg, Init(None, cfg.param_torch_dtype,
+                                            "meta")))
+
+
+def _build_lm(cfg: ModelConfig, init: Init) -> ParamModule:
     lm = ParamModule()
     Vp, d = cfg.padded_vocab(), cfg.d_model
     init.dense(lm, "embed", (Vp, d), fan_in=d)
@@ -106,22 +123,81 @@ def lm_logits(params, h, cfg: ModelConfig):
     return logits
 
 
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over positions with label >= 0, in float32."""
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0).long()
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, lab[..., None])[..., 0]
+    per_tok = (lse - ll) * valid
+    n = torch.clamp(valid.sum(), min=1)
+    return per_tok.sum() / n
+
+
+def _group_forward(gp, h, pattern, cfg: ModelConfig, want_cache: bool,
+                   use_kernel: bool):
+    caches = {}
+    for i, kind in enumerate(pattern):
+        h, caches[f"p{i}"] = layer_forward(gp[f"p{i}"], h, kind, cfg,
+                                           want_cache=want_cache,
+                                           use_kernel=use_kernel)
+    return h, caches
+
+
 def decoder_pass(params, h, cfg: ModelConfig, *, want_cache: bool = False,
                  use_kernel: bool = True):
     """-> (h after the final norm, caches | None), caches as
-    ``{"groups": [...], "tail": [...]}`` of raw layer emissions."""
+    ``{"groups": [...], "tail": [...]}`` of raw layer emissions.  Under
+    grad mode with ``cfg.remat == "full"`` each layer group is recomputed
+    in the backward instead of keeping its activations."""
     n_groups, pattern, tail = cfg.layer_groups()
-    groups = [dict() for _ in range(n_groups)]
-    tails = []
-    for p, kind, where in _layers(params, cfg):
-        h, c = layer_forward(p, h, kind, cfg, want_cache=want_cache,
-                             use_kernel=use_kernel)
-        if where[0] == "groups":
-            groups[where[1]][where[2]] = c
+    remat = (cfg.remat == "full" and not want_cache
+             and torch.is_grad_enabled())
+    groups = []
+    for g in range(n_groups):
+        gp = params["groups"][g]
+        if remat:
+            h = checkpoint(
+                lambda x, gp=gp: _group_forward(gp, x, pattern, cfg, False,
+                                                use_kernel)[0],
+                h, use_reentrant=False)
+            groups.append(None)
         else:
-            tails.append(c)
+            h, c = _group_forward(gp, h, pattern, cfg, want_cache,
+                                  use_kernel)
+            groups.append(c)
+    tails = []
+    for i, kind in enumerate(tail):
+        h, c = layer_forward(params[f"tail{i}"]["layer"], h, kind, cfg,
+                             want_cache=want_cache, use_kernel=use_kernel)
+        tails.append(c)
     h = norm_apply(params["final"], h, cfg, "ln")
     return h, ({"groups": groups, "tail": tails} if want_cache else None)
+
+
+def assemble_input(params, batch, cfg: ModelConfig):
+    """Token embeddings of ``batch["tokens"]`` (B, S) -> (h, positions).
+    Encoder-decoder and VLM inputs are ROADMAP queue 5."""
+    _refuse_arch(cfg)
+    h = embed_tokens(params, batch["tokens"], cfg)
+    return h, torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+
+def forward_loss(params, batch, cfg: ModelConfig, *,
+                 aux_weight: float = 0.01, use_kernel: bool = True):
+    """Training objective: CE + ``aux_weight`` * aux, with aux 0 for the
+    dense and SSM archs the port runs (the MoE load-balance loss is
+    ROADMAP queue 5).  Returns ``(total, {"loss", "aux"})``.  On the GPU
+    attention runs on K6 and the SSD on K7 unless ``use_kernel=False``;
+    their gradients are the plain versions'."""
+    h, _ = assemble_input(params, batch, cfg)
+    h, _ = decoder_pass(params, h, cfg, use_kernel=use_kernel)
+    logits = lm_logits(params, h, cfg)
+    loss = ce_loss(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, max_seq: int,

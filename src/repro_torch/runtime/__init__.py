@@ -1,12 +1,13 @@
-"""Serving runtime: continuous batching, fault injection and retry."""
+"""Runtime: continuous batching, the training supervisor, fault injection
+and retry."""
 
 from .faults import (Fault, FaultPlan, HostTimeoutError,
                      InjectedDeterministicFault, InjectedFault, RetryPolicy,
                      fault_scope, trip)
-from .supervisor import StepStats, TransientError
+from .supervisor import StepStats, Supervisor, TransientError
 
-__all__ = ["Batcher", "Request", "StepStats", "TransientError", "Fault",
-           "FaultPlan", "HostTimeoutError", "InjectedFault",
+__all__ = ["Batcher", "Request", "StepStats", "Supervisor", "TransientError",
+           "Fault", "FaultPlan", "HostTimeoutError", "InjectedFault",
            "InjectedDeterministicFault", "RetryPolicy", "fault_scope",
            "trip"]
 

@@ -1078,3 +1078,86 @@ def test_region_capture_on_a_one_card_mesh(dev, overlap, donate):
     assert torch.equal(got, want)
     assert ex.cache_stats() == stats
     clear_executable_cache()
+
+
+# -- K6 and K7 with a gradient: their backward is the plain version's -------
+
+@pytest.mark.parametrize("case", ["causal_gqa", "window", "q_offset"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_fn_gradient_is_the_plain_versions(dev, dtype, case):
+    """``FlashAttentionFn``: the forward is K6 (one launch), and the input
+    gradients for a given ``grad_out`` equal the plain version's bit for
+    bit, since the backward recomputes that same plain function."""
+    from functools import partial
+
+    from repro_torch.kernels.attention.kernel import (flash_attention_cuda,
+                                                      flash_attention_fn)
+    from repro_torch.models.attention import attention
+
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, _ = ATTN_CASES[case]
+    qpos = torch.arange(q_offset, q_offset + Sq, device=dev)
+    kpos = torch.arange(Skv, device=dev)
+    plain = partial(attention, qpos=qpos, kpos=kpos, causal=causal,
+                    window=window, q_chunk=64, k_chunk=64, use_kernel=False)
+    ins = [_randn(dev, dtype, B, S, H, D, seed=i) for i, (S, H) in
+           enumerate(((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))]
+    grad_out = _randn(dev, dtype, B, Sq, Hq, D, seed=9)
+    mine = [t.clone().requires_grad_() for t in ins]
+    before = flash_attention_cuda.launches
+    out = flash_attention_fn(*mine, plain=plain, causal=causal,
+                             window=window, q_offset=q_offset)
+    assert flash_attention_cuda.launches == before + 1
+    out.backward(grad_out)
+    theirs = [t.clone().requires_grad_() for t in ins]
+    want = plain(*theirs)
+    want.backward(grad_out)
+    _close(out.detach(), want.detach(), *LM_TOL["attention"][dtype])
+    for a, b in zip(mine, theirs):
+        assert torch.equal(a.grad, b.grad)
+        assert float(a.grad.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["mamba2", "smoke", "L256"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_fn_gradient_is_the_plain_versions(dev, dtype, case):
+    """``SsdIntraChunkFn`` (what ``ssd_intra_chunk`` runs on the card):
+    the forward is K7, and the input gradients for given output gradients
+    equal ``ssd_intra_chunk_ref``'s bit for bit."""
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+    B, S, H, P, N, chunk = SSD_CASES[case]
+    ins = _ssd_inputs(dev, dtype, B, S, H, P, N)
+    gy = _randn(dev, dtype, B, S, H, P, seed=8)
+    gs = _randn(dev, "float32", B, S // chunk, H, P, N, seed=9)
+    mine = [t.clone().requires_grad_() for t in ins]
+    before = ssd_intra_chunk_cuda.launches
+    y, s = ssd_intra_chunk(*mine, chunk=chunk)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+    torch.autograd.backward((y, s), (gy, gs))
+    theirs = [t.clone().requires_grad_() for t in ins]
+    torch.autograd.backward(ssd_intra_chunk_ref(*theirs, chunk=chunk),
+                            (gy, gs))
+    for a, b in zip(mine, theirs):
+        assert torch.equal(a.grad, b.grad)
+        assert float(a.grad.float().abs().max()) > 0
+
+
+def test_wrappers_refuse_an_input_that_requires_grad(dev):
+    """A wrapper handed an input that requires grad under grad mode raises,
+    naming the Function to call: no route drops a gradient silently."""
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    q = _randn(dev, "bfloat16", 1, 2, 64, 64, seed=1)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        flash_attention_cuda(q.clone().requires_grad_(), q, q)
+    x, dt, A, Bm, C = _ssd_inputs(dev, "bfloat16", 1, 64, 2, 64, 128)
+    with pytest.raises(RuntimeError, match="SsdIntraChunkFn"):
+        ssd_intra_chunk_cuda(x, dt, A, Bm.clone().requires_grad_(), C,
+                             chunk=64)
+    with torch.no_grad():
+        flash_attention_cuda(q.clone().requires_grad_(), q, q)
+        ssd_intra_chunk_cuda(x, dt, A, Bm.clone().requires_grad_(), C,
+                             chunk=64)

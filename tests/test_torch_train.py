@@ -1,0 +1,377 @@
+"""The port's training path against the JAX package on the CPU, at the
+smoke configs (2 layers, d_model 64, float32): the loss and its pieces,
+``param_count`` at the full configs (from shapes, no allocation), the
+optimizers on identical gradients, the schedules and int8 compression, one
+train step's loss, gradient norm and every gradient (also with
+``microbatches=2``, and ``remat="full"`` against ``"none"``), and a 4-step
+loss trajectory; then the grad guard of the K6/K7 wrappers and the plain
+recompute behind their ``autograd.Function``s.
+
+Tolerances: float32 sums in another order.  Losses rtol 1e-5; gradients
+atol 1e-6 + rtol 1e-4 (two layers of backward sums); the optimizers 1e-6
+relative in float32 and one bfloat16 step (2^-7 relative) for a bfloat16
+parameter, whose float32 update is rounded once; the schedules 1e-6.
+AdamW's first update is sign(g) * lr wherever |g| is tiny, so a gradient
+that differs at rounding level can flip it: the trajectory is held by its
+loss (rtol 1e-5), not by its parameters."""
+
+import dataclasses
+import functools
+import resource
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.launch import steps as jsteps
+from repro.models import lm as jlm
+from repro.models.blocks import ShardCtx
+from repro.optim import compression as jcomp
+from repro.optim import optimizers as jopt
+from repro.optim import schedules as jsched
+import repro_torch.configs as tconfigs
+from repro_torch.interop import params_from_reference
+from repro_torch.kernels._common import plain_vjp
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import lm as tlm
+from repro_torch.optim import compression as tcomp
+from repro_torch.optim import optimizers as topt
+from repro_torch.optim import schedules as tsched
+
+ARCHS = ["qwen3-8b", "mamba2-130m"]
+CTX = ShardCtx()
+B, S = 4, 32
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _jax_leaf(tree, name: str):
+    """The JAX tree's leaf for a port parameter name (the groups stacked
+    on a leading axis there)."""
+    leaf, group = tree, None
+    for part in name.split("."):
+        if part.isdigit():
+            group = int(part)
+        else:
+            leaf = leaf[part]
+    return leaf if group is None else leaf[group]
+
+
+def _batch(cfg, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1          # masked positions
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+def _models(arch, **over):
+    jc = jconfigs.get_smoke(arch).with_(**over)
+    tc = tconfigs.get_smoke(arch).with_(**over)
+    jp, _ = jlm.init_lm(jc, jax.random.PRNGKey(0))
+    tp = params_from_reference(jax.tree.map(np.asarray, jp), tc, "cpu")
+    tp.requires_grad_(True)
+    return jc, tc, jp, tp
+
+
+def _tbatch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _jbatch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+# -- the loss --------------------------------------------------------------
+
+def test_ce_loss_matches_reference():
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal((3, 7, 50)) * 4).astype(np.float32)
+    labels = rng.integers(-1, 50, (3, 7)).astype(np.int32)
+    got = tlm.ce_loss(torch.from_numpy(logits), torch.from_numpy(labels))
+    want = jlm.ce_loss(jnp.asarray(logits), jnp.asarray(labels))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    none = np.full((3, 7), -1, np.int32)   # every position masked: 0
+    assert float(tlm.ce_loss(torch.from_numpy(logits),
+                             torch.from_numpy(none))) == 0.0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_count_full_config_allocates_nothing(arch):
+    """At the published widths (qwen3-8b: 8.19e9 parameters, 16 GB in
+    bfloat16), counted from shapes on the meta device."""
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    n = tlm.param_count(tconfigs.get(arch))
+    grown_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+    assert n == jlm.param_count(jconfigs.get(arch))
+    assert grown_kib < 256 * 1024, grown_kib
+
+
+def test_assemble_input_refuses_encoder_decoder():
+    cfg = tconfigs.get_smoke("qwen3-8b").with_(frontend_dim=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
+        tlm.assemble_input(None, {"tokens": torch.zeros(1, 2)}, cfg)
+
+
+# -- one step against the reference ------------------------------------------
+
+def _jax_loss_and_grads(jc, jp, batch):
+    """The reference train step's loss, gradients and clipped norm (its
+    microbatch scan written out, as ``repro.launch.steps.make_train_step``
+    computes them before the optimizer)."""
+    k = jc.microbatches
+    vg = jax.value_and_grad(
+        lambda p, mb: jlm.forward_loss(p, mb, jc, CTX), has_aux=True)
+
+    @jax.jit
+    def run(p, b):
+        aux = jnp.zeros((), jnp.float32)
+        if k == 1:
+            (loss, parts), g = vg(p, b)
+            aux = parts["aux"]
+        else:
+            acc = jax.tree.map(lambda x: jnp.zeros(x.shape, jnp.float32), p)
+            losses = []
+            for i in range(k):
+                mb = jax.tree.map(
+                    lambda x: x.reshape(k, x.shape[0] // k,
+                                        *x.shape[1:])[i], b)
+                (loss, _), g = vg(p, mb)
+                acc = jax.tree.map(lambda a, x: a + x.astype(a.dtype), acc,
+                                   g)
+                losses.append(loss)
+            loss, g = jnp.mean(jnp.stack(losses)), jax.tree.map(
+                lambda a: a / k, acc)
+        return loss, aux, g, jopt.clip_by_global_norm(g, 1.0)[1]
+
+    return run(jp, batch)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_reference(arch, microbatches):
+    """``forward_loss`` and its parts, then one train step's loss, every
+    gradient, the clipped norm and the step counter."""
+    jc, tc, jp, tp = _models(arch, microbatches=microbatches)
+    b = _batch(tc, seed=1)
+    jloss, jaux, jgrads, jgnorm = _jax_loss_and_grads(jc, jp, _jbatch(b))
+    if microbatches == 1:
+        total, parts = tlm.forward_loss(tp, _tbatch(b), tc)
+        for got in (total, parts["loss"]):
+            np.testing.assert_allclose(got.item(), float(jloss), rtol=1e-5)
+        assert parts["aux"].item() == float(jaux) == 0.0
+    loss, grads = tsteps.loss_and_grads(tp, _tbatch(b), tc)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert set(grads) == {n for n, _ in tp.named_parameters()}
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.detach().numpy(),
+                                   _np(_jax_leaf(jgrads, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+    step, opt = tsteps.make_train_step(tc, total_steps=100, device="cpu")
+    state = {"params": tp, "opt": opt.init(tp),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = step(state, b)
+    for key, want in (("loss", jloss), ("grad_norm", jgnorm)):
+        assert m[key].dtype == torch.float32
+        np.testing.assert_allclose(float(m[key]), float(want), rtol=1e-5,
+                                   err_msg=key)
+    assert int(state["step"]) == 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_full_equals_none(arch):
+    _, tc, _, tp = _models(arch)
+    b = _tbatch(_batch(tc, seed=2))
+    loss, grads = tsteps.loss_and_grads(tp, b, tc)
+    rloss, rgrads = tsteps.loss_and_grads(tp, b, tc.with_(remat="full"))
+    assert float(rloss) == float(loss)
+    for name, g in grads.items():
+        torch.testing.assert_close(rgrads[name], g, rtol=0, atol=0,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_four_step_loss_trajectory_matches_reference(arch):
+    jc, tc, jp, tp = _models(arch)
+    b = _batch(tc, seed=3)
+    step, opt = tsteps.make_train_step(tc, lr=1e-2, device="cpu")
+    state = {"params": tp, "opt": opt.init(tp),
+             "step": torch.zeros((), dtype=torch.int32)}
+    jstep, jo = jsteps.make_train_step(jc, None, lr=1e-2)
+    jstep = jax.jit(jstep)
+    jstate = {"params": jp, "opt": jo.init(jp),
+              "step": jnp.zeros((), jnp.int32)}
+    got, want = [], []
+    for _ in range(4):
+        state, m = step(state, b)
+        jstate, jm = jstep(jstate, _jbatch(b))
+        got.append(float(m["loss"]))
+        want.append(float(jm["loss"]))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[-1] < got[0]
+
+
+# -- optimizers, schedules, compression --------------------------------------
+
+def _params(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((6, 5)).astype(np.float32),
+            "t": rng.standard_normal((2, 3, 4)).astype(np.float32),
+            "b": rng.standard_normal(5).astype(np.float32)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_matches_reference_on_identical_grads(name, dtype):
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    p0 = _params()
+    jp = {k: jnp.asarray(v).astype(jdt) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v).to(tdt) for k, v in p0.items()}
+    lr = jsched.cosine_schedule(1e-2, 2, 10)
+    jo = jopt.make_optimizer(name, lr, weight_decay=0.1)
+    to = topt.make_optimizer(name, tsched.cosine_schedule(1e-2, 2, 10),
+                             weight_decay=0.1)
+    js, ts = jo.init(jp), to.init(tp)
+    rtol = 1e-6 if dtype == "float32" else 2 ** -7
+    for i in range(3):
+        g = _params(seed=10 + i)
+        jp, js = jo.update({k: jnp.asarray(v).astype(jdt)
+                            for k, v in g.items()}, js, jp,
+                           jnp.asarray(i, jnp.int32))
+        to.update({k: torch.from_numpy(v).to(tdt) for k, v in g.items()},
+                  ts, tp, torch.tensor(i, dtype=torch.int32))
+        for k in p0:
+            assert tp[k].dtype == tdt
+            np.testing.assert_allclose(tp[k].float().numpy(), _np(jp[k]),
+                                       rtol=rtol, atol=1e-7, err_msg=k)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(js)[0]:
+        keys = [p.key for p in path]
+        got = ts
+        for key in keys:
+            got = got[key]
+        np.testing.assert_allclose(got.numpy(), _np(leaf), rtol=1e-5,
+                                   atol=1e-12, err_msg=str(keys))
+
+
+def test_make_optimizer_refuses_an_unknown_name():
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.make_optimizer("sgd", 1e-3)
+
+
+def test_clip_by_global_norm_matches_reference():
+    g = _params(seed=4)
+    for max_norm in (0.5, 1e3):
+        got, gn = topt.clip_by_global_norm(
+            {k: torch.from_numpy(v) for k, v in g.items()}, max_norm)
+        want, jgn = jopt.clip_by_global_norm(
+            {k: jnp.asarray(v) for k, v in g.items()}, max_norm)
+        np.testing.assert_allclose(float(gn), float(jgn), rtol=1e-6)
+        for k in g:
+            np.testing.assert_allclose(got[k].numpy(), _np(want[k]),
+                                       rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 17, 99, 150])
+def test_schedules_match_reference(step):
+    for t, j in ((tsched.cosine_schedule(3e-4, 20, 100),
+                  jsched.cosine_schedule(3e-4, 20, 100)),
+                 (tsched.linear_warmup(1e-3, 10),
+                  jsched.linear_warmup(1e-3, 10))):
+        want = float(j(jnp.asarray(step, jnp.int32)))
+        np.testing.assert_allclose(float(t(step)), want, rtol=1e-6)
+        got = t(torch.tensor(step, dtype=torch.int32))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1e-4), (1, 1.0), (2, 37.5),
+                                        (3, 1e3)])
+def test_quantize_int8_matches_reference(seed, scale):
+    x = (np.random.default_rng(seed).standard_normal(128)
+         * scale).astype(np.float32)
+    q, s = tcomp.quantize_int8(torch.from_numpy(x))
+    jq, js = jcomp.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert float(s) == float(js)
+    err = np.abs(tcomp.dequantize_int8(q, s).numpy() - x)
+    assert err.max() <= float(s) / 2 + 1e-6      # round to nearest
+
+
+def test_quantize_zero():
+    q, s = tcomp.quantize_int8(torch.zeros(16))
+    np.testing.assert_array_equal(tcomp.dequantize_int8(q, s).numpy(),
+                                  np.zeros(16))
+
+
+def test_error_feedback_accumulates_exactly():
+    """With a constant gradient the mean of the dequantised series tends
+    to the gradient, as the reference's test states."""
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(64)
+                         .astype(np.float32))
+    ef = tcomp.ErrorFeedbackState.init({"g": g})
+    resid, total, n = ef.residual["g"], torch.zeros_like(g), 50
+    for _ in range(n):
+        eff = g + resid
+        q, s = tcomp.quantize_int8(eff)
+        g_hat = tcomp.dequantize_int8(q, s)
+        resid = eff - g_hat
+        total = total + g_hat
+    np.testing.assert_allclose((total / n).numpy(), g.numpy(),
+                               atol=float(s) / 2 / n * 3 + 1e-5)
+
+
+# -- the kernels' gradients ---------------------------------------------------
+
+def test_kernel_wrappers_refuse_an_input_that_requires_grad():
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    q = torch.zeros(1, 2, 8, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        flash_attention_cuda(q, q.detach(), q.detach())
+    x = torch.zeros(1, 8, 2, 8, requires_grad=True)
+    z = torch.zeros(1, 8, 8)
+    with pytest.raises(RuntimeError, match="SsdIntraChunkFn"):
+        ssd_intra_chunk_cuda(x, torch.zeros(1, 8, 2), torch.zeros(2), z, z,
+                             chunk=8)
+    with torch.no_grad():     # no gradient asked: the device check speaks
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_cuda(q, q, q)
+
+
+def test_plain_vjp_is_the_plain_versions_gradient():
+    """The backward of the K6/K7 Functions: the gradient of the plain
+    version recomputed from the saved inputs, for the inputs that need
+    one."""
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 2, 4)).astype(
+        np.float32))
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (1, 16, 2)).astype(
+        np.float32))
+    A = -torch.linspace(1.0, 4.0, 2)
+    Bm, C = (torch.from_numpy(rng.standard_normal((1, 16, 3)).astype(
+        np.float32)) for _ in range(2))
+    gy = torch.from_numpy(rng.standard_normal((1, 16, 2, 4)).astype(
+        np.float32))
+    gs = torch.from_numpy(rng.standard_normal((1, 2, 2, 4, 3)).astype(
+        np.float32))
+    plain = functools.partial(ssd_intra_chunk_ref, chunk=8)
+    needs = (True, True, False, True, True)
+    got = plain_vjp(plain, (x, dt, A, Bm, C), needs, (gy, gs))
+    ins = [t.clone().requires_grad_(n) for t, n in
+           zip((x, dt, A, Bm, C), needs)]
+    y, s = plain(*ins)
+    torch.autograd.backward((y, s), (gy, gs))
+    assert got[2] is None
+    for g, t, n in zip(got, ins, needs):
+        if n:
+            torch.testing.assert_close(g, t.grad, rtol=0, atol=0)

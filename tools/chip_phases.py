@@ -7,10 +7,11 @@ PHASE is ``out`` (K1-K5's ``out=`` against their fresh-output calls),
 ``lm`` (phase 3's two served models at the defaults, with the serve
 launcher's smoke checks), ``regions`` (phase 3b's four graphs), ``serve``
 (phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
-3d) or ``examples`` (phase 3e: tuning on a mesh and the examples).  Each phase runs as
-``chip_smoke.py`` runs it, with its checks, ``--repeat`` times in a row;
-a failed check is printed and the next run goes on.  The kernels are
-built first.  Exits non-zero if any run failed.
+3d), ``examples`` (phase 3e: tuning on a mesh and the examples) or
+``train`` (phase 3f: training, the gradient gate, the supervisor).  Each
+phase runs as ``chip_smoke.py`` runs it, with its checks, ``--repeat``
+times in a row; a failed check is printed and the next run goes on.  The
+kernels are built first.  Exits non-zero if any run failed.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-PHASES = ("out", "lm", "regions", "serve", "async", "mesh", "examples")
+PHASES = ("out", "lm", "regions", "serve", "async", "mesh", "examples",
+          "train")
 
 
 def main() -> int:
@@ -33,6 +35,8 @@ def main() -> int:
     parser.add_argument("--repeat", type=int, default=1)
     args = parser.parse_args()
 
+    # phase 3f's deterministic algorithms need it before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -89,7 +93,8 @@ def main() -> int:
         "async": lambda: cs.async_phase(card, zero_counts, counts_now),
         "mesh": lambda: cs.mesh_phase(card, zero_counts, counts_now, eik),
         "examples": lambda: cs.examples_phase(card, zero_counts,
-                                              counts_now)}
+                                              counts_now),
+        "train": lambda: cs.train_phase(card, zero_counts, counts_now)}
 
     def eik_mid():
         """The eikonal kernel's mid-solve input of chip_smoke.py."""
