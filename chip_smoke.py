@@ -18,7 +18,11 @@ result line):
    wrong variant (for the SSD also the designs its bf16 route rejects: S'
    and the state weights each rounded once to bfloat16; at chunk 256, in
    both dtypes, a kernel that drops what the second 128-row tile takes
-   from the first);
+   from the first); the attention kernel also at head dim 256, the
+   prefill shapes of gemma3-12b's local (window 1024) and global layers
+   and of recurrentgemma-9b's local layers (one KV head, window 2048),
+   where at gemma3-12b's local shape the kernel run without its window
+   must fall outside the limit;
 3. the main path through the port's ``Graph``/``Executor`` on the GPU:
    the Table 2 SAXPY probe (n = 2^24), the particle step graph (2^24
    particles per species, 100 steps, closed-form check), the FORCE flux
@@ -67,7 +71,22 @@ result line):
    equal the uniform loop's (``legacy_generate``) for each equal-length
    pair; the kernel route's last-position prefill logits within
    ``LOGIT_TOL`` of the plain route's on the same weights, and a
-   deliberately wrong variant outside it;
+   deliberately wrong variant outside it.  Then gemma3-12b (48 layers,
+   5 local to 1 global, head dim 256) and recurrentgemma-9b (38 layers,
+   RG-LRU and local attention) at their published configs, with the
+   same checks (K6 once per attention layer, local or global, per
+   request: 384 and 96 launches; the wrong variant: the local layers
+   without their window, or, for recurrentgemma-9b, whose window of 2048
+   is causal at 2048 tokens, attention without its causal mask) in place
+   of the ragged, interleaved and captured-prefill measurements, plus
+   one request served alone by a one-slot ``Batcher`` (tokens/s, decode
+   ms per step against the weights' read at the memory rate) and the
+   ring check: a prompt longer than the window (2048 tokens for
+   gemma3-12b, 3072 for recurrentgemma-9b) prefilled and 16 tokens
+   teacher-forced through the decode caches, the last step's logits
+   within ``RING_TOL`` of one prefill over all of them, and the decode
+   with each ring slot's position taken as its index (no wrap) outside
+   it;
 3b. outputs in place and region compile — first K1-K5 with ``out=`` at
    the main path's shapes, float32 and bfloat16, every layout each takes
    (K4's AoSoA through its ops wrapper): ``out`` apart from the inputs,
@@ -184,7 +203,9 @@ result line):
    for their type: 67 TFLOP/s of float32 outside the tensor cores, 989
    TFLOP/s of bf16 on them for the bf16 inputs of K6 and K7), its plain
    version and, where one PyTorch call computes the same function, that
-   call; the flux kernel also in AoS, in bfloat16 and with its loads,
+   call; the attention kernel also in bfloat16 at the three head-dim-256
+   shapes (against SDPA under the first backend that takes the call: a
+   band mask for a window); the flux kernel also in AoS, in bfloat16 and with its loads,
    shuffles and stores alone; the eikonal kernel also at its other timed
    tiles, in bfloat16, with its loads and stores alone (inner 0) and with
    every access scalar,
@@ -262,6 +283,12 @@ LM_GEN, LM_SLOTS, LM_MAX_SEQ = 32, 4, 2112
 # K6 at the qwen3-8b prefill shape (B, Hq, Hkv, S, D), K7 at mamba2-130m's
 # (B, S, H, P, N, chunk)
 ATTN_SHAPE = (1, 32, 8, 2048, 128)
+# ... and at head dim 256, the prefill shapes (B, Hq, Hkv, S, D) and
+# windows of gemma3-12b's local and global layers and recurrentgemma-9b's
+# local layers (its window of 2048 equals causal at 2048 tokens)
+ATTN_SHAPES_256 = {"gemma3-12b L": ((1, 16, 8, 2048, 256), 1024),
+                   "gemma3-12b A": ((1, 16, 8, 2048, 256), None),
+                   "recurrentgemma-9b L": ((1, 16, 1, 2048, 256), 2048)}
 SSD_SHAPE = (1, 2048, 24, 64, 128, 128)
 # ... and at the tile registry's largest chunk, which mamba2-130m's
 # config takes with ssd_chunk=256
@@ -282,8 +309,25 @@ LM_KERNEL_TOL = {
 # last-position prefill logits, kernel route against plain route (bf16
 # weights and activations; absolute, as max |difference|), set from the
 # H100 readings 5.66e-2 (qwen3-8b) and 1.05e-1 (mamba2-130m, both routes
-# rounding y_intra to bf16); the wrong variants read 5.8 and 2.9
-LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25}
+# rounding y_intra to bf16), 8.59e-2 (gemma3-12b) and 1.09e-1
+# (recurrentgemma-9b); the wrong variants read 5.8, 2.9, 3.75 and 2.29
+LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25, "gemma3-12b": 0.25,
+             "recurrentgemma-9b": 0.25}
+# phase 3 serves these two at their published configs beside the two
+# above, with the same checks, the ring check, and one request alone in
+# place of the ragged, interleaved and captured-prefill measurements
+LM_LOCAL_ARCHS = ("gemma3-12b", "recurrentgemma-9b")
+# the ring check: a prompt, then RING_DECODE tokens teacher-forced through
+# the decode caches, the last step's logits against one prefill over all
+# of them (absolute, as max |difference|).  Each prompt is longer than
+# its arch's window, so the ring holds it wrapped: with recurrentgemma's
+# window of 2048 a 2048-token prompt would leave the no-wrap variant
+# only the 16 decoded keys to lose (H100 reading: 0.125 against 0.117
+# wrapped), a 3072-token one half the ring.  H100 readings: gemma3-12b
+# 1.02e-1 (no wrap 2.60), recurrentgemma-9b 1.16e-1 (no wrap 0.581)
+RING_PROMPT = {"gemma3-12b": 2048, "recurrentgemma-9b": 3072}
+RING_DECODE = 16
+RING_TOL = {"gemma3-12b": 0.25, "recurrentgemma-9b": 0.25}
 # phase 3f, training: qwen3-8b at its published width cut to 4 layers
 # (36 need ~98 GB for bf16 weights and gradients and float32 moments),
 # 5 steps on one repeated batch of 2 x 2048; mamba2-130m at its published
@@ -676,22 +720,22 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     signature stepped in turn; ragged traffic of 8 new lengths with
     eager prefills and with one capture per length; and each captured
     prefill's first call and memory, with the repeated lengths served on
-    the replays.  Returns the launch counts of the batcher's run and its
-    measurements."""
+    the replays.  An arch with local layers (gemma3-12b,
+    recurrentgemma-9b) skips those four measurements and adds the ring
+    check and one request served alone.  Returns the launch counts of
+    the batcher's run and its measurements."""
     import numpy as np
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.launch.serve import legacy_generate
-    from repro_torch.models import attention as model_attention
-    from repro_torch.models.lm import decode_step, init_lm, prefill
+    from repro_torch.models.lm import init_lm
     from repro_torch.runtime.batcher import Batcher
 
     dev = torch.device("cuda")
     cfg = configs.get(arch)
     kinds = [k for _ in range(cfg.layer_groups()[0])
              for k in cfg.layer_groups()[1]] + list(cfg.layer_groups()[2])
+    local = "L" in kinds
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -722,7 +766,8 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
     # each request's prefill runs eagerly: K6/K7 once per layer each
     lengths = sorted(set(LM_PROMPTS), reverse=True)
-    expect = {"flash_attention": kinds.count("A") * len(reqs),
+    expect = {"flash_attention": (kinds.count("A") + kinds.count("L"))
+              * len(reqs),
               "ssd_intra_chunk": kinds.count("M") * len(reqs)}
     stats = batcher.cache_stats()
     if stats["decode"]["trace_events"] != 1 or sorted(stats["prefill"]) \
@@ -755,10 +800,54 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         f"without the decode capture; {toks / wall:.1f} tokens/s with it "
         f"(the batcher's run) ({card})")
 
+    extra = {}
+    if local:
+        del worker, wreqs
+        extra["batch1"] = batch_one(arch, card, cfg, params, prompts[0],
+                                    zero_counts)
+    else:
+        extra = serve_measurements(arch, card, cfg, params, batcher, worker,
+                                   prompts, reqs, rng, zero_counts)
+        del worker, wreqs
+        log(f"repeated {arch}: the {len(prompts)} requests on captured "
+            f"prefills, every length captured before: "
+            f"{extra['captured_tok_s']:.1f} tokens/s; on eager prefills "
+            f"{warm_tok / warm_wall:.1f} ({card})")
+    # prefill ms per request: a separate pass through the batcher's own
+    # (eager) prefill executors, synchronised on both sides
+    prefill_ms = []
+    for prompt in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batcher._prefill_state(prompt)
+        torch.cuda.synchronize()
+        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
+        log(f"  prefill {arch} {len(prompt)} tokens: {prefill_ms[-1][1]:.3f}"
+            f" ms ({card})")
+    del batcher
+    return serve_checks(arch, card, cfg, params, prompts, reqs, kinds,
+                        counts, expect, extra, dict(
+                            wall=wall, tok_s=toks / wall,
+                            warm_tok_s=warm_tok / warm_wall,
+                            step_ms=step_ms, prefill_ms=prefill_ms))
+
+
+def serve_measurements(arch: str, card: str, cfg, params, batcher, worker,
+                       prompts, reqs, rng, zero_counts) -> dict:
+    """Phase 3's measurements of qwen3-8b and mamba2-130m beside the main
+    path: two batchers of one signature stepped in turn, ragged traffic
+    of 8 new lengths with eager prefills and with one capture per length,
+    and each captured prefill's first call and memory, with the repeated
+    lengths served on the replays (their streams those of ``reqs``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.batcher import Batcher
+
     # two live batchers of one signature stepped in turn: each step moves
     # the other's returned state out onto a copy and copies its own in
     inter = interleaved(arch, card, batcher, worker, prompts, reqs)
-    del worker, wreqs
+    lengths = sorted(set(LM_PROMPTS), reverse=True)
 
     # ragged traffic, every prompt length new: the batcher's eager
     # prefills against one capture per length
@@ -818,24 +907,29 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     if [r.generated for r in creqs] != [r.generated for r in reqs]:
         raise AssertionError(f"{arch}: captured prefills gave other "
                              f"streams")
-    log(f"repeated {arch}: the {len(creqs)} requests on captured prefills, "
-        f"every length captured before: {cap_tok / cap_wall:.1f} tokens/s; "
-        f"on eager prefills {warm_tok / warm_wall:.1f} ({card})")
     del capb, creqs
     gc.collect()
-    # prefill ms per request: a separate pass through the batcher's own
-    # (eager) prefill executors, synchronised on both sides
-    prefill_ms = []
-    for prompt in prompts:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        batcher._prefill_state(prompt)
-        torch.cuda.synchronize()
-        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
-        log(f"  prefill {arch} {len(prompt)} tokens: {prefill_ms[-1][1]:.3f}"
-            f" ms ({card})")
-    del batcher
+    return {"captures": captures, "captured_tok_s": cap_tok / cap_wall,
+            "ragged": {k: v["tok_s"] for k, v in ragged.items()},
+            "interleaved": inter}
 
+
+def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
+                 counts, expect, extra: dict, run: dict) -> dict:
+    """The rest of phase 3 for ``arch``: the batcher's streams (``reqs``)
+    against ``legacy_generate``'s, the kernel route's prefill logits
+    against the plain route's (and a wrong variant outside the limit), the
+    ring check where the arch has local layers, and where a prefill's and
+    a decode step's time goes at batch 1.  Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models.lm import decode_step, prefill
+
+    dev = torch.device("cuda")
     # the uniform loop on each equal-length pair, repeated to the
     # batcher's 4 slots so that both decode at one batch width
     for i in range(0, len(prompts), 2):
@@ -878,10 +972,16 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     if not err <= LOGIT_TOL[arch]:
         raise AssertionError(f"{arch}: prefill logits outside the limit")
     if expect["flash_attention"]:
-        what = "attention without its causal mask"
+        # the local layers without their window where the prompt is
+        # longer than it; else (qwen3-8b; recurrentgemma-9b, whose window
+        # of 2048 is causal at 2048 tokens) without the causal mask
+        drop = ({"window": None} if "L" in kinds
+                and cfg.window < tokens.shape[1] else {"causal": False})
+        what = ("the local layers without their window" if "window" in drop
+                else "attention without its causal mask")
         real = model_attention.flash_attention_fn
         model_attention.flash_attention_fn = \
-            lambda *a, **kw: real(*a, **{**kw, "causal": False})
+            lambda *a, **kw: real(*a, **{**kw, **drop})
         try:
             wrong = logits()
         finally:
@@ -907,6 +1007,7 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     if not werr > LOGIT_TOL[arch]:
         raise AssertionError(f"{arch}: the logits limit does not see "
                              f"{what}")
+    ring = ring_check(arch, card, cfg, params) if "L" in kinds else None
     # where the time goes: one prefill and one decode step (batch 1),
     # host clock around each, then the device's kernels under the profiler
     _, caches = run_prefill()
@@ -934,12 +1035,196 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
         for name, (us, count) in top:
             log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
-    return {"counts": counts, "expect": expect, "wall": wall,
-            "tok_s": toks / wall, "warm_tok_s": warm_tok / warm_wall,
-            "step_ms": step_ms, "prefill_ms": prefill_ms,
-            "captures": captures, "captured_tok_s": cap_tok / cap_wall,
-            "ragged": {k: v["tok_s"] for k, v in ragged.items()},
-            "interleaved": inter, "logit_err": err, "busy": busy}
+    return {**run, **extra, "counts": counts, "expect": expect,
+            "logit_err": err, "wrong_err": werr, "ring": ring, "busy": busy}
+
+
+def batch_one(arch: str, card: str, cfg, params, prompt,
+              zero_counts) -> dict:
+    """One request of ``prompt`` through a one-slot ``Batcher`` at the
+    defaults (its decode captured): tokens/s, decode ms per step and its
+    bound (the weights read once a step at the memory rate)."""
+    import torch
+
+    from repro_torch.runtime.batcher import Batcher
+
+    b = Batcher(cfg, params, batch=1, max_seq=LM_MAX_SEQ, log=log)
+    req = b.submit(prompt, max_new_tokens=LM_GEN)
+    b.run()                       # the capture, then a second run timed
+    req = b.submit(prompt, max_new_tokens=LM_GEN)
+    toks, wall, step_ms = served(b, [req], zero_counts)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    bound_ms = weights / HBM_BYTES_PER_S * 1e3
+    log(f"batch 1 {arch}: one {len(prompt)}-token request, {toks} tokens "
+        f"in {wall:.3f} s = {toks / wall:.1f} tokens/s; decode "
+        f"{step_ms:.3f} ms per step (captured), bound {bound_ms:.3f} ms "
+        f"({weights} bytes of weights at 3.35 TB/s) ({card})")
+    del b, req
+    return {"tok_s": toks / wall, "step_ms": step_ms, "bound_ms": bound_ms}
+
+
+def ring_check(arch: str, card: str, cfg, params) -> dict:
+    """The ring after it wraps: a prompt of ``RING_PROMPT[arch]`` tokens
+    prefilled (longer than the window: each local layer's ring of
+    ``min(window, max_seq)`` slots holds its last positions wrapped),
+    then ``RING_DECODE`` tokens teacher-forced through the decode caches;
+    the last step's logits against the last-position logits of one
+    prefill over all the tokens, within ``RING_TOL``, and the decode with
+    each slot's position taken as its index (no wrap) outside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import decode_step, prefill
+
+    dev = torch.device("cuda")
+    prompt = RING_PROMPT[arch]
+    n = prompt + RING_DECODE
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+
+    def decoded():
+        _, caches = prefill(params, {"tokens": toks[:, :prompt]}, cfg,
+                            max_seq=n)
+        for t in range(prompt, n):
+            logits, caches = decode_step(params, caches, toks[:, t], cfg)
+        return logits.float()
+
+    want = prefill(params, {"tokens": toks}, cfg, max_seq=n)[0].float()
+    got = decoded()
+    err = float((got - want).abs().max())
+    real = blocks._ring_kpos
+    blocks._ring_kpos = lambda pos, W: torch.arange(
+        W, dtype=torch.int32, device=pos.device).expand(*pos.shape, W)
+    try:
+        wrong = decoded()
+    finally:
+        blocks._ring_kpos = real
+    werr = float((wrong - want).abs().max())
+    log(f"{arch} ring check ({prompt} tokens prefilled, "
+        f"{RING_DECODE} decoded through the ring of "
+        f"{min(cfg.window, n)} slots): last logits against one prefill of "
+        f"{n} tokens max |difference| {err:.4e} (limit {RING_TOL[arch]:g}, "
+        f"max |x| {float(want.abs().max()):.3f}); argmax equal: "
+        f"{int(got.argmax()) == int(want.argmax())}; wrong variant (each "
+        f"slot's position its index, no wrap) {werr:.4e} ({card})")
+    if not (torch.isfinite(got).all() and err <= RING_TOL[arch]):
+        raise AssertionError(f"{arch}: the ring check is outside its limit")
+    if not werr > RING_TOL[arch]:
+        raise AssertionError(f"{arch}: the ring limit does not see a ring "
+                             f"that does not wrap")
+    return {"err": err, "wrong_err": werr}
+
+
+def local_attention_parity() -> float:
+    """K6 at head dim 256 (``ATTN_SHAPES_256``, gemma3-12b's and
+    recurrentgemma-9b's prefills) against ``mha_ref`` on the same inputs,
+    float32 and bfloat16, within ``LM_KERNEL_TOL``; at gemma3-12b's local
+    shape the kernel run without its window must fall outside the limit.
+    Returns the largest float32 difference."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import mha_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    worst = 0.0
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        lim = LM_KERNEL_TOL["flash_attention"][dname]
+        for what, ((B, Hq, Hkv, S, D), window) in ATTN_SHAPES_256.items():
+            q, k, v = (torch.randn(B, h, S, D, generator=gen,
+                                   device=dev).to(dt)
+                       for h in (Hq, Hkv, Hkv))
+            want = mha_ref(q, k, v, window=window)
+            e = max_err(flash_attention_cuda(q, k, v, window=window), want,
+                        lim[0], f"flash_attention {dname} {what} "
+                                f"{(B, Hq, Hkv, S, D)} window {window}",
+                        rtol=lim[1])
+            if dname == "float32":
+                worst = max(worst, e)
+            if window is not None and window < S:
+                err, bad = outside(flash_attention_cuda(q, k, v), want,
+                                   *lim)
+                log(f"flash_attention {dname} {what} wrong variant (the "
+                    f"kernel without its window): max_abs_err={err:.3e}, "
+                    f"{bad} values outside the limit")
+                if not bad:
+                    raise AssertionError(f"flash_attention {what}: the limit "
+                                         f"does not see a dropped window")
+            del q, k, v, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def sdpa_ms(q, k, v, window) -> tuple[float, str]:
+    """``scaled_dot_product_attention`` on K6's inputs (causal, or a band
+    mask of ``window`` keys): its time by ``time_ms`` under the first
+    backend, in PyTorch's order of preference, that takes the call, and
+    that backend's name."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S = q.shape[2]
+    if window is None:
+        kw = {"is_causal": True}
+    else:
+        i = torch.arange(S, device=q.device)
+        d = i[:, None] - i[None, :]
+        kw = {"attn_mask": (d >= 0) & (d < window)}
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **kw)
+
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that refuses the call says why in a warning
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                call()
+                torch.cuda.synchronize()
+                return time_ms(call), backend.name
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes the call")
+
+
+def local_attention_times(card: str) -> dict:
+    """K6 in bfloat16 at head dim 256 (``ATTN_SHAPES_256``): the kernel,
+    its plain version and SDPA by ``time_ms``, beside the bound (the
+    visible pairs' operations at 989 TFLOP/s, or the bytes)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import mha_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {}
+    for what, ((B, Hq, Hkv, S, D), window) in ATTN_SHAPES_256.items():
+        q, k, v = (torch.randn(B, h, S, D, generator=gen,
+                               device=dev).bfloat16()
+                   for h in (Hq, Hkv, Hkv))
+        nbytes, ops = attn_work(B, Hq, Hkv, S, S, D, 2, window=window)
+        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, window=window))
+        plain = time_ms(lambda: mha_ref(q, k, v, window=window), iters=10)
+        lib, backend = sdpa_ms(q, k, v, window)
+        out[what] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "library_ms": lib, "backend": backend}
+        log(f"time flash_attention bfloat16 {what} {(B, Hq, Hkv, S, D)} "
+            f"window {window}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {nbytes} bytes, {ops} ops), plain {plain:.4f} ms, "
+            f"SDPA {lib:.4f} ms ({backend}) ({card})")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def captured_prefills():
@@ -3160,6 +3445,9 @@ def main() -> int:
                                      f"two")
         del x, dts, A, Bm, C, got, want, y_128, s_128, half
         torch.cuda.empty_cache()
+    # K6 at head dim 256: gemma3-12b's and recurrentgemma-9b's prefills
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  local_attention_parity())
 
     # -- 3. the main path through Graph/Executor on the GPU ------------------
     wall = {}
@@ -3422,9 +3710,10 @@ def main() -> int:
                                      f"expected {expect[path].get(k, 0)}")
             launches[k] += n
 
-    # LM serving: qwen3-8b through K6, mamba2-130m through K7
+    # LM serving: qwen3-8b through K6, mamba2-130m through K7, gemma3-12b
+    # and recurrentgemma-9b through K6 at head dim 256 with a window
     lm_runs = {}
-    for arch in ("qwen3-8b", "mamba2-130m"):
+    for arch in ("qwen3-8b", "mamba2-130m") + LM_LOCAL_ARCHS:
         run = serve_lm(arch, card, zero_counts,
                        lambda: {k: w.launches for k, w in wrappers.items()})
         lm_runs[arch] = run
@@ -3607,6 +3896,7 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
                 f"({card})")
         del q, k, v
+    local_attention_times(card)
     x, dts, A, Bm, C = ssd_inputs(torch.bfloat16)
     nbytes, ops = ssd_work(*SSD_SHAPE, x.element_size())
     chunk = SSD_SHAPE[-1]
@@ -3658,6 +3948,21 @@ def main() -> int:
         f"{f32_ms:.4f} ms ({card})")
     del x, dts, A, Bm, C
     for arch, run in lm_runs.items():
+        if arch in LM_LOCAL_ARCHS:
+            b1 = run["batch1"]
+            pre = run["busy"]["prefill"]
+            log(f"serve {arch} at the defaults: {run['tok_s']:.1f} tokens/s "
+                f"with the decode capture, {run['warm_tok_s']:.1f} without; "
+                f"decode {run['step_ms']:.3f} ms per step (4 slots); eager "
+                f"prefill ms per request "
+                f"{[round(ms, 3) for _, ms in run['prefill_ms']]}; batch 1: "
+                f"{b1['tok_s']:.1f} tokens/s, decode {b1['step_ms']:.3f} ms "
+                f"per step (bound {b1['bound_ms']:.3f}), prefill "
+                f"{pre[0]:.3f} ms ({100 * pre[1] / pre[0]:.1f} % busy); "
+                f"prefill logits {run['logit_err']:.4e} (wrong variant "
+                f"{run['wrong_err']:.4e}); ring {run['ring']['err']:.4e} "
+                f"(no wrap {run['ring']['wrong_err']:.4e}) ({card})")
+            continue
         caps = {n: [round(c["first_ms"], 1), round(c["peak_gib"], 3),
                     round(c["kept_gib"], 3)]
                 for n, c in run["captures"].items()}

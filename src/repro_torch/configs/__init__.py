@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``get(name)`` -> the published
 ModelConfig, ``get_smoke(name)`` -> the reduced same-family config of the
-CPU tests.  The port serves qwen3-8b (dense attention, K6) and mamba2-130m
-(Mamba-2 SSD, K7); every other arch of the JAX package raises ``KeyError``
-naming the ROADMAP queue that brings it."""
+CPU tests.  The port serves qwen3-8b (dense attention, K6), mamba2-130m
+(Mamba-2 SSD, K7), gemma3-12b (local and global attention, K6) and
+recurrentgemma-9b (RG-LRU and local attention, K6); every other arch of
+the JAX package raises ``KeyError`` naming the ROADMAP queue that brings
+it."""
 
 from __future__ import annotations
 
@@ -10,17 +12,17 @@ import importlib
 
 from ..models.config import ModelConfig, ShapeCfg
 
-ARCH_IDS = ("qwen3_8b", "mamba2_130m")
+ARCH_IDS = ("qwen3_8b", "mamba2_130m", "gemma3_12b", "recurrentgemma_9b")
 
-ALIASES = {"qwen3-8b": "qwen3_8b", "mamba2-130m": "mamba2_130m"}
+ALIASES = {"qwen3-8b": "qwen3_8b", "mamba2-130m": "mamba2_130m",
+           "gemma3-12b": "gemma3_12b",
+           "recurrentgemma-9b": "recurrentgemma_9b"}
 
 #: archs of the JAX package that the port does not serve yet -> the
 #: ROADMAP queue that brings them
 LATER = {
-    "gemma3_12b": "ROADMAP queue 5 (gemma3 local layers and ring cache)",
     "phi3_5_moe": "ROADMAP queue 5 (MoE)",
     "arctic_480b": "ROADMAP queue 5 (MoE)",
-    "recurrentgemma_9b": "ROADMAP queue 5 (RG-LRU)",
     "seamless_m4t_medium": "ROADMAP queue 5 (encoder-decoder and VLM "
                            "serving)",
     "llava_next_mistral_7b": "ROADMAP queue 5 (encoder-decoder and VLM "

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --smoke [--device cpu]
 
+``--arch`` takes qwen3-8b, mamba2-130m, gemma3-12b and recurrentgemma-9b.
+
 Prefill and batched greedy decode are Ripple graphs (``launch/steps.py``)
 run by the port's ``Executor``; the KV cache is a layout-polymorphic
 record state tensor; :class:`~repro_torch.runtime.batcher.Batcher` admits
 requests into the decode executor's batch slots.  On the GPU (the default)
-prefill attention runs on the K6 kernel and the Mamba-2 SSD on K7.
+prefill attention, local or global, runs on the K6 kernel and the
+Mamba-2 SSD on K7.
 
 The batcher's decode executor takes the executor's defaults
 (``regions=True, donate=True``): the decode step is captured once and
@@ -93,7 +96,7 @@ def _stack_caches(parts: list, cfg) -> dict:
     kv_axis = 1 if cfg.kv_layout is Layout.SOA else 0
 
     def cat(xs):
-        if isinstance(xs[0], tuple):    # Mamba (ssd_state, conv_state)
+        if isinstance(xs[0], tuple):    # a Mamba or RG-LRU layer's pair
             return tuple(torch.cat(list(z)) for z in zip(*xs))
         return torch.cat(xs, dim=kv_axis)
 

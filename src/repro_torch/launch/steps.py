@@ -20,8 +20,10 @@ here a graph rebuilt over the same ``params`` has the same plan signature
 under ``regions=True`` a re-built worker's decode executor fetches its
 captured graph without memoising.  Under ``regions=True`` the decode
 nodes take ``out=``: each attention layer writes its token's k/v into its
-cache's static buffer in place, each Mamba layer its SSD state, and the
-head the tokens and positions, so no cache is copied per step.
+cache's static buffer in place (a local layer into slot ``pos % W`` of
+its ring), each Mamba layer its SSD state, each RG-LRU layer its
+recurrent state, and the head the tokens and positions, so no cache is
+copied per step.
 The sharded specs of the dry run are not ported (ROADMAP "Not ported").
 """
 
@@ -133,8 +135,9 @@ class CacheSlot:
     ``group``/``part`` address the layer in the cache structure of
     ``models/lm.py`` (``caches["groups"][group]["p{part}"]``; ``group ==
     -1`` is the tail layer ``caches["tail"][part]``).  ``tensors`` is one
-    record DistTensor for an attention layer and two plain DistTensors
-    (SSM state, conv buffer) for a Mamba layer."""
+    record DistTensor for an attention layer ("A", "L") and two plain
+    DistTensors for a state-space layer ("M": SSM state and conv buffer;
+    "R": RG-LRU state and conv buffer)."""
 
     label: str
     kind: str
@@ -146,10 +149,11 @@ class CacheSlot:
 def _slot_tensors(cfg: ModelConfig, label: str, kind: str, batch: int,
                   max_seq: int) -> tuple:
     dt = cfg.compute_torch_dtype
-    if kind == "A":
+    if kind in ("A", "L"):
+        S = min(cfg.window, max_seq) if kind == "L" else max_seq
         Hkv = cfg.padded_kv_heads()
-        space = ((batch, max_seq, Hkv) if cfg.kv_order == "bsh"
-                 else (batch, Hkv, max_seq))
+        space = ((batch, S, Hkv) if cfg.kv_order == "bsh"
+                 else (batch, Hkv, S))
         return (DistTensor(f"kv_{label}", space, dtype=dt,
                            spec=kvc.kv_spec(cfg.head_dim),
                            layout=cfg.kv_layout),)
@@ -160,7 +164,11 @@ def _slot_tensors(cfg: ModelConfig, label: str, kind: str, batch: int,
                            dtype=torch.float32),
                 DistTensor(f"cv_{label}", (batch, K - 1, H * P_ + 2 * N),
                            dtype=dt))
-    raise NotImplementedError(f"layer kind {kind!r} is ROADMAP queue 5")
+    if kind == "R":
+        R, K = cfg.lru_width, cfg.d_conv
+        return (DistTensor(f"rg_{label}", (batch, R), dtype=torch.float32),
+                DistTensor(f"cv_{label}", (batch, K - 1, R), dtype=dt))
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def serving_cache_slots(cfg: ModelConfig, batch: int,
@@ -231,7 +239,8 @@ def _attn_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
 def _state_layer_node(cfg: ModelConfig, params, slot: CacheSlot):
     gi, pi, kind = slot.group, slot.part, slot.kind
 
-    @in_place   # the SSD state is read, then written, element by element
+    @in_place   # the SSD / RG-LRU state is read, then written, element by
+    # element
     def layer(h_t, s0, s1, pos, out=None):
         _, s0_out, _ = _outs(out, 3)
         h2, (n0, n1) = layer_decode(_slot_params(params, gi, pi), h_t, kind,
@@ -292,7 +301,7 @@ def cache_state_overrides(cfg: ModelConfig, slots: tuple, caches) -> dict:
     out = {}
     for slot in slots:
         entry = _slot_entry(caches, slot)
-        if slot.kind == "A":
+        if slot.kind in ("A", "L"):
             out[slot.tensors[0].name] = RecordArray(
                 entry, kvc.kv_spec(cfg.head_dim), cfg.kv_layout)
         else:
@@ -315,7 +324,7 @@ def make_decode_graph(cfg: ModelConfig, params, *, batch: int,
     g = Graph(name=f"decode_{cfg.name}")
     g.then(_embed_node(cfg, params), args=(tokens, h), writes=(1,))
     for slot in slots:
-        if slot.kind == "A":
+        if slot.kind in ("A", "L"):
             kv, = slot.tensors
             g.then(_attn_layer_node(cfg, params, slot), args=(h, kv, pos),
                    writes=(0, 1))
@@ -352,7 +361,7 @@ def make_prefill_graph(cfg: ModelConfig, params, *, prompt_len: int,
             store = _prefill_to_decode_cache(
                 _slot_entry(raw, slot), slot.kind, cfg, 1, max_seq, dt,
                 h_.device)
-            if slot.kind == "A":
+            if slot.kind in ("A", "L"):
                 outs.append(RecordArray(store, kvc.kv_spec(cfg.head_dim),
                                         cfg.kv_layout))
             else:

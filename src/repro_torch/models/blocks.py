@@ -1,6 +1,8 @@
 """Layer blocks: attention, the dense FFN, and the uniform layer wrapper
-that puts mixer and FFN between pre-norms, for layer kinds "A" (global
-attention) and "M" (Mamba2), as ``repro.models.blocks`` does.
+that puts mixer and FFN between pre-norms (and post-norms, under
+``sandwich_norm``), for layer kinds "A" (global attention), "L" (local,
+sliding-window attention over a ring cache), "M" (Mamba2) and "R"
+(RG-LRU), as ``repro.models.blocks`` does.
 
 Every block has three entry points:
   init_*       parameters, as children of an ``nn.Module`` tree
@@ -8,10 +10,15 @@ Every block has three entry points:
   *_decode     one token against the cache
 
 The JAX package's ``ShardCtx`` has no counterpart: the port runs one
-device.  Kinds "L" (sliding-window attention and its ring cache) and "R"
-(RG-LRU), MoE FFNs and cross-attention raise ``NotImplementedError``
+device.  MoE FFNs and cross-attention raise ``NotImplementedError``
 naming their ROADMAP queue.  Prefill positions are always ``0 .. S-1``:
 the port prefills a sequence from its first token.
+
+A local layer's cache is a ring of ``W = min(window, max_seq)`` slots:
+the token at position ``t`` lives in slot ``t % W`` (every mod here is a
+floor mod), and a decode step masks each slot by the position it holds
+(``_ring_kpos``).  Positions stay device tensors throughout, so a
+captured decode graph replays at every position.
 """
 
 from __future__ import annotations
@@ -22,28 +29,27 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..core.layout import Layout
 from . import kvcache as kvc
 from .attention import attention, decode_attention
 from .common import (Init, ParamModule, apply_rope, layer_norm, rms_norm,
                      rope_cos_sin)
 from .config import ModelConfig
-from .ssm import init_mamba2, mamba2_decode, mamba2_forward
+from .ssm import (init_mamba2, init_rglru, mamba2_decode, mamba2_forward,
+                  rglru_decode, rglru_forward)
 
 __all__ = ["norm_apply", "init_norm", "init_attention", "attention_forward",
            "make_attn_cache", "fill_attn_cache", "attention_decode",
            "init_ffn", "ffn_forward", "init_layer", "layer_forward",
            "layer_decode", "make_layer_cache"]
 
-_QUEUE = "ROADMAP queue 5"
-_LATER = {"L": f"local (sliding-window) attention layers are {_QUEUE} "
-               f"(gemma3 local layers and ring cache)",
-          "R": f"RG-LRU layers are {_QUEUE} (RG-LRU)"}
+#: the position of a ring slot no token was written to (masked by the
+#: cache length)
+BIG_POS = 1 << 30
 
 
-def _refuse_kind(kind: str) -> None:
-    if kind in _LATER:
-        raise NotImplementedError(f"layer kind {kind!r}: {_LATER[kind]}")
-    if kind not in ("A", "M"):
+def _check_kind(kind: str) -> None:
+    if kind not in ("A", "L", "M", "R"):
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -115,15 +121,16 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def attention_forward(p, h, cfg: ModelConfig, *, causal: bool = True,
+                      window: Optional[int] = None,
                       want_cache: bool = False, use_kernel: bool = True):
     """Full-sequence attention sub-block (the layer wrapper owns residual
-    and norm).  On the GPU the attention itself is the K6 kernel unless
-    ``use_kernel=False``."""
+    and norm); ``window`` makes it local.  On the GPU the attention itself
+    is the K6 kernel unless ``use_kernel=False``."""
     B, S, d = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     q, k, v = _project_qkv(p, h, cfg, rope=_rope_tables(cfg, positions))
     out = attention(q, k, v, qpos=positions, kpos=positions, causal=causal,
-                    impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
+                    window=window, impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
                     k_chunk=cfg.k_chunk, use_kernel=use_kernel)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     if want_cache:
@@ -131,28 +138,65 @@ def attention_forward(p, h, cfg: ModelConfig, *, causal: bool = True,
     return o
 
 
-def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-                    device=None):
-    """An empty cache for one global-attention layer (the ring cache of
-    sliding-window layers is ROADMAP queue 5)."""
-    return kvc.kv_make(batch, max_seq, cfg.padded_kv_heads(), cfg.head_dim,
+def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                    window: Optional[int], dtype, device=None):
+    """An empty cache for one attention layer: ``max_seq`` positions, or
+    a ring of ``min(window, max_seq)`` slots for a local layer."""
+    S = min(window, max_seq) if window else max_seq
+    return kvc.kv_make(batch, S, cfg.padded_kv_heads(), cfg.head_dim,
                        dtype, cfg.kv_layout, cfg.kv_order, device)
 
 
-def fill_attn_cache(storage, k, v, cfg: ModelConfig, *, out=None):
+def fill_attn_cache(storage, k, v, cfg: ModelConfig, window: Optional[int],
+                    *, out=None):
     """Write prefill k/v (B, S, Kv, hd) into a fresh cache (into ``out``
-    when given: ``storage`` itself to fill it in place)."""
+    when given: ``storage`` itself to fill it in place).  A local layer's
+    ring of W slots gets the last W positions, position t in slot t % W,
+    or a prompt shorter than W and zeros after it."""
+    S = k.shape[1]
+    if window:
+        W = _cache_seq_len(storage, cfg)
+        if S >= W:
+            i = torch.arange(W, device=k.device)
+            slot_pos = S - W + torch.remainder(i - S, W)
+            k, v = k[:, slot_pos], v[:, slot_pos]
+        else:
+            pad = [0, 0, 0, 0, 0, W - S]
+            k, v = F.pad(k, pad), F.pad(v, pad)
     return kvc.kv_write_prefill(storage, k, v, cfg.kv_layout, cfg.kv_order,
                                 out=out)
 
 
+def _cache_seq_len(storage, cfg: ModelConfig) -> int:
+    """The sequence length (slots) of KV storage in the config's layout
+    and order."""
+    if cfg.kv_layout is Layout.AOSOA:
+        if cfg.kv_order == "bsh":      # (B, S, Hkv//t, C, t)
+            return storage.shape[1]
+        return storage.shape[2] * storage.shape[4]  # (B, Hkv, S//t, C, t)
+    i = 1 if cfg.kv_order == "bsh" else 2
+    if cfg.kv_layout is not Layout.AOS:
+        i += 1
+    return storage.shape[i]
+
+
+def _ring_kpos(pos: torch.Tensor, W: int) -> torch.Tensor:
+    """The position each of the W ring slots holds once ``pos`` is
+    written; a slot never written holds ``BIG_POS`` (masked by the cache
+    length).  ``pos`` scalar -> (W,); a per-slot (B,) vector -> (B, W)."""
+    i = torch.arange(W, dtype=torch.int32, device=pos.device)
+    p = pos[..., None] - torch.remainder(pos[..., None] - i, W)
+    return torch.where(p >= 0, p, BIG_POS)
+
+
 def attention_decode(p, h_t, cache, pos, cfg: ModelConfig, *,
-                     cache_out=None):
-    """One-token global attention.  h_t (B, d); cache = KV storage; pos =
-    the incoming token's position: a scalar (uniform batch) or a (B,)
-    vector of per-slot positions (continuous batching).  Returns (out,
-    cache); the token's k/v are written into ``cache_out`` when given
-    (``cache`` itself: in place), else into a new cache."""
+                     window: Optional[int] = None, cache_out=None):
+    """One-token attention.  h_t (B, d); cache = KV storage (a ring of W
+    slots when ``window`` is given: the token goes to slot ``pos % W``);
+    pos = the incoming token's position: a scalar (uniform batch) or a
+    (B,) vector of per-slot positions (continuous batching).  Returns
+    (out, cache); the token's k/v are written into ``cache_out`` when
+    given (``cache`` itself: in place), else into a new cache."""
     B, d = h_t.shape
     cdt = h_t.dtype
     pos = torch.as_tensor(pos, dtype=torch.int32, device=h_t.device)
@@ -175,12 +219,21 @@ def attention_decode(p, h_t, cache, pos, cfg: ModelConfig, *,
         cos, sin = cos[None], sin[None]
     q = apply_rope(q[:, None], cos, sin, mode=cfg.rope_mode)[:, 0]
     k_t = apply_rope(k_t[:, None], cos, sin, mode=cfg.rope_mode)[:, 0]
-    cache = kvc.kv_write_token(cache, k_t, v_t, pos, cfg.kv_layout,
+    kpos = None
+    slot = pos
+    if window:
+        W = _cache_seq_len(cache, cfg)
+        slot = torch.remainder(pos, W)
+        kpos = _ring_kpos(pos, W)
+        if not ragged:
+            kpos = kpos[None].expand(B, W)
+    cache = kvc.kv_write_token(cache, k_t, v_t, slot, cfg.kv_layout,
                                cfg.kv_order, out=cache_out)
     cache_len = (pos + 1).expand(B) if not ragged else pos + 1
     k, v = kvc.kv_read(cache, cfg.head_dim, cfg.kv_layout, cfg.kv_order)
     fmt = "bshd" if cfg.kv_order == "bsh" else "bhsd"
-    out = decode_attention(q, k, v, cache_len, kv_format=fmt)
+    out = decode_attention(q, k, v, cache_len, kpos=kpos, window=window,
+                           kv_format=fmt)
     o = torch.einsum("bhk,hkd->bd", out, p["wo"].to(out.dtype))
     return o, cache
 
@@ -193,7 +246,7 @@ def init_ffn(init: Init, parent: ParamModule, cfg: ModelConfig,
              name: str = "ffn") -> None:
     """The dense FFN as child ``name`` of ``parent``."""
     if cfg.n_experts:
-        raise NotImplementedError(f"MoE FFNs are {_QUEUE} (MoE)")
+        raise NotImplementedError("MoE FFNs are ROADMAP queue 5 (MoE)")
     d, f = cfg.d_model, cfg.d_ff
     p = ParamModule()
     if cfg.mlp_kind in ("swiglu", "geglu"):
@@ -232,74 +285,110 @@ def ffn_forward(p, x, cfg: ModelConfig):
 def init_layer(init: Init, parent: ParamModule, cfg: ModelConfig, kind: str,
                *, name: str = "layer") -> None:
     """One decoder layer of ``kind`` as child ``name`` of ``parent``."""
-    _refuse_kind(kind)
-    if cfg.sandwich_norm:
-        raise NotImplementedError(f"sandwich norms (gemma3) are {_QUEUE} "
-                                  f"(gemma3 local layers and ring cache)")
+    _check_kind(kind)
     p = ParamModule()
     init_norm(init, p, cfg, "ln_mix", cfg.d_model)
-    if kind == "A":
+    if kind in ("A", "L"):
         init_attention(init, p, cfg, name="attn")
-    else:
+    elif kind == "M":
         init_mamba2(init, p, d_model=cfg.d_model, d_state=cfg.ssm_state,
                     n_heads=cfg.padded_ssm_heads(),
                     head_dim=cfg.ssm_head_dim, d_conv=cfg.d_conv,
                     name="mamba")
+    else:
+        init_rglru(init, p, d_model=cfg.d_model, lru_width=cfg.lru_width,
+                   n_blocks=cfg.rnn_blocks, d_conv=cfg.d_conv, name="rglru")
+    if cfg.sandwich_norm:
+        init_norm(init, p, cfg, "ln_mix_post", cfg.d_model)
     if cfg.d_ff:
         init_norm(init, p, cfg, "ln_ffn", cfg.d_model)
         init_ffn(init, p, cfg, name="ffn")
+        if cfg.sandwich_norm:
+            init_norm(init, p, cfg, "ln_ffn_post", cfg.d_model)
     parent.add_module(name, p)
+
+
+def _local(kind: str, cfg: ModelConfig):
+    """(the window, the config) a layer of ``kind`` runs under: a local
+    layer attends over ``cfg.window`` with ``rope_base_local`` where the
+    config gives one."""
+    if kind != "L":
+        return None, cfg
+    if cfg.rope_base_local is not None:
+        cfg = cfg.with_(rope_base=cfg.rope_base_local)
+    return cfg.window, cfg
+
+
+def _ffn_residual(p, h, cfg: ModelConfig):
+    if not cfg.d_ff:
+        return h
+    out = ffn_forward(p["ffn"], norm_apply(p, h, cfg, "ln_ffn"), cfg)
+    if cfg.sandwich_norm:
+        out = norm_apply(p, out, cfg, "ln_ffn_post")
+    return h + out
 
 
 def layer_forward(p, h, kind: str, cfg: ModelConfig, *,
                   want_cache: bool = False, use_kernel: bool = True):
     """Full-sequence layer; returns (h, cache_entry | None)."""
-    _refuse_kind(kind)
+    _check_kind(kind)
+    window, cfg = _local(kind, cfg)
     x = norm_apply(p, h, cfg, "ln_mix")
     cache = None
-    if kind == "A":
+    if kind in ("A", "L"):
         out = attention_forward(p["attn"], x, cfg, causal=True,
-                                want_cache=want_cache, use_kernel=use_kernel)
+                                window=window, want_cache=want_cache,
+                                use_kernel=use_kernel)
         if want_cache:
             out, cache = out
-    else:
-        out, state = mamba2_forward(p["mamba"], x, chunk=cfg.ssd_chunk,
+    elif kind == "M":
+        out, cache = mamba2_forward(p["mamba"], x, chunk=cfg.ssd_chunk,
                                     use_kernel=use_kernel)
-        cache = state if want_cache else None
-    h = h + out
-    if cfg.d_ff:
-        h = h + ffn_forward(p["ffn"], norm_apply(p, h, cfg, "ln_ffn"), cfg)
-    return h, cache
+    else:
+        out, cache = rglru_forward(p["rglru"], x)
+    if cfg.sandwich_norm:
+        out = norm_apply(p, out, cfg, "ln_mix_post")
+    return _ffn_residual(p, h + out, cfg), cache if want_cache else None
 
 
 def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
                  cache_out=None):
     """One-token layer step; returns (h_t, new_cache).  ``cache_out`` is
-    where the new cache goes (the KV storage, or a Mamba layer's pair
-    with None where a new tensor is made), else a new one."""
-    _refuse_kind(kind)
+    where the new cache goes (the KV storage, or a Mamba or RG-LRU
+    layer's pair with None where a new tensor is made), else a new
+    one."""
+    _check_kind(kind)
+    window, cfg = _local(kind, cfg)
     x = norm_apply(p, h_t, cfg, "ln_mix")
-    if kind == "A":
+    if kind in ("A", "L"):
         out, cache = attention_decode(p["attn"], x, cache, pos, cfg,
-                                      cache_out=cache_out)
-    else:
+                                      window=window, cache_out=cache_out)
+    elif kind == "M":
         out, cache = mamba2_decode(p["mamba"], x, cache, out=cache_out)
-    h_t = h_t + out
-    if cfg.d_ff:
-        h_t = h_t + ffn_forward(p["ffn"], norm_apply(p, h_t, cfg, "ln_ffn"),
-                                cfg)
-    return h_t, cache
+    else:
+        out, cache = rglru_decode(p["rglru"], x, cache, out=cache_out)
+    if cfg.sandwich_norm:
+        out = norm_apply(p, out, cfg, "ln_mix_post")
+    return _ffn_residual(p, h_t + out, cfg), cache
 
 
 def make_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device=None):
-    """A fresh (empty) cache entry for one layer."""
-    _refuse_kind(kind)
-    if kind == "A":
-        return make_attn_cache(cfg, batch, max_seq, dtype, device)
-    H = cfg.padded_ssm_heads()
-    P_, N, K = cfg.ssm_head_dim, cfg.ssm_state, cfg.d_conv
+    """A fresh (empty) cache entry for one layer: KV storage (a ring of
+    ``min(window, max_seq)`` slots for "L"), or (float32 state, conv
+    window) for "M" and "R"."""
+    _check_kind(kind)
+    if kind in ("A", "L"):
+        window = cfg.window if kind == "L" else None
+        return make_attn_cache(cfg, batch, max_seq, window, dtype, device)
     dev = resolve_device(device)
+    K = cfg.d_conv
+    if kind == "R":
+        R = cfg.lru_width
+        return (torch.zeros((batch, R), dtype=torch.float32, device=dev),
+                torch.zeros((batch, K - 1, R), dtype=dtype, device=dev))
+    H = cfg.padded_ssm_heads()
+    P_, N = cfg.ssm_head_dim, cfg.ssm_state
     return (torch.zeros((batch, H, P_, N), dtype=torch.float32, device=dev),
             torch.zeros((batch, K - 1, H * P_ + 2 * N), dtype=dtype,
                         device=dev))

@@ -4,10 +4,9 @@ forward and serving for every arch the port runs.
 Layer kinds (``pattern``, cycled over the depth):
   "A" global causal attention      "L" local (sliding-window) attention
   "M" Mamba2 SSD                   "R" RG-LRU recurrent block
-The port serves kinds "A" and "M"; "L" and "R" raise in
-``models/blocks.py`` naming their ROADMAP queue.  Fields that only the
-JAX package's training and sharding read (remat, microbatches, optimizer,
-sharding modes) are kept so that a config converts field by field.
+The port serves all four.  Fields that only the JAX package's training
+and sharding read (remat, microbatches, optimizer, sharding modes) are
+kept so that a config converts field by field.
 """
 
 from __future__ import annotations

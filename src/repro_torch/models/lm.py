@@ -8,7 +8,9 @@ leading axis instead), ``tail{i}.layer``, ``final.ln`` and ``head``
 (absent with tied embeddings).  Caches mirror the JAX cache pytree with a
 list per group where JAX stacks: ``{"groups": [{"p0": entry, ...}, ...],
 "tail": [entry, ...], "pos": int tensor}``; an entry is KV storage for an
-attention layer and ``(ssd_state, conv_state)`` for a Mamba layer.
+attention layer (a ring of ``min(window, max_seq)`` slots for a local
+one), ``(ssd_state, conv_state)`` for a Mamba layer and ``(h,
+conv_state)`` for an RG-LRU layer.
 
 ``cfg.remat == "full"`` recomputes each layer group in the backward
 (``torch.utils.checkpoint``, one call per group), as the reference's
@@ -202,7 +204,8 @@ def forward_loss(params, batch, cfg: ModelConfig, *,
 
 def init_caches(params, cfg: ModelConfig, batch: int, max_seq: int,
                 device: Any = None):
-    """Empty decode caches (attention caches sized to ``max_seq``)."""
+    """Empty decode caches (attention caches sized to ``max_seq``, local
+    ones to their window)."""
     n_groups, pattern, tail = cfg.layer_groups()
     dt = cfg.compute_torch_dtype
     one = lambda kind: make_layer_cache(kind, cfg, batch, max_seq, dt, device)
@@ -216,11 +219,13 @@ def init_caches(params, cfg: ModelConfig, batch: int, max_seq: int,
 def _prefill_to_decode_cache(raw, kind, cfg: ModelConfig, batch, max_seq,
                              dtype, device):
     """A layer_forward cache emission as decode-ready storage."""
-    if kind == "A":
+    if kind in ("A", "L"):
         k, v = raw
-        store = make_attn_cache(cfg, batch, max_seq, dtype, device)
-        return fill_attn_cache(store, k, v, cfg, out=store)   # fresh: no clone
-    return raw   # Mamba states are decode-ready
+        window = cfg.window if kind == "L" else None
+        store = make_attn_cache(cfg, batch, max_seq, window, dtype, device)
+        # fresh: filled in place, no clone
+        return fill_attn_cache(store, k, v, cfg, window, out=store)
+    return raw   # Mamba and RG-LRU states are decode-ready
 
 
 def prefill(params, batch, cfg: ModelConfig, *,

@@ -230,7 +230,7 @@ class Batcher:
         else:
             first = int(pst["first"][0])
         for cslot in pg.slots:
-            if cslot.kind == "A":
+            if cslot.kind in ("A", "L"):
                 name = cslot.tensors[0].name
                 src = pst[name]
                 src_lay = exp.plan.initial[name]

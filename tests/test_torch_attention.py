@@ -48,6 +48,10 @@ FLASH_CASES = {
     "window": (1, 2, 1, 64, 64, 16, True, 24, 0, False),
     "q_offset": (1, 2, 2, 32, 64, 16, True, None, 32, False),
     "fused_aos": (1, 4, 2, 64, 64, 16, True, None, 0, True),
+    # gemma3's and recurrentgemma's local layers: head dim 256, a window,
+    # GQA and MQA
+    "window_d256_gqa": (1, 4, 2, 64, 64, 256, True, 24, 0, False),
+    "window_d256_mqa": (1, 4, 1, 64, 64, 256, True, 40, 0, False),
 }
 
 

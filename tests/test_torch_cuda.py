@@ -305,6 +305,10 @@ ATTN_CASES = {
     "served_517": (1, 4, 1, 517, 517, 128, True, None, 0, False),
     "served_1000": (1, 4, 1, 1000, 1000, 128, True, None, 0, False),
     "q_offset_chunk": (1, 4, 1, 300, 1000, 128, True, None, 700, False),
+    # gemma3's and recurrentgemma's local layers: head dim 256 with a
+    # window, GQA (8 kv heads) and MQA (1)
+    "window_d256_gqa8": (1, 16, 8, 300, 300, 256, True, 100, 0, False),
+    "window_d256_mqa": (1, 16, 1, 300, 300, 256, True, 64, 0, False),
 }
 
 
@@ -1161,3 +1165,36 @@ def test_wrappers_refuse_an_input_that_requires_grad(dev):
         flash_attention_cuda(q.clone().requires_grad_(), q, q)
         ssd_intra_chunk_cuda(x, dt, A, Bm.clone().requires_grad_(), C,
                              chunk=64)
+
+
+def test_gemma3_captured_decode_with_a_wrapping_ring_is_the_eager_one(dev):
+    """gemma3-12b's smoke config with window 4 served by the ``Batcher``
+    on the card: prompts of 3-6 tokens and 6 new ones wrap every local
+    layer's ring.  The decode captured once (``regions=True, donate=True``)
+    gives the eager (``regions=False``) run's streams, and its final
+    decode state bit for bit."""
+    import repro_torch.configs as configs
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime.batcher import Batcher
+
+    cfg = configs.get_smoke("gemma3-12b").with_(window=4)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (3, 6, 5, 4)]
+
+    def serve(opts):
+        b = Batcher(cfg, params, batch=2, max_seq=16, executor_opts=opts,
+                    log=lambda *_: None)
+        reqs = [b.submit(p, max_new_tokens=6) for p in prompts]
+        b.run()
+        return [r.generated for r in reqs], b
+
+    eager, be = serve({"regions": False})
+    got, bc = serve({})
+    assert bc.executor.regions and bc.executor.donate
+    assert bc.cache_stats()["decode"]["trace_events"] == 1
+    assert got == eager
+    assert set(bc.state) == set(be.state)
+    for k in be.state:
+        assert torch.equal(bc.state[k], be.state[k]), k

@@ -1,12 +1,14 @@
-"""The paper's three examples on the port (``examples/*_torch.py``) run on
-the CPU at small sizes, with their own checks, and against the JAX
-package's examples.
+"""The paper's three examples and the serving demo on the port
+(``examples/*_torch.py``) run on the CPU at small sizes, with their own
+checks, and against the JAX package's examples.
 
 * ``quickstart_torch.py``: every section's printed values, and the
   README's port quickstart block equal to the file's snippet (as
   ``tests/test_docstrings.py`` holds the JAX one);
 * ``particles_torch.py``: the closed-form check inside ``run`` at 1024
   particles a species;
+* ``serve_lm_torch.py``: ragged requests served to their EOS or length
+  at gemma3-12b's and recurrentgemma-9b's smoke configs;
 * ``euler2d_torch.py``: N shards of the CPU (``--devices N``) against one
   shard, the final state within rtol 1e-5, atol 1e-6 and every printed
   row's smax equal (a sum over shards folds in another order, so the mass
@@ -91,6 +93,22 @@ def test_particles_closed_form_on_the_cpu():
     assert ex.cache_stats()["trace_events"] == 1
     assert ex.cache_stats()["moved_out"] == 0     # each run donated back
     assert np.isfinite(out["vmax"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "recurrentgemma-9b"])
+def test_serve_lm_serves_ragged_requests_on_the_cpu(arch):
+    """``serve_lm_torch.py``: 8 ragged requests through 4 slots at the
+    smoke config (window 16: 12-24-token prompts and 24 new tokens wrap
+    the ring), every request retired after its EOS or 24 tokens, the
+    decode captured once."""
+    reqs = _load("serve_lm_torch").main(["--arch", arch, "--device",
+                                         "cpu"])
+    assert len(reqs) == 8
+    for r in reqs:
+        assert r.status == "done" and 12 <= len(r.prompt) <= 24
+        assert 1 <= len(r.generated) <= 24
+        assert len(r.generated) == 24 or r.generated[-1] == 0
+        assert all(0 <= t < 256 for t in r.generated)
 
 
 EULER = ["--nx", "64", "--ny", "32", "--steps", "20", "--device", "cpu"]

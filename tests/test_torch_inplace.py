@@ -325,7 +325,7 @@ def _decode_stats(tc, tp, prompts, want_n, opts):
     return [r.generated for r in reqs], b
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-130m", "gemma3-12b"])
 def test_decode_writes_its_caches_in_place(arch):
     """The decode graph under ``regions=True, donate=True`` at the smoke
     config: the same streams as eagerly; the caches are the static
@@ -351,7 +351,7 @@ def test_decode_writes_its_caches_in_place(arch):
                     for t in s.tensors) for s in b.dg.slots)
     assert all(v.data_ptr() in bufs for v in caches.values())
     assert stats["copy_back_bytes"] < layer
-    if arch == "qwen3-8b":   # only the residual h goes through a copy
+    if arch != "mamba2-130m":   # only the residual h goes through a copy
         h = b.state["h"]
         assert stats["copy_back_bytes"] == h.numel() * h.element_size()
 

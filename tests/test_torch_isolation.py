@@ -62,14 +62,15 @@ print(len(sys.argv) - 1)
 
 def test_port_examples_import_neither_jax_nor_the_reference():
     examples = [os.path.join(REPO, "examples", f"{name}_torch.py")
-                for name in ("quickstart", "particles", "euler2d")]
+                for name in ("quickstart", "particles", "euler2d",
+                             "serve_lm")]
     path = os.pathsep.join(p for p in (os.path.join(REPO, "src"),
                                        os.environ.get("PYTHONPATH")) if p)
     out = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES,
                           *examples], env=_env(path), capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 3
+    assert int(out.stdout.strip()) == len(examples)
 
 
 def test_chip_smoke_without_a_gpu_fails_with_no_result():

@@ -1,8 +1,10 @@
 """The port's LM stack against the JAX package on the CPU, at the smoke
-configs (2 layers, d_model 64): configs, norms and RoPE, the KV cache in
+configs (2-6 layers, d_model 64): configs, norms and RoPE, the KV cache in
 every layout and order, weights carried across with
 ``params_from_reference``, then prefill logits and caches and 4 decode
-steps for qwen3-8b (attention) and mamba2-130m (Mamba-2).
+steps for qwen3-8b (attention), mamba2-130m (Mamba-2), gemma3-12b (local
+and global attention, sandwich norms; its 21-token prompt wraps the
+16-slot ring) and recurrentgemma-9b (RG-LRU and local attention).
 
 Tolerances: float32 1e-5 for layers and the cache (the cache bit for
 bit), 1e-4 for whole prefill / decode logits (two layers of sums in
@@ -31,7 +33,7 @@ from repro_torch.models import common as tcommon
 from repro_torch.models import kvcache as tkv
 from repro_torch.models import lm as tlm
 
-ARCHS = ["qwen3-8b", "mamba2-130m"]
+ARCHS = ["qwen3-8b", "mamba2-130m", "gemma3-12b", "recurrentgemma-9b"]
 
 
 def _np(x):
@@ -54,18 +56,26 @@ def test_configs_match_reference(arch, smoke):
     assert t.padded_vocab() == j.padded_vocab(1)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "phi3.5-moe",
-                                  "recurrentgemma-9b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe", "arctic-480b",
+                                  "seamless-m4t-medium",
+                                  "llava-next-mistral-7b", "qwen1.5-4b",
+                                  "chatglm3-6b"])
 def test_other_archs_name_their_roadmap_queue(arch):
     with pytest.raises(KeyError, match="ROADMAP queue 5"):
         tconfigs.get(arch)
 
 
-@pytest.mark.parametrize("kind", ["L", "R"])
-def test_other_layer_kinds_name_their_roadmap_queue(kind):
-    cfg = tconfigs.get_smoke("qwen3-8b")
+@pytest.mark.parametrize("what", ["moe", "cross"])
+def test_moe_ffn_and_cross_attention_name_their_roadmap_queue(what):
+    """An MoE FFN and an encoder-decoder's cross-attention are still
+    refused, naming queue 5; an unknown layer kind is a ValueError."""
+    base = tconfigs.get_smoke("gemma3-12b")
+    cfg = base.with_(n_experts=4) if what == "moe" else \
+        base.with_(enc_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
-        tblocks.layer_forward(None, torch.zeros(1, 2, 64), kind, cfg)
+        tlm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tblocks.layer_forward(None, torch.zeros(1, 2, 64), "X", base)
 
 
 def test_norms_and_rope_match_reference():
@@ -140,11 +150,13 @@ def test_params_from_reference_keeps_every_weight(model):
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert sum(int(np.prod(v.shape)) for _, v in flat) == \
         tcommon.count_params(tp)
-    g1 = tp["groups"][1]["p0"]
-    name = "attn" if "attn" in g1 else "mamba"
+    last = tc.layer_groups()[0] - 1
+    g = tp["groups"][last]["p0"]
+    name = next(n for n in ("attn", "mamba", "rglru") if n in g)
     for key in ("wo",):
         np.testing.assert_array_equal(
-            g1[name][key].numpy(), np.asarray(jp["groups"]["p0"][name][key][1]))
+            g[name][key].numpy(),
+            np.asarray(jp["groups"]["p0"][name][key][last]))
 
 
 def test_prefill_and_decode_match_reference(model):

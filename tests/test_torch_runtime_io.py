@@ -376,7 +376,8 @@ def test_serve_legacy_matches_the_reference_legacy_loop(capsys):
     assert "path=legacy" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-130m", "gemma3-12b",
+                                  "recurrentgemma-9b"])
 def test_serve_smoke_chaos_and_legacy_on_the_cpu(arch, capsys):
     flags = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "8",
              "--gen", "6", "--device", "cpu"]

@@ -4,8 +4,10 @@
     python3 tools/chip_phases.py [--repeat N] PHASE [PHASE ...]
 
 PHASE is ``out`` (K1-K5's ``out=`` against their fresh-output calls),
-``lm`` (phase 3's two served models at the defaults, with the serve
-launcher's smoke checks), ``regions`` (phase 3b's four graphs), ``serve``
+``lm`` (phase 3's qwen3-8b and mamba2-130m at the defaults, with the serve
+launcher's smoke checks), ``local`` (K6 at head dim 256 against its plain
+version and timed, then phase 3's gemma3-12b and recurrentgemma-9b with
+the ring check), ``regions`` (phase 3b's four graphs), ``serve``
 (phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
 3d), ``examples`` (phase 3e: tuning on a mesh and the examples) or
 ``train`` (phase 3f: training, the gradient gate, the supervisor).  Each
@@ -25,8 +27,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-PHASES = ("out", "lm", "regions", "serve", "async", "mesh", "examples",
-          "train")
+PHASES = ("out", "lm", "local", "regions", "serve", "async", "mesh",
+          "examples", "train")
 
 
 def main() -> int:
@@ -86,6 +88,10 @@ def main() -> int:
         "out": lambda: cs.out_checks(card, eik_mid(), eik["mask"]),
         "lm": lambda: [cs.serve_lm(arch, card, zero_counts, counts_now)
                        for arch in ("qwen3-8b", "mamba2-130m")],
+        "local": lambda: [cs.local_attention_parity(),
+                          cs.local_attention_times(card)] + [
+            cs.serve_lm(arch, card, zero_counts, counts_now)
+            for arch in cs.LM_LOCAL_ARCHS],
         "regions": lambda: cs.regions_phase(card, zero_counts, counts_now),
         "serve": lambda: [cs.serve_regions(arch, card, zero_counts,
                                            counts_now)
