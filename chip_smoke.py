@@ -87,6 +87,32 @@ result line):
    within ``RING_TOL`` of one prefill over all of them, and the decode
    with each ring slot's position taken as its index (no wrap) outside
    it;
+3g. the remaining dense archs, the encoder-decoder and the VLM (after the
+   local-layer models, in phase 3's serving loop): qwen1.5-4b (40 layers,
+   QKV bias, MHA 20/20) and chatglm3-6b (28 layers, GQA 32/2, half-dim
+   interleaved RoPE) at their published configs through the default
+   ``Batcher`` with gemma3-12b's requests and checks (K6 once per layer
+   per request: 320 and 224 launches; the decode captured once; a fresh
+   worker with no new capture and equal streams; streams equal
+   ``legacy_generate``'s; prefill logits within ``LOGIT_TOL``, attention
+   without its causal mask outside it; one request alone); then
+   seamless-m4t-medium (12 encoder layers over 4096 frames of 1024, 12
+   decoder layers with cross-attention, head dim 64) and
+   llava-next-mistral-7b (32 layers over 2048 patch positions and the
+   text) through the uniform loop (``legacy_generate``, where
+   ``launch/serve.py`` sends them): 4 rows of 512 tokens, 32 new each,
+   K6 once per attention layer per row (36 and 32: the encoder's and
+   the cross-attention's too), prefill logits within the limit (the
+   encoder run causal, or llava without its causal mask, outside it),
+   and the decode check: 512 tokens prefilled, 16 teacher-forced through
+   the decode step, the last logits within ``FRONTEND_DECODE_TOL`` of one
+   prefill of 528 with the same frames or patches (seamless's cross
+   caches with their values zeroed, or llava's decode positions without
+   the patch positions, outside it); prefill ms a row (seamless's
+   encoder alone too), decode ms a step, tokens/s.  K6 is first held
+   against its plain version at these archs' prefill shapes (phase 2,
+   ``ATTN_SHAPES_3G``: the mask flipped must fall outside the limit)
+   and timed there beside its bound and SDPA (phase 4);
 3b. outputs in place and region compile — first K1-K5 with ``out=`` at
    the main path's shapes, float32 and bfloat16, every layout each takes
    (K4's AoSoA through its ops wrapper): ``out`` apart from the inputs,
@@ -312,7 +338,9 @@ LM_KERNEL_TOL = {
 # rounding y_intra to bf16), 8.59e-2 (gemma3-12b) and 1.09e-1
 # (recurrentgemma-9b); the wrong variants read 5.8, 2.9, 3.75 and 2.29
 LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25, "gemma3-12b": 0.25,
-             "recurrentgemma-9b": 0.25}
+             "recurrentgemma-9b": 0.25, "qwen1.5-4b": 0.25,
+             "chatglm3-6b": 0.25, "seamless-m4t-medium": 0.25,
+             "llava-next-mistral-7b": 0.25}
 # phase 3 serves these two at their published configs beside the two
 # above, with the same checks, the ring check, and one request alone in
 # place of the ragged, interleaved and captured-prefill measurements
@@ -326,6 +354,31 @@ LM_LOCAL_ARCHS = ("gemma3-12b", "recurrentgemma-9b")
 # wrapped), a 3072-token one half the ring.  H100 readings: gemma3-12b
 # 1.02e-1 (no wrap 2.60), recurrentgemma-9b 1.16e-1 (no wrap 0.581)
 RING_PROMPT = {"gemma3-12b": 2048, "recurrentgemma-9b": 3072}
+# phase 3g: qwen1.5-4b (QKV bias, MHA 20/20) and chatglm3-6b (GQA 32/2,
+# half-dim interleaved RoPE) through the Batcher as the local-layer archs
+# (one request alone, no ring); seamless-m4t-medium (encoder-decoder,
+# head dim 64) and llava-next-mistral-7b (2048 patch positions before the
+# text), which serve through the uniform loop: FRONTEND_ROWS rows of
+# FRONTEND_PROMPT tokens, LM_GEN new ones, each row with ENC_LEN_SERVE
+# frames or its patches; the decode check teacher-forces FRONTEND_DECODE
+# tokens after a FRONTEND_PROMPT-token prefill against one prefill of all
+# of them, within FRONTEND_DECODE_TOL (absolute, max |difference|)
+LM_DENSE_ARCHS = ("qwen1.5-4b", "chatglm3-6b")
+LM_FRONTEND_ARCHS = ("seamless-m4t-medium", "llava-next-mistral-7b")
+FRONTEND_ROWS, FRONTEND_PROMPT, FRONTEND_DECODE = 4, 512, 16
+FRONTEND_DECODE_TOL = {"seamless-m4t-medium": 0.25,
+                       "llava-next-mistral-7b": 0.25}
+# K6 at the new archs' prefill shapes (B, Hq, Hkv, Sq, Skv, D) and masks:
+# the two dense archs at 2048 tokens, llava's 2048 patches + 512 text,
+# seamless's encoder over 4096 frames, its decoder's self-attention at
+# 512 tokens and its cross-attention from 512 tokens to 4096 frames
+ATTN_SHAPES_3G = {
+    "qwen1.5-4b": ((1, 20, 20, 2048, 2048, 128), True),
+    "chatglm3-6b": ((1, 32, 2, 2048, 2048, 128), True),
+    "llava-next-mistral-7b": ((1, 32, 8, 2560, 2560, 128), True),
+    "seamless encoder": ((1, 16, 16, 4096, 4096, 64), False),
+    "seamless decoder self": ((1, 16, 16, 512, 512, 64), True),
+    "seamless cross": ((1, 16, 16, 512, 4096, 64), False)}
 RING_DECODE = 16
 RING_TOL = {"gemma3-12b": 0.25, "recurrentgemma-9b": 0.25}
 # phase 3f, training: qwen3-8b at its published width cut to 4 layers
@@ -722,8 +775,9 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     prefill's first call and memory, with the repeated lengths served on
     the replays.  An arch with local layers (gemma3-12b,
     recurrentgemma-9b) skips those four measurements and adds the ring
-    check and one request served alone.  Returns the launch counts of
-    the batcher's run and its measurements."""
+    check and one request served alone; qwen1.5-4b and chatglm3-6b
+    (``LM_DENSE_ARCHS``) skip them and add the request alone.  Returns
+    the launch counts of the batcher's run and its measurements."""
     import numpy as np
     import torch
 
@@ -801,7 +855,7 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         f"(the batcher's run) ({card})")
 
     extra = {}
-    if local:
+    if local or arch in LM_DENSE_ARCHS:
         del worker, wreqs
         extra["batch1"] = batch_one(arch, card, cfg, params, prompts[0],
                                     zero_counts)
@@ -1158,18 +1212,20 @@ def local_attention_parity() -> float:
     return worst
 
 
-def sdpa_ms(q, k, v, window) -> tuple[float, str]:
-    """``scaled_dot_product_attention`` on K6's inputs (causal, or a band
-    mask of ``window`` keys): its time by ``time_ms`` under the first
-    backend, in PyTorch's order of preference, that takes the call, and
-    that backend's name."""
+def sdpa_ms(q, k, v, window, causal: bool = True) -> tuple[float, str]:
+    """``scaled_dot_product_attention`` on K6's inputs (causal, no mask
+    with ``causal=False``, or a band mask of ``window`` keys): its time by
+    ``time_ms`` under the first backend, in PyTorch's order of
+    preference, that takes the call, and that backend's name."""
     import warnings
 
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     S = q.shape[2]
-    if window is None:
+    if not causal:
+        kw = {}
+    elif window is None:
         kw = {"is_causal": True}
     else:
         i = torch.arange(S, device=q.device)
@@ -1225,6 +1281,322 @@ def local_attention_times(card: str) -> dict:
         del q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+def serving_attention_parity() -> float:
+    """K6 at the prefill shapes of phase 3g's archs (``ATTN_SHAPES_3G``:
+    MHA 20/20, GQA 32/2, llava's 2560 positions, head dim 64 without a
+    mask over 4096 frames and from 512 queries to 4096 keys) against
+    ``mha_ref`` on the same inputs, float32 and bfloat16, within
+    ``LM_KERNEL_TOL``; in bfloat16 the kernel with its mask flipped
+    (causal where the shape has none, none where it is causal) must fall
+    outside the limit.  Returns the largest float32 difference."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import mha_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    worst = 0.0
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        lim = LM_KERNEL_TOL["flash_attention"][dname]
+        for what, ((B, Hq, Hkv, Sq, Skv, D), causal) in \
+                ATTN_SHAPES_3G.items():
+            q = torch.randn(B, Hq, Sq, D, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(B, Hkv, Skv, D, generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            want = mha_ref(q, k, v, causal=causal)
+            shape = (B, Hq, Hkv, Sq, Skv, D)
+            e = max_err(flash_attention_cuda(q, k, v, causal=causal), want,
+                        lim[0], f"flash_attention {dname} {what} {shape} "
+                                f"{'causal' if causal else 'no mask'}",
+                        rtol=lim[1])
+            if dname == "float32":
+                worst = max(worst, e)
+            else:
+                err, bad = outside(flash_attention_cuda(
+                    q, k, v, causal=not causal), want, *lim)
+                log(f"flash_attention {dname} {what} wrong variant (the "
+                    f"mask flipped): max_abs_err={err:.3e}, {bad} values "
+                    f"outside the limit")
+                if not bad:
+                    raise AssertionError(f"flash_attention {what}: the limit "
+                                         f"does not see a flipped mask")
+            del q, k, v, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def serving_attention_times(card: str) -> dict:
+    """K6 in bfloat16 at ``ATTN_SHAPES_3G``: the kernel, its plain
+    version and SDPA (``enable_gqa``; the first backend that takes the
+    call) by ``time_ms``, beside the bound (the visible pairs' operations
+    at 989 TFLOP/s, or the bytes)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import mha_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for what, ((B, Hq, Hkv, Sq, Skv, D), causal) in ATTN_SHAPES_3G.items():
+        q = torch.randn(B, Hq, Sq, D, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, Hkv, Skv, D, generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        nbytes, ops = attn_work(B, Hq, Hkv, Sq, Skv, D, 2, causal=causal)
+        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
+        plain = time_ms(lambda: mha_ref(q, k, v, causal=causal), iters=10)
+        lib, backend = sdpa_ms(q, k, v, None, causal=causal)
+        out[what] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "library_ms": lib, "backend": backend}
+        log(f"time flash_attention bfloat16 {what} "
+            f"{(B, Hq, Hkv, Sq, Skv, D)} {'causal' if causal else 'no mask'}"
+            f": kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes} "
+            f"bytes, {ops} ops), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+            f"({backend}) ({card})")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_inputs(cfg, rows: int, rng) -> dict:
+    """A request's frames (``ENC_LEN_SERVE`` of them, encoder-decoder) or
+    patch embeddings (``frontend_tokens``, VLM) from ``rng``, on the card
+    in float32, as ``launch/serve.py``'s ``serve_legacy`` makes them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import ENC_LEN_SERVE
+
+    if cfg.is_encdec:
+        key, n = "frames", ENC_LEN_SERVE
+    else:
+        key, n = "patches", cfg.frontend_tokens
+    x = rng.standard_normal((rows, n, cfg.frontend_dim)).astype(np.float32)
+    return {key: torch.from_numpy(x).to("cuda")}
+
+
+def serve_frontend(arch: str, card: str, zero_counts, read_counts) -> dict:
+    """Serve ``arch`` (seamless-m4t-medium or llava-next-mistral-7b) at
+    its published config through the uniform loop (``legacy_generate``,
+    where ``launch/serve.py`` sends these archs): ``FRONTEND_ROWS`` rows
+    of ``FRONTEND_PROMPT`` tokens with their frames or patches, ``LM_GEN``
+    new tokens each.  Checked: K6 once per attention layer per row (the
+    encoder's, the decoder's self- and cross-attention), the kernel
+    route's prefill logits against the plain route's (the encoder run
+    causal, or llava without its causal mask, outside the limit) and the
+    decode check (``frontend_decode_check``).  Measured: prefill ms a row
+    (seamless: the encoder's alone too), decode ms a step, tokens/s."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models.lm import encode, init_lm, prefill
+
+    dev = torch.device("cuda")
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log(f"{arch}: {cfg.n_layers} decoder layers, {cfg.enc_layers} encoder "
+        f"layers, d_model {cfg.d_model}, head dim {cfg.head_dim}, "
+        f"{sum(p.numel() for p in params.parameters())} parameters in "
+        f"{cfg.param_dtype} made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FRONTEND_ROWS, FRONTEND_PROMPT)).astype(
+            np.int32)).to(dev)
+    fr = frontend_inputs(cfg, FRONTEND_ROWS, rng)
+    front = 0 if cfg.is_encdec else cfg.frontend_tokens
+    max_seq = FRONTEND_PROMPT + LM_GEN + front
+
+    # the main path: the uniform loop, each row prefilled alone (K6 at
+    # every attention layer), the decode steps over the whole batch
+    legacy_generate(cfg, params, tokens[:1], 2, max_seq,
+                    **{k: v[:1] for k, v in fr.items()})   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    gen, t_pre, t_dec = legacy_generate(cfg, params, tokens, LM_GEN,
+                                        max_seq, **fr)
+    counts = read_counts()
+    per_row = cfg.n_layers * (2 if cfg.is_encdec else 1) + cfg.enc_layers
+    expect = {"flash_attention": per_row * FRONTEND_ROWS,
+              "ssd_intra_chunk": 0}
+    if gen.shape != (FRONTEND_ROWS, LM_GEN) or not (
+            (gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: generated {gen.shape} tokens, or "
+                             f"some outside the vocabulary")
+    step_ms = t_dec / (LM_GEN - 1) * 1e3
+    tok_s = FRONTEND_ROWS * LM_GEN / (t_pre + t_dec)
+    log(f"main path {arch}: {FRONTEND_ROWS} rows of {FRONTEND_PROMPT} "
+        f"tokens{f' + {front} patch positions' if front else ''}"
+        f"{' with 4096 frames each' if cfg.is_encdec else ''}, {LM_GEN} new "
+        f"each: prefill {t_pre * 1e3:.1f} ms ({t_pre * 1e3 / FRONTEND_ROWS:.1f}"
+        f" a row), decode {step_ms:.3f} ms per step ({FRONTEND_ROWS} rows), "
+        f"{tok_s:.1f} tokens/s end to end, "
+        f"{FRONTEND_ROWS * (LM_GEN - 1) / t_dec:.1f} decoding; K6 "
+        f"{counts['flash_attention']} launches ({per_row} a row); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+
+    # prefill ms of one row, and the encoder's alone, synchronised
+    row = {"tokens": tokens[:1], **{k: v[:1] for k, v in fr.items()}}
+
+    def wall_ms(fn, n=3):
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(walls)
+
+    prefill_ms = wall_ms(lambda: prefill(params, row, cfg, max_seq=max_seq))
+    encoder_ms = (wall_ms(lambda: encode(params, row["frames"], cfg))
+                  if cfg.is_encdec else None)
+    log(f"{arch} prefill of one row: {prefill_ms:.3f} ms (median of 3)"
+        f"{f', the encoder alone {encoder_ms:.3f} ms' if encoder_ms else ''}"
+        f" ({card})")
+
+    # the kernel route's last-position logits against the plain route's
+    def logits(use_kernel=True):
+        return prefill(params, row, cfg, max_seq=max_seq,
+                       use_kernel=use_kernel)[0].float()
+
+    got, want = logits(), logits(use_kernel=False)
+    if tuple(got.shape) != (1, cfg.padded_vocab()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch}: prefill logits of shape "
+                             f"{tuple(got.shape)}, or not finite")
+    err = float((got - want).abs().max())
+    log(f"{arch} prefill logits, kernel route vs plain route: max "
+        f"|difference| {err:.4e} (limit {LOGIT_TOL[arch]:g}, plain logits "
+        f"max |x| {float(want.abs().max()):.3f}); argmax equal: "
+        f"{int(got.argmax()) == int(want.argmax())}")
+    if not err <= LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch}: prefill logits outside the limit")
+    real = model_attention.flash_attention_fn
+    if cfg.is_encdec:
+        # every self-attention causal: the decoder's is already, so the
+        # encoder's changes; the cross-attention (512 queries, 4096 keys)
+        # is left as it is
+        what = "the encoder run causal"
+        model_attention.flash_attention_fn = lambda q, k, v, **kw: real(
+            q, k, v, **{**kw, "causal": kw["causal"]
+                        or q.shape[1] == k.shape[1]})
+    else:
+        what = "attention without its causal mask"
+        model_attention.flash_attention_fn = lambda *a, **kw: real(
+            *a, **{**kw, "causal": False})
+    try:
+        wrong = logits()
+    finally:
+        model_attention.flash_attention_fn = real
+    werr = float((wrong - want).abs().max())
+    log(f"{arch} wrong variant ({what}): max |difference| {werr:.4e} "
+        f"against the plain route (limit {LOGIT_TOL[arch]:g})")
+    if not werr > LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch}: the logits limit does not see {what}")
+    decode = frontend_decode_check(arch, card, cfg, params)
+    return {"counts": counts, "expect": expect, "prefill_ms": prefill_ms,
+            "row_prefill_ms": t_pre * 1e3 / FRONTEND_ROWS,
+            "encoder_ms": encoder_ms, "step_ms": step_ms, "tok_s": tok_s,
+            "decode_tok_s": FRONTEND_ROWS * (LM_GEN - 1) / t_dec,
+            "logit_err": err, "wrong_err": werr, "decode": decode}
+
+
+def frontend_decode_check(arch: str, card: str, cfg, params) -> dict:
+    """Decode against one prefill: ``FRONTEND_PROMPT`` tokens prefilled
+    with a row's frames or patches, ``FRONTEND_DECODE`` more
+    teacher-forced through the uniform loop's decode step (seamless: its
+    ``ENC_LEN_SERVE`` cross slots read); the last step's logits within
+    ``FRONTEND_DECODE_TOL`` of the last-position logits of one prefill
+    over all the tokens with the same frames or patches.  The wrong
+    variants must fall outside: seamless's cross caches with their values
+    zeroed (and, printed, built from other frames); llava's decode
+    positions without the 2048 patch positions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import kvcache as kvc
+    from repro_torch.models.lm import prefill
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    n = FRONTEND_PROMPT + FRONTEND_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)).astype(
+        np.int32)).to(dev)
+    fr = frontend_inputs(cfg, 1, rng)
+    front = 0 if cfg.is_encdec else cfg.frontend_tokens
+    step = make_decode_step(cfg)
+
+    def map_cross(caches, fn):
+        return {**caches, "groups": [
+            {key: {**e, "cross": fn(e["cross"])} for key, e in g.items()}
+            for g in caches["groups"]],
+            "tail": [{**e, "cross": fn(e["cross"])}
+                     for e in caches["tail"]]}
+
+    def zero_values(store):
+        k, v = kvc.kv_read(store, cfg.head_dim, cfg.kv_layout, cfg.kv_order)
+        return kvc.kv_write_prefill(store, k, torch.zeros_like(v),
+                                    cfg.kv_layout, cfg.kv_order)
+
+    def decoded(alter=None):
+        _, caches = prefill(params, {"tokens": toks[:, :FRONTEND_PROMPT],
+                                     **fr}, cfg, max_seq=n + front)
+        if alter is not None:
+            caches = alter(caches)
+        for t in range(FRONTEND_PROMPT, n):
+            logits, caches = step(params, caches, toks[:, t])
+        return logits.float()
+
+    want = prefill(params, {"tokens": toks, **fr}, cfg,
+                   max_seq=n + front)[0].float()
+    got = decoded()
+    err = float((got - want).abs().max())
+    if cfg.is_encdec:
+        variants = {"the cross caches' values zeroed": (
+            lambda c: map_cross(c, zero_values), True)}
+        other = frontend_inputs(cfg, 1, np.random.default_rng(3))
+        other_cross = prefill(params, {"tokens": toks[:, :FRONTEND_PROMPT],
+                                       **other}, cfg, max_seq=n)[1]
+        crosses = iter([e["cross"] for g in other_cross["groups"]
+                        for e in g.values()]
+                       + [e["cross"] for e in other_cross["tail"]])
+        variants["the cross caches built from other frames"] = (
+            lambda c: map_cross(c, lambda _: next(crosses)), False)
+    else:
+        variants = {"decode positions without the patch positions": (
+            lambda c: {**c, "pos": c["pos"] - front}, True)}
+    wrong = {}
+    for what, (alter, gated) in variants.items():
+        wrong[what] = float((decoded(alter) - want).abs().max())
+        log(f"{arch} decode check wrong variant ({what}): max |difference| "
+            f"{wrong[what]:.4e} (limit {FRONTEND_DECODE_TOL[arch]:g}"
+            f"{'' if gated else '; printed, not gated'})")
+        if gated and not wrong[what] > FRONTEND_DECODE_TOL[arch]:
+            raise AssertionError(f"{arch}: the decode check's limit does not "
+                                 f"see {what}")
+    log(f"{arch} decode check ({FRONTEND_PROMPT} tokens prefilled, "
+        f"{FRONTEND_DECODE} decoded): last logits against one prefill of "
+        f"{n} tokens max |difference| {err:.4e} (limit "
+        f"{FRONTEND_DECODE_TOL[arch]:g}, max |x| "
+        f"{float(want.abs().max()):.3f}); argmax equal: "
+        f"{int(got.argmax()) == int(want.argmax())} ({card})")
+    if not (torch.isfinite(got).all() and err <= FRONTEND_DECODE_TOL[arch]):
+        raise AssertionError(f"{arch}: the decode check is outside its "
+                             f"limit")
+    return {"err": err, "wrong": wrong}
 
 
 def captured_prefills():
@@ -3448,6 +3820,10 @@ def main() -> int:
     # K6 at head dim 256: gemma3-12b's and recurrentgemma-9b's prefills
     errs["flash_attention"] = max(errs["flash_attention"],
                                   local_attention_parity())
+    # ... and at phase 3g's shapes: MHA 20/20, GQA 32/2, head dim 64
+    # without a mask, 512 queries against 4096 keys
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  serving_attention_parity())
 
     # -- 3. the main path through Graph/Executor on the GPU ------------------
     wall = {}
@@ -3712,12 +4088,17 @@ def main() -> int:
 
     # LM serving: qwen3-8b through K6, mamba2-130m through K7, gemma3-12b
     # and recurrentgemma-9b through K6 at head dim 256 with a window
+    # 3g: qwen1.5-4b and chatglm3-6b through the Batcher, then
+    # seamless-m4t-medium and llava-next-mistral-7b through the uniform
+    # loop (the encoder, cross-attention and patches through K6)
     lm_runs = {}
-    for arch in ("qwen3-8b", "mamba2-130m") + LM_LOCAL_ARCHS:
-        run = serve_lm(arch, card, zero_counts,
-                       lambda: {k: w.launches for k, w in wrappers.items()})
+    for arch in (("qwen3-8b", "mamba2-130m") + LM_LOCAL_ARCHS
+                 + LM_DENSE_ARCHS + LM_FRONTEND_ARCHS):
+        serve = serve_frontend if arch in LM_FRONTEND_ARCHS else serve_lm
+        run = serve(arch, card, zero_counts,
+                    lambda: {k: w.launches for k, w in wrappers.items()})
         lm_runs[arch] = run
-        gc.collect()     # the model went with serve_lm's frame
+        gc.collect()     # the model went with the serving function's frame
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         path_launches[f"serve {arch}"] = run["counts"]
@@ -3897,6 +4278,7 @@ def main() -> int:
                 f"({card})")
         del q, k, v
     local_attention_times(card)
+    serving_attention_times(card)
     x, dts, A, Bm, C = ssd_inputs(torch.bfloat16)
     nbytes, ops = ssd_work(*SSD_SHAPE, x.element_size())
     chunk = SSD_SHAPE[-1]
@@ -3948,8 +4330,23 @@ def main() -> int:
         f"{f32_ms:.4f} ms ({card})")
     del x, dts, A, Bm, C
     for arch, run in lm_runs.items():
-        if arch in LM_LOCAL_ARCHS:
+        if arch in LM_FRONTEND_ARCHS:
+            enc = run["encoder_ms"]
+            log(f"serve {arch} through the uniform loop ({FRONTEND_ROWS} "
+                f"rows of {FRONTEND_PROMPT} tokens, {LM_GEN} new each): "
+                f"prefill {run['row_prefill_ms']:.3f} ms a row in the loop, "
+                f"{run['prefill_ms']:.3f} alone"
+                f"{f' (the encoder {enc:.3f})' if enc else ''}; decode "
+                f"{run['step_ms']:.3f} ms per step; {run['tok_s']:.1f} "
+                f"tokens/s end to end, {run['decode_tok_s']:.1f} decoding; "
+                f"prefill logits {run['logit_err']:.4e} (wrong variant "
+                f"{run['wrong_err']:.4e}); decode check "
+                f"{run['decode']['err']:.4e} (wrong variants "
+                f"{json.dumps(run['decode']['wrong'])}) ({card})")
+            continue
+        if arch in LM_LOCAL_ARCHS + LM_DENSE_ARCHS:
             b1 = run["batch1"]
+            ring = run["ring"]
             pre = run["busy"]["prefill"]
             log(f"serve {arch} at the defaults: {run['tok_s']:.1f} tokens/s "
                 f"with the decode capture, {run['warm_tok_s']:.1f} without; "
@@ -3960,8 +4357,10 @@ def main() -> int:
                 f"per step (bound {b1['bound_ms']:.3f}), prefill "
                 f"{pre[0]:.3f} ms ({100 * pre[1] / pre[0]:.1f} % busy); "
                 f"prefill logits {run['logit_err']:.4e} (wrong variant "
-                f"{run['wrong_err']:.4e}); ring {run['ring']['err']:.4e} "
-                f"(no wrap {run['ring']['wrong_err']:.4e}) ({card})")
+                f"{run['wrong_err']:.4e}); "
+                + (f"ring {ring['err']:.4e} (no wrap "
+                   f"{ring['wrong_err']:.4e}) " if ring else "")
+                + f"({card})")
             continue
         caps = {n: [round(c["first_ms"], 1), round(c["peak_gib"], 3),
                     round(c["kept_gib"], 3)]

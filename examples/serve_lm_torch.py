@@ -8,7 +8,10 @@ state tensor whose storage the layout solver picks (a ring of ``window``
 slots for a local layer), and retired slots are re-filled from the queue
 at once: more requests than batch slots is the normal case.  It runs the
 arch's smoke config on the GPU (attention on the K6 kernel, the Mamba-2
-SSD on K7) unless ``--device cpu`` asks for the plain versions.
+SSD on K7) unless ``--device cpu`` asks for the plain versions.  An
+encoder-decoder or VLM arch (seamless-m4t-medium, llava-next-mistral-7b)
+serves through the uniform loop instead: the demo says so and points to
+``python -m repro_torch.launch.serve --legacy``.
 
   PYTHONPATH=src python examples/serve_lm_torch.py --arch gemma3-12b
   PYTHONPATH=src python examples/serve_lm_torch.py --arch recurrentgemma-9b --device cpu
@@ -41,6 +44,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch)
+    if cfg.is_encdec or cfg.frontend_dim:
+        print(f"[serve_lm] {cfg.name} is encoder-decoder/VLM; use "
+              f"`python -m repro_torch.launch.serve --legacy` for this arch")
+        return []
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
 
     rng = np.random.default_rng(0)

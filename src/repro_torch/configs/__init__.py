@@ -1,10 +1,12 @@
 """Architecture registry of the port: ``get(name)`` -> the published
 ModelConfig, ``get_smoke(name)`` -> the reduced same-family config of the
-CPU tests.  The port serves qwen3-8b (dense attention, K6), mamba2-130m
-(Mamba-2 SSD, K7), gemma3-12b (local and global attention, K6) and
-recurrentgemma-9b (RG-LRU and local attention, K6); every other arch of
-the JAX package raises ``KeyError`` naming the ROADMAP queue that brings
-it."""
+CPU tests.  The port serves qwen3-8b, qwen1.5-4b and chatglm3-6b (dense
+attention, K6), mamba2-130m (Mamba-2 SSD, K7), gemma3-12b (local and
+global attention, K6), recurrentgemma-9b (RG-LRU and local attention,
+K6), llava-next-mistral-7b (a VLM: projected patches before the text) and
+seamless-m4t-medium (encoder-decoder with cross-attention); the two MoE
+archs of the JAX package raise ``KeyError`` naming the ROADMAP queue
+that brings them."""
 
 from __future__ import annotations
 
@@ -12,23 +14,22 @@ import importlib
 
 from ..models.config import ModelConfig, ShapeCfg
 
-ARCH_IDS = ("qwen3_8b", "mamba2_130m", "gemma3_12b", "recurrentgemma_9b")
+ARCH_IDS = ("qwen3_8b", "mamba2_130m", "gemma3_12b", "recurrentgemma_9b",
+            "qwen1_5_4b", "chatglm3_6b", "llava_next_mistral_7b",
+            "seamless_m4t_medium")
 
 ALIASES = {"qwen3-8b": "qwen3_8b", "mamba2-130m": "mamba2_130m",
            "gemma3-12b": "gemma3_12b",
-           "recurrentgemma-9b": "recurrentgemma_9b"}
+           "recurrentgemma-9b": "recurrentgemma_9b",
+           "qwen1.5-4b": "qwen1_5_4b", "chatglm3-6b": "chatglm3_6b",
+           "llava-next-mistral-7b": "llava_next_mistral_7b",
+           "seamless-m4t-medium": "seamless_m4t_medium"}
 
 #: archs of the JAX package that the port does not serve yet -> the
 #: ROADMAP queue that brings them
 LATER = {
     "phi3_5_moe": "ROADMAP queue 5 (MoE)",
     "arctic_480b": "ROADMAP queue 5 (MoE)",
-    "seamless_m4t_medium": "ROADMAP queue 5 (encoder-decoder and VLM "
-                           "serving)",
-    "llava_next_mistral_7b": "ROADMAP queue 5 (encoder-decoder and VLM "
-                             "serving)",
-    "qwen1_5_4b": "ROADMAP queue 5 (the remaining dense archs)",
-    "chatglm3_6b": "ROADMAP queue 5 (the remaining dense archs)",
 }
 
 

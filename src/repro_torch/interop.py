@@ -47,9 +47,10 @@ def params_from_reference(params_np: Mapping[str, Any], cfg,
                           device: Any) -> torch.nn.Module:
     """The port's LM module on ``device`` holding the weights of a JAX
     ``init_lm`` tree (nested dicts of NumPy arrays).  The JAX tree stacks
-    the layer groups on a leading axis (``groups/p0/attn/wq[g]``); the
-    port names the same weight ``groups.g.p0.attn.wq``.  Values are kept,
-    bfloat16 bit for bit."""
+    the layer groups, and an encoder's layers, on a leading axis
+    (``groups/p0/attn/wq[g]``, ``encoder/p0/attn/wq[e]``); the port names
+    the same weights ``groups.g.p0.attn.wq`` and ``encoder.e.p0.attn.wq``.
+    Values are kept, bfloat16 bit for bit."""
     from .models.lm import init_lm
 
     lm = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -3,7 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --smoke [--device cpu]
 
-``--arch`` takes qwen3-8b, mamba2-130m, gemma3-12b and recurrentgemma-9b.
+``--arch`` takes qwen3-8b, qwen1.5-4b, chatglm3-6b, mamba2-130m,
+gemma3-12b, recurrentgemma-9b, llava-next-mistral-7b and
+seamless-m4t-medium.  The last two, a VLM and an encoder-decoder, serve
+through the uniform loop alone (:func:`serve_legacy`), as in the JAX
+package: their requests carry seeded patch embeddings or frames.
 
 Prefill and batched greedy decode are Ripple graphs (``launch/steps.py``)
 run by the port's ``Executor``; the KV cache is a layout-polymorphic
@@ -55,10 +59,13 @@ def _sync(device: torch.device) -> None:
 
 
 def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, *, frames=None, patches=None):
     """The uniform loop: prefill, then greedy decode of the whole batch at
-    one position.  ``tokens`` (B, S) int; returns ``((B, gen) token array,
-    prefill seconds, decode seconds)``.
+    one position.  ``tokens`` (B, S) int, with ``frames`` (B, S_enc,
+    frontend_dim) for an encoder-decoder or ``patches`` (B,
+    frontend_tokens, frontend_dim) for a VLM (``max_seq`` then counts the
+    patch positions); returns ``((B, gen) token array, prefill seconds,
+    decode seconds)``.
 
     Each row is prefilled on its own and the caches are stacked: the
     batcher prefills one request at a time, and a batched prefill runs
@@ -66,12 +73,14 @@ def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
     sum in another order, and greedy decoding would follow any rounding
     difference.  The decode steps run the whole batch at once."""
     dev = next(params.parameters()).device
-    tokens = torch.as_tensor(tokens).to(dev)
+    batch = {"tokens": tokens, "frames": frames, "patches": patches}
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if v is not None}
     _sync(dev)
     t0 = time.perf_counter()
-    rows = [prefill(params, {"tokens": tokens[b:b + 1]}, cfg,
+    rows = [prefill(params, {k: v[b:b + 1] for k, v in batch.items()}, cfg,
                     max_seq=max_seq, use_kernel=use_kernel)
-            for b in range(tokens.shape[0])]
+            for b in range(batch["tokens"].shape[0])]
     logits = torch.cat([r[0] for r in rows])
     caches = _stack_caches([r[1] for r in rows], cfg)
     _sync(dev)
@@ -92,12 +101,15 @@ def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
 def _stack_caches(parts: list, cfg) -> dict:
     """Per-row caches (batch 1 each, at one position) stacked along the
     batch axis: axis 1 of SoA KV storage (its component axis leads), axis
-    0 of everything else."""
+    0 of everything else; an encoder-decoder's ``{"self", "cross"}``
+    entry on both keys."""
     kv_axis = 1 if cfg.kv_layout is Layout.SOA else 0
 
     def cat(xs):
         if isinstance(xs[0], tuple):    # a Mamba or RG-LRU layer's pair
             return tuple(torch.cat(list(z)) for z in zip(*xs))
+        if isinstance(xs[0], dict):     # self and cross KV storage
+            return {k: cat([x[k] for x in xs]) for k in xs[0]}
         return torch.cat(xs, dim=kv_axis)
 
     first = parts[0]
@@ -109,19 +121,31 @@ def _stack_caches(parts: list, cfg) -> dict:
             "pos": first["pos"]}
 
 
-def _prompts(cfg, batch: int, prompt_len: int) -> np.ndarray:
-    rng = np.random.default_rng(0)
+def _prompts(cfg, batch: int, prompt_len: int, rng=None) -> np.ndarray:
+    rng = np.random.default_rng(0) if rng is None else rng
     return rng.integers(0, cfg.vocab_size,
                         (batch, prompt_len)).astype(np.int32)
 
 
 def serve_legacy(cfg, params, args):
-    """Serve ``args.batch`` prompts through the uniform loop alone."""
+    """Serve ``args.batch`` prompts through the uniform loop alone; an
+    encoder-decoder's requests carry ``ENC_LEN_SERVE`` frames each, a
+    VLM's ``frontend_tokens`` patch embeddings, from the prompts' seeded
+    generator."""
     B = args.batch
-    prompts = _prompts(cfg, B, args.prompt_len)
+    rng = np.random.default_rng(0)
+    prompts = _prompts(cfg, B, args.prompt_len, rng)
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, S.ENC_LEN_SERVE, cfg.frontend_dim)).astype(np.float32))
+    elif cfg.frontend_dim:
+        extra["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32))
+    max_seq = args.prompt_len + args.gen + (
+        cfg.frontend_tokens if "patches" in extra else 0)
     gen, t_prefill, t_decode = legacy_generate(
-        cfg, params, torch.from_numpy(prompts), args.gen,
-        args.prompt_len + args.gen)
+        cfg, params, torch.from_numpy(prompts), args.gen, max_seq, **extra)
     print(f"[serve] arch={cfg.name} batch={B} prompt={args.prompt_len} "
           f"gen={args.gen} path=legacy")
     print(f"[serve] prefill {t_prefill*1e3:.0f}ms; decode "
@@ -257,7 +281,7 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else \
         configs.get(args.arch)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    if args.legacy:
+    if args.legacy or cfg.is_encdec or cfg.frontend_dim:
         return serve_legacy(cfg, params, args)
     return serve_ripple(cfg, params, args)
 

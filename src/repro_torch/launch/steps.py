@@ -49,7 +49,11 @@ from ..optim import clip_by_global_norm, cosine_schedule, make_optimizer
 __all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
            "PrefillGraph", "cache_state_overrides", "make_decode_graph",
            "make_prefill_graph", "make_train_step", "loss_and_grads",
-           "make_prefill_step", "make_decode_step"]
+           "make_prefill_step", "make_decode_step", "ENC_LEN_SERVE"]
+
+#: the frozen encoder length of an encoder-decoder's served decode: the
+#: frames a request carries, and the cross-cache slots a decode step reads
+ENC_LEN_SERVE = 4096
 
 
 def make_train_step(cfg: ModelConfig, *, lr=None, total_steps: int = 10_000,
@@ -120,10 +124,12 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """The legacy loop's step: ``step(params, caches, tokens) -> (logits,
-    caches)``, the whole batch at the caches' one position."""
+    caches)``, the whole batch at the caches' one position; an
+    encoder-decoder reads ``ENC_LEN_SERVE`` slots of its cross caches."""
+    enc_len = ENC_LEN_SERVE if cfg.is_encdec else None
 
     def step(params, caches, tokens):
-        return decode_step(params, caches, tokens, cfg)
+        return decode_step(params, caches, tokens, cfg, enc_len=enc_len)
 
     return step
 
@@ -204,8 +210,10 @@ def _slot_entry(caches, slot: CacheSlot):
 def _guard_graph_serving(cfg: ModelConfig) -> None:
     if cfg.is_encdec or cfg.frontend_dim:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and VLM serving is ROADMAP "
-            f"queue 5")
+            f"{cfg.name}: graph-native serving covers text-only decoder "
+            f"archs; encoder-decoder and VLM archs serve through the "
+            f"uniform loop (launch/serve.py's legacy_generate, where "
+            f"main sends them)")
 
 
 def _embed_node(cfg: ModelConfig, params):

@@ -1,8 +1,8 @@
-"""Layer blocks: attention, the dense FFN, and the uniform layer wrapper
-that puts mixer and FFN between pre-norms (and post-norms, under
-``sandwich_norm``), for layer kinds "A" (global attention), "L" (local,
-sliding-window attention over a ring cache), "M" (Mamba2) and "R"
-(RG-LRU), as ``repro.models.blocks`` does.
+"""Layer blocks: attention (self and cross), the dense FFN, and the
+uniform layer wrapper that puts mixer, cross-attention and FFN between
+pre-norms (and post-norms, under ``sandwich_norm``), for layer kinds "A"
+(global attention), "L" (local, sliding-window attention over a ring
+cache), "M" (Mamba2) and "R" (RG-LRU), as ``repro.models.blocks`` does.
 
 Every block has three entry points:
   init_*       parameters, as children of an ``nn.Module`` tree
@@ -10,9 +10,16 @@ Every block has three entry points:
   *_decode     one token against the cache
 
 The JAX package's ``ShardCtx`` has no counterpart: the port runs one
-device.  MoE FFNs and cross-attention raise ``NotImplementedError``
-naming their ROADMAP queue.  Prefill positions are always ``0 .. S-1``:
-the port prefills a sequence from its first token.
+device.  MoE FFNs raise ``NotImplementedError`` naming their ROADMAP
+queue.  Prefill positions are always ``0 .. S-1``: the port prefills a
+sequence from its first token (a VLM's from its first patch position).
+
+A decoder layer of an encoder-decoder arch carries a cross-attention
+(``cross``, after the mixer's residual): its queries come from the
+decoder, its keys and values from the encoder's output, with no RoPE,
+no bias, no QK norm and no mask.  Its decode cache is the encoder's
+keys and values, written once at prefill and only read by a decode
+step (``cross_len`` of its slots valid).
 
 A local layer's cache is a ring of ``W = min(window, max_seq)`` slots:
 the token at position ``t`` lives in slot ``t % W`` (every mod here is a
@@ -75,9 +82,9 @@ def init_norm(init: Init, p: ParamModule, cfg: ModelConfig, name: str,
 # ---------------------------------------------------------------------------
 
 def init_attention(init: Init, parent: ParamModule, cfg: ModelConfig, *,
-                   name: str = "attn") -> None:
-    """Self-attention projections as child ``name`` of ``parent``
-    (cross-attention is ROADMAP queue 5, encoder-decoder serving)."""
+                   cross: bool = False, name: str = "attn") -> None:
+    """Attention projections as child ``name`` of ``parent``; a
+    cross-attention (``cross``) has no q/k/v bias and no QK norm."""
     d, hd = cfg.d_model, cfg.head_dim
     Hp, Kv = cfg.padded_heads(), cfg.padded_kv_heads()
     p = ParamModule()
@@ -85,11 +92,11 @@ def init_attention(init: Init, parent: ParamModule, cfg: ModelConfig, *,
     init.dense(p, "wk", (d, Kv, hd), fan_in=d)
     init.dense(p, "wv", (d, Kv, hd), fan_in=d)
     init.dense(p, "wo", (Hp, hd, d), fan_in=Hp * hd)
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         init.const(p, "bq", (Hp, hd), 0.0)
         init.const(p, "bk", (Kv, hd), 0.0)
         init.const(p, "bv", (Kv, hd), 0.0)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         init.const(p, "q_norm", (hd,), 1.0)
         init.const(p, "k_norm", (hd,), 1.0)
     parent.add_module(name, p)
@@ -121,15 +128,28 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def attention_forward(p, h, cfg: ModelConfig, *, causal: bool = True,
-                      window: Optional[int] = None,
+                      window: Optional[int] = None, enc_out=None,
                       want_cache: bool = False, use_kernel: bool = True):
     """Full-sequence attention sub-block (the layer wrapper owns residual
-    and norm); ``window`` makes it local.  On the GPU the attention itself
-    is the K6 kernel unless ``use_kernel=False``."""
+    and norm); ``window`` makes it local, and ``enc_out`` (B, S_enc, d)
+    makes it a cross-attention: q from ``h``, k and v from ``enc_out``,
+    no RoPE and no mask.  On the GPU the attention itself is the K6
+    kernel unless ``use_kernel=False``."""
     B, S, d = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    q, k, v = _project_qkv(p, h, cfg, rope=_rope_tables(cfg, positions))
-    out = attention(q, k, v, qpos=positions, kpos=positions, causal=causal,
+    if enc_out is None:
+        q, k, v = _project_qkv(p, h, cfg,
+                               rope=_rope_tables(cfg, positions))
+        kpos = positions
+    else:
+        cdt = h.dtype
+        q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(cdt))
+        k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cdt))
+        v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cdt))
+        kpos = torch.arange(enc_out.shape[1], dtype=torch.int32,
+                            device=h.device)
+        causal, window = False, None
+    out = attention(q, k, v, qpos=positions, kpos=kpos, causal=causal,
                     window=window, impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
                     k_chunk=cfg.k_chunk, use_kernel=use_kernel)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
@@ -190,18 +210,43 @@ def _ring_kpos(pos: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def attention_decode(p, h_t, cache, pos, cfg: ModelConfig, *,
-                     window: Optional[int] = None, cache_out=None):
+                     window: Optional[int] = None,
+                     cross_len: Optional[int] = None, cache_out=None):
     """One-token attention.  h_t (B, d); cache = KV storage (a ring of W
     slots when ``window`` is given: the token goes to slot ``pos % W``);
     pos = the incoming token's position: a scalar (uniform batch) or a
     (B,) vector of per-slot positions (continuous batching).  Returns
     (out, cache); the token's k/v are written into ``cache_out`` when
-    given (``cache`` itself: in place), else into a new cache."""
+    given (``cache`` itself: in place), else into a new cache.  With
+    ``cross_len`` the cache is a cross-attention's frozen encoder cache
+    of that many valid slots: read with no write, no RoPE and no
+    bias."""
     B, d = h_t.shape
-    cdt = h_t.dtype
+    q = torch.einsum("bd,dhk->bhk", h_t, p["wq"].to(h_t.dtype))
+    if cross_len is None:
+        q, cache, cache_len, kpos = _write_token(p, h_t, q, cache, pos, cfg,
+                                                 window, cache_out)
+    else:
+        cache_len = torch.as_tensor(cross_len, dtype=torch.int32,
+                                    device=h_t.device).expand(B)
+        kpos = None
+    k, v = kvc.kv_read(cache, cfg.head_dim, cfg.kv_layout, cfg.kv_order)
+    fmt = "bshd" if cfg.kv_order == "bsh" else "bhsd"
+    out = decode_attention(q, k, v, cache_len, kpos=kpos, window=window,
+                           kv_format=fmt)
+    o = torch.einsum("bhk,hkd->bd", out, p["wo"].to(out.dtype))
+    return o, cache
+
+
+def _write_token(p, h_t, q, cache, pos, cfg: ModelConfig, window,
+                 cache_out):
+    """A self-attention decode step's token: its bias, QK norm and RoPE
+    on ``q`` and its k/v, the k/v written at ``pos`` (a ring's slot ``pos
+    % W``).  Returns (q, cache, cache_len (B,), each slot's position (B,
+    W) for a ring, else None)."""
+    B, cdt = h_t.shape[0], h_t.dtype
     pos = torch.as_tensor(pos, dtype=torch.int32, device=h_t.device)
     ragged = pos.dim() == 1
-    q = torch.einsum("bd,dhk->bhk", h_t, p["wq"].to(cdt))
     k_t = torch.einsum("bd,dhk->bhk", h_t, p["wk"].to(cdt))
     v_t = torch.einsum("bd,dhk->bhk", h_t, p["wv"].to(cdt))
     if "bq" in p:
@@ -230,12 +275,7 @@ def attention_decode(p, h_t, cache, pos, cfg: ModelConfig, *,
     cache = kvc.kv_write_token(cache, k_t, v_t, slot, cfg.kv_layout,
                                cfg.kv_order, out=cache_out)
     cache_len = (pos + 1).expand(B) if not ragged else pos + 1
-    k, v = kvc.kv_read(cache, cfg.head_dim, cfg.kv_layout, cfg.kv_order)
-    fmt = "bshd" if cfg.kv_order == "bsh" else "bhsd"
-    out = decode_attention(q, k, v, cache_len, kpos=kpos, window=window,
-                           kv_format=fmt)
-    o = torch.einsum("bhk,hkd->bd", out, p["wo"].to(out.dtype))
-    return o, cache
+    return q, cache, cache_len, kpos
 
 
 # ---------------------------------------------------------------------------
@@ -283,8 +323,9 @@ def ffn_forward(p, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_layer(init: Init, parent: ParamModule, cfg: ModelConfig, kind: str,
-               *, name: str = "layer") -> None:
-    """One decoder layer of ``kind`` as child ``name`` of ``parent``."""
+               *, cross: bool = False, name: str = "layer") -> None:
+    """One layer of ``kind`` as child ``name`` of ``parent``, with a
+    cross-attention (``ln_cross``, ``cross``) when ``cross``."""
     _check_kind(kind)
     p = ParamModule()
     init_norm(init, p, cfg, "ln_mix", cfg.d_model)
@@ -300,6 +341,9 @@ def init_layer(init: Init, parent: ParamModule, cfg: ModelConfig, kind: str,
                    n_blocks=cfg.rnn_blocks, d_conv=cfg.d_conv, name="rglru")
     if cfg.sandwich_norm:
         init_norm(init, p, cfg, "ln_mix_post", cfg.d_model)
+    if cross:
+        init_norm(init, p, cfg, "ln_cross", cfg.d_model)
+        init_attention(init, p, cfg, cross=True, name="cross")
     if cfg.d_ff:
         init_norm(init, p, cfg, "ln_ffn", cfg.d_model)
         init_ffn(init, p, cfg, name="ffn")
@@ -328,15 +372,18 @@ def _ffn_residual(p, h, cfg: ModelConfig):
     return h + out
 
 
-def layer_forward(p, h, kind: str, cfg: ModelConfig, *,
-                  want_cache: bool = False, use_kernel: bool = True):
-    """Full-sequence layer; returns (h, cache_entry | None)."""
+def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
+                  enc_out=None, want_cache: bool = False,
+                  use_kernel: bool = True):
+    """Full-sequence layer (``causal=False``: an encoder layer; with
+    ``enc_out`` a decoder layer's cross-attention reads it); returns (h,
+    cache_entry | None)."""
     _check_kind(kind)
     window, cfg = _local(kind, cfg)
     x = norm_apply(p, h, cfg, "ln_mix")
     cache = None
     if kind in ("A", "L"):
-        out = attention_forward(p["attn"], x, cfg, causal=True,
+        out = attention_forward(p["attn"], x, cfg, causal=causal,
                                 window=window, want_cache=want_cache,
                                 use_kernel=use_kernel)
         if want_cache:
@@ -348,15 +395,23 @@ def layer_forward(p, h, kind: str, cfg: ModelConfig, *,
         out, cache = rglru_forward(p["rglru"], x)
     if cfg.sandwich_norm:
         out = norm_apply(p, out, cfg, "ln_mix_post")
-    return _ffn_residual(p, h + out, cfg), cache if want_cache else None
+    h = h + out
+    if enc_out is not None and "cross" in p:
+        h = h + attention_forward(p["cross"],
+                                  norm_apply(p, h, cfg, "ln_cross"), cfg,
+                                  enc_out=enc_out, use_kernel=use_kernel)
+    return _ffn_residual(p, h, cfg), cache if want_cache else None
 
 
 def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
+                 enc_cache=None, enc_len: Optional[int] = None,
                  cache_out=None):
     """One-token layer step; returns (h_t, new_cache).  ``cache_out`` is
     where the new cache goes (the KV storage, or a Mamba or RG-LRU
     layer's pair with None where a new tensor is made), else a new
-    one."""
+    one.  ``enc_cache`` is the layer's frozen cross-attention cache, of
+    which ``enc_len`` slots are read (``None``: all of them); it is not
+    written."""
     _check_kind(kind)
     window, cfg = _local(kind, cfg)
     x = norm_apply(p, h_t, cfg, "ln_mix")
@@ -369,7 +424,15 @@ def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
         out, cache = rglru_decode(p["rglru"], x, cache, out=cache_out)
     if cfg.sandwich_norm:
         out = norm_apply(p, out, cfg, "ln_mix_post")
-    return _ffn_residual(p, h_t + out, cfg), cache
+    h_t = h_t + out
+    if enc_cache is not None and "cross" in p:
+        out, _ = attention_decode(p["cross"],
+                                  norm_apply(p, h_t, cfg, "ln_cross"),
+                                  enc_cache, pos, cfg,
+                                  cross_len=_cache_seq_len(enc_cache, cfg)
+                                  if enc_len is None else enc_len)
+        h_t = h_t + out
+    return _ffn_residual(p, h_t, cfg), cache
 
 
 def make_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,

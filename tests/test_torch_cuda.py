@@ -309,6 +309,12 @@ ATTN_CASES = {
     # window, GQA (8 kv heads) and MQA (1)
     "window_d256_gqa8": (1, 16, 8, 300, 300, 256, True, 100, 0, False),
     "window_d256_mqa": (1, 16, 1, 300, 300, 256, True, 64, 0, False),
+    # the serving shapes of seamless-m4t-medium's cross-attention (head
+    # dim 64, no mask, 4096 encoder keys cut to 700), qwen1.5-4b (MHA
+    # 20/20) and chatglm3-6b (GQA 32/2), cut in length
+    "cross_d64_full": (1, 16, 16, 300, 700, 64, False, None, 0, False),
+    "mha_20": (1, 20, 20, 300, 300, 128, True, None, 0, False),
+    "gqa_32_2": (1, 32, 2, 300, 300, 128, True, None, 0, False),
 }
 
 
@@ -1198,3 +1204,40 @@ def test_gemma3_captured_decode_with_a_wrapping_ring_is_the_eager_one(dev):
     assert set(bc.state) == set(be.state)
     for k in be.state:
         assert torch.equal(bc.state[k], be.state[k]), k
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_encdec_and_vlm_prefill_run_k6_at_every_attention_layer(dev, arch):
+    """The smoke configs' prefill on the card: K6 once per encoder layer,
+    decoder self-attention and cross-attention (seamless: 2 + 2 + 2), or
+    per layer over patches and text (llava: 2), its logits within 1e-4
+    of the plain route's; the uniform loop's streams equal the plain
+    route's."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.models.lm import init_lm, prefill
+
+    cfg = configs.get_smoke(arch)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 12)).astype(
+        np.int32)).to(dev)
+    fr = ({"frames": torch.from_numpy(rng.standard_normal(
+        (2, 40, cfg.frontend_dim)).astype(np.float32)).to(dev)}
+        if cfg.is_encdec else {"patches": torch.from_numpy(
+            rng.standard_normal((2, cfg.frontend_tokens, cfg.frontend_dim))
+            .astype(np.float32)).to(dev)})
+    max_seq = 20 + cfg.frontend_tokens
+    flash_attention_cuda.launches = 0
+    got, _ = prefill(params, {"tokens": toks, **fr}, cfg, max_seq=max_seq)
+    per = cfg.n_layers * (2 if cfg.is_encdec else 1) + cfg.enc_layers
+    assert flash_attention_cuda.launches == per
+    want, _ = prefill(params, {"tokens": toks, **fr}, cfg, max_seq=max_seq,
+                      use_kernel=False)
+    _close(got, want, 1e-4)
+    a, _, _ = legacy_generate(cfg, params, toks, 6, max_seq, **fr)
+    b, _, _ = legacy_generate(cfg, params, toks, 6, max_seq,
+                              use_kernel=False, **fr)
+    assert (a == b).all()

@@ -111,6 +111,20 @@ def test_serve_lm_serves_ragged_requests_on_the_cpu(arch):
         assert all(0 <= t < 256 for t in r.generated)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_serve_lm_points_encoder_decoder_and_vlm_to_the_uniform_loop(arch):
+    """``serve_lm_torch.py`` serves no encoder-decoder or VLM arch through
+    the ``Batcher``: it says so and names the launcher's ``--legacy``, as
+    ``examples/serve_lm.py`` does."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        reqs = _load("serve_lm_torch").main(["--arch", arch, "--device",
+                                             "cpu"])
+    assert reqs == []
+    assert "repro_torch.launch.serve --legacy" in out.getvalue()
+
+
 EULER = ["--nx", "64", "--ny", "32", "--steps", "20", "--device", "cpu"]
 
 

@@ -4,7 +4,10 @@ every layout and order, weights carried across with
 ``params_from_reference``, then prefill logits and caches and 4 decode
 steps for qwen3-8b (attention), mamba2-130m (Mamba-2), gemma3-12b (local
 and global attention, sandwich norms; its 21-token prompt wraps the
-16-slot ring) and recurrentgemma-9b (RG-LRU and local attention).
+16-slot ring), recurrentgemma-9b (RG-LRU and local attention),
+qwen1.5-4b (QKV bias, MHA) and chatglm3-6b (GQA, half-dim interleaved
+RoPE).  The encoder-decoder and VLM archs are in
+``test_torch_encdec.py``.
 
 Tolerances: float32 1e-5 for layers and the cache (the cache bit for
 bit), 1e-4 for whole prefill / decode logits (two layers of sums in
@@ -33,7 +36,8 @@ from repro_torch.models import common as tcommon
 from repro_torch.models import kvcache as tkv
 from repro_torch.models import lm as tlm
 
-ARCHS = ["qwen3-8b", "mamba2-130m", "gemma3-12b", "recurrentgemma-9b"]
+ARCHS = ["qwen3-8b", "mamba2-130m", "gemma3-12b", "recurrentgemma-9b",
+         "qwen1.5-4b", "chatglm3-6b"]
 
 
 def _np(x):
@@ -56,22 +60,18 @@ def test_configs_match_reference(arch, smoke):
     assert t.padded_vocab() == j.padded_vocab(1)
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe", "arctic-480b",
-                                  "seamless-m4t-medium",
-                                  "llava-next-mistral-7b", "qwen1.5-4b",
-                                  "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe", "arctic-480b"])
 def test_other_archs_name_their_roadmap_queue(arch):
     with pytest.raises(KeyError, match="ROADMAP queue 5"):
         tconfigs.get(arch)
 
 
-@pytest.mark.parametrize("what", ["moe", "cross"])
+@pytest.mark.parametrize("what", ["moe"])
 def test_moe_ffn_and_cross_attention_name_their_roadmap_queue(what):
-    """An MoE FFN and an encoder-decoder's cross-attention are still
-    refused, naming queue 5; an unknown layer kind is a ValueError."""
+    """An MoE FFN is still refused, naming queue 5; an unknown layer kind
+    is a ValueError."""
     base = tconfigs.get_smoke("gemma3-12b")
-    cfg = base.with_(n_experts=4) if what == "moe" else \
-        base.with_(enc_layers=2)
+    cfg = base.with_(n_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
         tlm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="unknown layer kind"):

@@ -113,12 +113,6 @@ def test_param_count_full_config_allocates_nothing(arch):
     assert grown_kib < 256 * 1024, grown_kib
 
 
-def test_assemble_input_refuses_encoder_decoder():
-    cfg = tconfigs.get_smoke("qwen3-8b").with_(frontend_dim=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
-        tlm.assemble_input(None, {"tokens": torch.zeros(1, 2)}, cfg)
-
-
 # -- one step against the reference ------------------------------------------
 
 def _jax_loss_and_grads(jc, jp, batch):
