@@ -113,6 +113,25 @@ result line):
    against its plain version at these archs' prefill shapes (phase 2,
    ``ATTN_SHAPES_3G``: the mask flipped must fall outside the limit)
    and timed there beside its bound and SDPA (phase 4);
+3h. the MoE archs (after 3g, in phase 3's serving loop): phi3.5-moe (16
+   experts top-2, GQA 32/8) cut to 24 of its 32 layers and arctic-480b
+   (128 experts top-2 beside a dense residual FFN, GQA 56/8) cut to 2 of
+   its 35, each at its published width (``MOE_LAYERS``; the cut logged
+   as reduced), through the default ``Batcher`` with 3g's requests and
+   gates (K6 once per layer per request: 192 and 16 launches; the decode,
+   which routes dropless, captured once; a fresh worker with no new
+   capture and equal streams; one request alone against the weights'
+   read), plus: the (token, k) pairs each request's prefill drops at
+   capacity factor 1.25 (``_dispatch_slots`` wrapped here); each
+   request's stream equal, with no tolerance, to ``legacy_generate`` on
+   that request alone (4 rows of it, the batcher's decode width); the
+   kernel route's prefill logits within ``LOGIT_TOL`` of the plain
+   route's with the plain route replaying the kernel route's expert
+   choices (``_top_k`` wrapped here; also printed without the replay,
+   with the count of (token, layer) choices that differ), and outside it
+   attention without its causal mask, top-1 routing (phi3.5-moe) and no
+   dense residual (arctic-480b); K6 at arctic's (1, 56, 8, 2048, 2048,
+   128) in phase 2 and 4 with ``ATTN_SHAPES_3G``;
 3b. outputs in place and region compile — first K1-K5 with ``out=`` at
    the main path's shapes, float32 and bfloat16, every layout each takes
    (K4's AoSoA through its ops wrapper): ``out`` apart from the inputs,
@@ -340,7 +359,8 @@ LM_KERNEL_TOL = {
 LOGIT_TOL = {"qwen3-8b": 0.25, "mamba2-130m": 0.25, "gemma3-12b": 0.25,
              "recurrentgemma-9b": 0.25, "qwen1.5-4b": 0.25,
              "chatglm3-6b": 0.25, "seamless-m4t-medium": 0.25,
-             "llava-next-mistral-7b": 0.25}
+             "llava-next-mistral-7b": 0.25, "phi3.5-moe": 0.25,
+             "arctic-480b": 0.25}
 # phase 3 serves these two at their published configs beside the two
 # above, with the same checks, the ring check, and one request alone in
 # place of the ragged, interleaved and captured-prefill measurements
@@ -371,14 +391,26 @@ FRONTEND_DECODE_TOL = {"seamless-m4t-medium": 0.25,
 # K6 at the new archs' prefill shapes (B, Hq, Hkv, Sq, Skv, D) and masks:
 # the two dense archs at 2048 tokens, llava's 2048 patches + 512 text,
 # seamless's encoder over 4096 frames, its decoder's self-attention at
-# 512 tokens and its cross-attention from 512 tokens to 4096 frames
+# 512 tokens and its cross-attention from 512 tokens to 4096 frames, and
+# arctic-480b's GQA group of 7 at 2048 tokens (phase 3h; phi3.5-moe's
+# 32/8 is ATTN_SHAPE)
 ATTN_SHAPES_3G = {
     "qwen1.5-4b": ((1, 20, 20, 2048, 2048, 128), True),
     "chatglm3-6b": ((1, 32, 2, 2048, 2048, 128), True),
     "llava-next-mistral-7b": ((1, 32, 8, 2560, 2560, 128), True),
     "seamless encoder": ((1, 16, 16, 4096, 4096, 64), False),
     "seamless decoder self": ((1, 16, 16, 512, 512, 64), True),
-    "seamless cross": ((1, 16, 16, 512, 4096, 64), False)}
+    "seamless cross": ((1, 16, 16, 512, 4096, 64), False),
+    "arctic-480b": ((1, 56, 8, 2048, 2048, 128), True)}
+# phase 3h: the MoE archs through the Batcher with phase 3g's requests and
+# checks, at their published widths cut in depth to fit the card's 80 GB:
+# phi3.5-moe 24 of 32 layers (1.31e9 parameters a layer, 16 experts:
+# 62.8 GB of bf16 weights), arctic-480b 2 of 35 (1.36e10 a layer, 128
+# experts and the dense residual: 27.2 GB each; 3 layers need 82.6 GB).
+# Routing is discontinuous, so the kernel-vs-plain prefill logits are
+# gated with the plain route replaying the kernel route's expert choices
+LM_MOE_ARCHS = ("phi3.5-moe", "arctic-480b")
+MOE_LAYERS = {"phi3.5-moe": 24, "arctic-480b": 2}
 RING_DECODE = 16
 RING_TOL = {"gemma3-12b": 0.25, "recurrentgemma-9b": 0.25}
 # phase 3f, training: qwen3-8b at its published width cut to 4 layers
@@ -776,8 +808,11 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     the replays.  An arch with local layers (gemma3-12b,
     recurrentgemma-9b) skips those four measurements and adds the ring
     check and one request served alone; qwen1.5-4b and chatglm3-6b
-    (``LM_DENSE_ARCHS``) skip them and add the request alone.  Returns
-    the launch counts of the batcher's run and its measurements."""
+    (``LM_DENSE_ARCHS``) skip them and add the request alone; the MoE
+    archs (``LM_MOE_ARCHS``), cut in depth to ``MOE_LAYERS``, add the
+    request alone and take ``moe_checks`` in place of ``serve_checks``.
+    Returns the launch counts of the batcher's run and its
+    measurements."""
     import numpy as np
     import torch
 
@@ -787,6 +822,10 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
 
     dev = torch.device("cuda")
     cfg = configs.get(arch)
+    if arch in MOE_LAYERS:
+        log(f"{arch}: reduced: {MOE_LAYERS[arch]} of {cfg.n_layers} layers "
+            f"(the published width; the depth cut to fit the card)")
+        cfg = cfg.with_(n_layers=MOE_LAYERS[arch])
     kinds = [k for _ in range(cfg.layer_groups()[0])
              for k in cfg.layer_groups()[1]] + list(cfg.layer_groups()[2])
     local = "L" in kinds
@@ -855,7 +894,7 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         f"(the batcher's run) ({card})")
 
     extra = {}
-    if local or arch in LM_DENSE_ARCHS:
+    if local or arch in LM_DENSE_ARCHS + LM_MOE_ARCHS:
         del worker, wreqs
         extra["batch1"] = batch_one(arch, card, cfg, params, prompts[0],
                                     zero_counts)
@@ -879,11 +918,12 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
         log(f"  prefill {arch} {len(prompt)} tokens: {prefill_ms[-1][1]:.3f}"
             f" ms ({card})")
     del batcher
-    return serve_checks(arch, card, cfg, params, prompts, reqs, kinds,
-                        counts, expect, extra, dict(
-                            wall=wall, tok_s=toks / wall,
-                            warm_tok_s=warm_tok / warm_wall,
-                            step_ms=step_ms, prefill_ms=prefill_ms))
+    checks = moe_checks if arch in LM_MOE_ARCHS else serve_checks
+    return checks(arch, card, cfg, params, prompts, reqs, kinds, counts,
+                  expect, extra, dict(wall=wall, tok_s=toks / wall,
+                                      warm_tok_s=warm_tok / warm_wall,
+                                      step_ms=step_ms,
+                                      prefill_ms=prefill_ms))
 
 
 def serve_measurements(arch: str, card: str, cfg, params, batcher, worker,
@@ -981,7 +1021,7 @@ def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import legacy_generate
     from repro_torch.models import attention as model_attention
-    from repro_torch.models.lm import decode_step, prefill
+    from repro_torch.models.lm import prefill
 
     dev = torch.device("cuda")
     # the uniform loop on each equal-length pair, repeated to the
@@ -1062,10 +1102,23 @@ def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
         raise AssertionError(f"{arch}: the logits limit does not see "
                              f"{what}")
     ring = ring_check(arch, card, cfg, params) if "L" in kinds else None
-    # where the time goes: one prefill and one decode step (batch 1),
-    # host clock around each, then the device's kernels under the profiler
+    busy = busy_profile(arch, card, cfg, params, run_prefill,
+                        got.argmax(dim=-1).to(torch.int32), len(prompts[0]))
+    return {**run, **extra, "counts": counts, "expect": expect,
+            "logit_err": err, "wrong_err": werr, "ring": ring, "busy": busy}
+
+
+def busy_profile(arch: str, card: str, cfg, params, run_prefill, nxt,
+                 n_tokens: int) -> dict:
+    """Where the time goes: one prefill (``run_prefill()`` -> (logits,
+    caches)) and one decode step of ``nxt`` after it (batch 1), the host
+    clock around each, then the device's kernels under the profiler.
+    Returns {what: (wall ms, device ms)}."""
+    import torch
+
+    from repro_torch.models.lm import decode_step
+
     _, caches = run_prefill()
-    nxt = got.argmax(dim=-1).to(torch.int32)
     busy = {}
     for what, fn in (("prefill", run_prefill),
                      ("decode step", lambda: decode_step(params, caches,
@@ -1081,7 +1134,7 @@ def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
         dev_ms = sum(us for us, _ in by_kernel.values()) / 1e3
         wall_ms = statistics.median(walls)
         busy[what] = (wall_ms, dev_ms)
-        log(f"{arch} {what} (batch 1, {len(prompts[0])} tokens): wall "
+        log(f"{arch} {what} (batch 1, {n_tokens} tokens): wall "
             f"{wall_ms:.3f} ms (median of 3), device busy {dev_ms:.3f} ms "
             f"({100 * dev_ms / wall_ms:.1f} %), "
             f"{sum(n for _, n in by_kernel.values())} kernel launches "
@@ -1089,8 +1142,162 @@ def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
         for name, (us, count) in top:
             log(f"  {us / 1e3:.4f} ms, {count} launches: {name[:90]}")
+    return busy
+
+
+def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
+               counts, expect, extra: dict, run: dict) -> dict:
+    """Phase 3h's checks of an MoE arch after its batcher's run: the
+    (token, k) pairs each request's prefill drops (``_dispatch_slots``
+    wrapped here); the batcher's streams (``reqs``) against
+    ``legacy_generate`` on each request alone, repeated to the batcher's
+    4 slots so both decode at one width (equal, no tolerance; a
+    difference prints its first position and the top-2 logit gap there);
+    the kernel route's prefill logits against the plain route's with the
+    plain route replaying the kernel route's expert choices (``_top_k``
+    wrapped here), within ``LOGIT_TOL``, also printed without the replay
+    with the count of (token, layer) choices that differ; the wrong
+    variants outside the limit (attention without its causal mask; top-1
+    routing for phi3.5-moe; arctic without its dense residual); then
+    ``busy_profile``.  Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models import moe
+    from repro_torch.models.lm import prefill
+
+    dev = torch.device("cuda")
+
+    def tokens_of(ids):
+        return torch.from_numpy(np.asarray(ids, np.int32)[None]).to(dev)
+
+    # the pairs each request's prefill drops, layer by layer
+    real_slots = moe._dispatch_slots
+    drops = []
+
+    def counting(gate_idx, E, C):
+        out = real_slots(gate_idx, E, C)
+        drops[-1].append((~out[1]).sum())
+        return out
+
+    moe._dispatch_slots = counting
+    try:
+        for prompt in prompts:
+            drops.append([])
+            prefill(params, {"tokens": tokens_of(prompt)}, cfg,
+                    max_seq=len(prompt) + 1)
+    finally:
+        moe._dispatch_slots = real_slots
+    drops = [[int(d) for d in row] for row in drops]
+    for prompt, row in zip(prompts, drops):
+        cap = moe.moe_capacity(len(prompt), cfg.n_experts, cfg.top_k,
+                               cfg.capacity_factor)
+        log(f"{arch} prefill of {len(prompt)} tokens: {sum(row)} of "
+            f"{len(prompt) * cfg.top_k * len(row)} (token, k) pairs dropped "
+            f"over {len(row)} layers (capacity {cap} an expert; per layer "
+            f"{min(row)}-{max(row)})")
+
+    # the uniform loop on each request alone, 4 rows of it
+    for i, prompt in enumerate(prompts):
+        rows = np.stack([prompt] * LM_SLOTS)
+        gen, t_pre, t_dec = legacy_generate(cfg, params,
+                                            torch.from_numpy(rows), LM_GEN,
+                                            LM_MAX_SEQ)
+        want = reqs[i].generated
+        for row in gen:
+            if row.tolist() == want:
+                continue
+            pos = next(j for j, (a, b) in enumerate(zip(row, want))
+                       if a != b)
+            top2 = prefill(params, {"tokens": tokens_of(
+                list(prompt) + want[:pos])}, cfg)[0].float().topk(2).values
+            log(f"{arch}: request {i} ({len(prompt)} tokens) first differs "
+                f"at generated position {pos}: batcher {want[pos]}, "
+                f"legacy_generate {int(row[pos])}; top-2 logit gap there "
+                f"{float(top2[0, 0] - top2[0, 1]):.4e}")
+            raise AssertionError(f"{arch}: request {i}'s stream differs from "
+                                 f"legacy_generate's")
+        log(f"{arch} stream of request {i} ({len(prompt)} tokens) equals "
+            f"legacy_generate's on it alone ({LM_SLOTS} rows; its prefill "
+            f"{t_pre * 1e3:.1f} ms, decode "
+            f"{t_dec / (LM_GEN - 1) * 1e3:.3f} ms per step)")
+
+    # the kernel route against the plain route, the plain route replaying
+    # the kernel route's expert choices
+    tokens = tokens_of(prompts[0])
+    real_top = moe._top_k
+
+    def logits(use_kernel=True, replay=None, c=cfg):
+        chosen = []
+
+        def route(probs, k):
+            idx = real_top(probs, k) if replay is None \
+                else replay[len(chosen)]
+            chosen.append(idx)
+            return idx
+
+        moe._top_k = route
+        try:
+            out = prefill(params, {"tokens": tokens}, c,
+                          max_seq=tokens.shape[1] + 1,
+                          use_kernel=use_kernel)[0].float()
+        finally:
+            moe._top_k = real_top
+        return out, chosen
+
+    got, kernel_route = logits()
+    want, _ = logits(use_kernel=False, replay=kernel_route)
+    free, plain_route = logits(use_kernel=False)
+    if tuple(got.shape) != (1, cfg.padded_vocab()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch}: prefill logits of shape "
+                             f"{tuple(got.shape)}, or not finite")
+    err = float((got - want).abs().max())
+    free_err = float((got - free).abs().max())
+    differ = sum(int((a != b).any(dim=-1).sum())
+                 for a, b in zip(kernel_route, plain_route))
+    log(f"{arch} prefill logits ({tokens.shape[1]} tokens), kernel route vs "
+        f"plain route replaying its expert choices: max |difference| "
+        f"{err:.4e} (limit {LOGIT_TOL[arch]:g}, plain logits max |x| "
+        f"{float(want.abs().max()):.3f}); argmax equal: "
+        f"{int(got.argmax()) == int(want.argmax())}; without the replay "
+        f"{free_err:.4e}, {differ} of {tokens.shape[1] * len(kernel_route)} "
+        f"(token, layer) choices differ between the routes")
+    if not err <= LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch}: prefill logits outside the limit")
+    real = model_attention.flash_attention_fn
+    variants = {"attention without its causal mask": None}
+    if arch == "phi3.5-moe":
+        variants["top-1 routing"] = cfg.with_(top_k=1)
+    if cfg.dense_residual:
+        variants["no dense residual"] = cfg.with_(dense_residual=False)
+    wrong = {}
+    for what, c in variants.items():
+        if c is None:
+            model_attention.flash_attention_fn = \
+                lambda *a, **kw: real(*a, **{**kw, "causal": False})
+        try:
+            bad, _ = logits(c=c or cfg)
+        finally:
+            model_attention.flash_attention_fn = real
+        wrong[what] = float((bad - want).abs().max())
+        log(f"{arch} wrong variant ({what}): max |difference| "
+            f"{wrong[what]:.4e} against the plain route (limit "
+            f"{LOGIT_TOL[arch]:g})")
+        if not wrong[what] > LOGIT_TOL[arch]:
+            raise AssertionError(f"{arch}: the logits limit does not see "
+                                 f"{what}")
+    busy = busy_profile(arch, card, cfg, params,
+                        lambda: prefill(params, {"tokens": tokens}, cfg,
+                                        max_seq=tokens.shape[1] + 1),
+                        got.argmax(dim=-1).to(torch.int32),
+                        tokens.shape[1])
     return {**run, **extra, "counts": counts, "expect": expect,
-            "logit_err": err, "wrong_err": werr, "ring": ring, "busy": busy}
+            "logit_err": err, "free_err": free_err, "differ": differ,
+            "wrong": wrong, "wrong_err": min(wrong.values()),
+            "drops": drops, "ring": None, "busy": busy}
 
 
 def batch_one(arch: str, card: str, cfg, params, prompt,
@@ -1284,9 +1491,10 @@ def local_attention_times(card: str) -> dict:
 
 
 def serving_attention_parity() -> float:
-    """K6 at the prefill shapes of phase 3g's archs (``ATTN_SHAPES_3G``:
-    MHA 20/20, GQA 32/2, llava's 2560 positions, head dim 64 without a
-    mask over 4096 frames and from 512 queries to 4096 keys) against
+    """K6 at the prefill shapes of phase 3g's and 3h's archs
+    (``ATTN_SHAPES_3G``: MHA 20/20, GQA 32/2, llava's 2560 positions, head
+    dim 64 without a mask over 4096 frames and from 512 queries to 4096
+    keys, arctic-480b's GQA 56/8) against
     ``mha_ref`` on the same inputs, float32 and bfloat16, within
     ``LM_KERNEL_TOL``; in bfloat16 the kernel with its mask flipped
     (causal where the shape has none, none where it is causal) must fall
@@ -2211,6 +2419,10 @@ def serve_regions(arch: str, card: str, zero_counts, counts_now) -> dict:
 
     dev = torch.device("cuda")
     cfg = configs.get(arch)
+    if arch in MOE_LAYERS:
+        log(f"{arch}: reduced: {MOE_LAYERS[arch]} of {cfg.n_layers} layers "
+            f"(the published width; the depth cut to fit the card)")
+        cfg = cfg.with_(n_layers=MOE_LAYERS[arch])
     kinds = [k for _ in range(cfg.layer_groups()[0])
              for k in cfg.layer_groups()[1]] + list(cfg.layer_groups()[2])
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -3820,8 +4032,8 @@ def main() -> int:
     # K6 at head dim 256: gemma3-12b's and recurrentgemma-9b's prefills
     errs["flash_attention"] = max(errs["flash_attention"],
                                   local_attention_parity())
-    # ... and at phase 3g's shapes: MHA 20/20, GQA 32/2, head dim 64
-    # without a mask, 512 queries against 4096 keys
+    # ... and at phase 3g's and 3h's shapes: MHA 20/20, GQA 32/2, head
+    # dim 64 without a mask, 512 queries against 4096 keys, GQA 56/8
     errs["flash_attention"] = max(errs["flash_attention"],
                                   serving_attention_parity())
 
@@ -4091,9 +4303,10 @@ def main() -> int:
     # 3g: qwen1.5-4b and chatglm3-6b through the Batcher, then
     # seamless-m4t-medium and llava-next-mistral-7b through the uniform
     # loop (the encoder, cross-attention and patches through K6)
+    # 3h: phi3.5-moe and arctic-480b, cut in depth, through the Batcher
     lm_runs = {}
     for arch in (("qwen3-8b", "mamba2-130m") + LM_LOCAL_ARCHS
-                 + LM_DENSE_ARCHS + LM_FRONTEND_ARCHS):
+                 + LM_DENSE_ARCHS + LM_FRONTEND_ARCHS + LM_MOE_ARCHS):
         serve = serve_frontend if arch in LM_FRONTEND_ARCHS else serve_lm
         run = serve(arch, card, zero_counts,
                     lambda: {k: w.launches for k, w in wrappers.items()})
@@ -4343,6 +4556,23 @@ def main() -> int:
                 f"{run['wrong_err']:.4e}); decode check "
                 f"{run['decode']['err']:.4e} (wrong variants "
                 f"{json.dumps(run['decode']['wrong'])}) ({card})")
+            continue
+        if arch in LM_MOE_ARCHS:
+            b1 = run["batch1"]
+            pre = run["busy"]["prefill"]
+            log(f"serve {arch} ({MOE_LAYERS[arch]} layers) at the defaults: "
+                f"{run['tok_s']:.1f} tokens/s with the decode capture, "
+                f"{run['warm_tok_s']:.1f} without; decode "
+                f"{run['step_ms']:.3f} ms per step (4 slots), batch 1 "
+                f"{b1['step_ms']:.3f}, bound {b1['bound_ms']:.3f} (every "
+                f"weight read once); eager prefill ms per request "
+                f"{[round(ms, 3) for _, ms in run['prefill_ms']]}; batch 1 "
+                f"prefill {pre[0]:.3f} ms ({100 * pre[1] / pre[0]:.1f} % "
+                f"busy), {b1['tok_s']:.1f} tokens/s; pairs dropped per "
+                f"prefill {[sum(r) for r in run['drops']]}; prefill logits "
+                f"{run['logit_err']:.4e} replayed, {run['free_err']:.4e} "
+                f"free ({run['differ']} choices differ); wrong variants "
+                f"{json.dumps(run['wrong'])} ({card})")
             continue
         if arch in LM_LOCAL_ARCHS + LM_DENSE_ARCHS:
             b1 = run["batch1"]

@@ -362,8 +362,8 @@ def make_prefill_graph(cfg: ModelConfig, params, *, prompt_len: int,
     flat = tuple(t for slot in slots for t in slot.tensors)
 
     def body(h_, hl_, *cache_vals):
-        hh, raw = decoder_pass(params, h_, cfg, want_cache=True,
-                               use_kernel=use_kernel)
+        hh, _, raw = decoder_pass(params, h_, cfg, want_cache=True,
+                                  use_kernel=use_kernel)
         outs = []
         for slot in slots:
             store = _prefill_to_decode_cache(

@@ -6,8 +6,10 @@
         --smoke --steps 100 --batch 8 --seq 128 [--device cpu]
 
 It runs on the GPU unless ``--device cpu`` asks for the plain versions of
-the kernels.  The reference's ``--mesh`` (GSPMD sharding over a device
-mesh) is not ported: the port trains on one device.
+the kernels.  An encoder-decoder's batches carry ``frames`` and a VLM's
+``patches``, seeded by the step as the reference's.  The reference's
+``--mesh`` (GSPMD sharding over a device mesh) is not ported: the port
+trains on one device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import tempfile
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from .. import configs
@@ -29,7 +32,7 @@ from ..optim import cosine_schedule
 from ..runtime import Supervisor
 from . import steps as S
 
-__all__ = ["build_trainer", "main"]
+__all__ = ["build_trainer", "make_batch_at", "main"]
 
 
 def build_trainer(cfg, *, total_steps: int, peak_lr: float = 3e-4,
@@ -46,6 +49,32 @@ def build_trainer(cfg, *, total_steps: int, peak_lr: float = 3e-4,
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     return step_fn, state
+
+
+def make_batch_at(cfg, data, *, batch: int, seq: int, device: Any = None):
+    """-> ``batch_at(i)``: step ``i``'s batch of ``data`` on ``device``
+    (``None``: the GPU), with ``frames`` (batch, seq, frontend_dim) for an
+    encoder-decoder or ``patches`` (batch, frontend_tokens,
+    frontend_dim) for a VLM drawn from ``np.random.default_rng(i)``, as
+    the reference's ``batch_at``."""
+    dev = resolve_device(device)
+
+    def batch_at(i):
+        out = {k: torch.from_numpy(v).to(dev)
+               for k, v in data.batch_at(i).items()}
+        shape = None
+        if cfg.is_encdec:
+            key, shape = "frames", (batch, seq, cfg.frontend_dim)
+        elif cfg.frontend_dim:
+            key, shape = "patches", (batch, cfg.frontend_tokens,
+                                     cfg.frontend_dim)
+        if shape is not None:
+            out[key] = torch.from_numpy(np.random.default_rng(i)
+                                        .standard_normal(shape)
+                                        .astype(np.float32)).to(dev)
+        return out
+
+    return batch_at
 
 
 def main(argv=None):
@@ -80,9 +109,8 @@ def main(argv=None):
         metrics_log.append({k: float(v) for k, v in m.items()})
         return state
 
-    def batch_at(i):
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in data.batch_at(i).items()}
+    batch_at = make_batch_at(cfg, data, batch=args.batch, seq=args.seq,
+                             device=dev)
 
     sup = Supervisor(step_fn=step_and_log,
                      ckpt=CheckpointManager(args.ckpt_dir),

@@ -1,8 +1,9 @@
-"""Layer blocks: attention (self and cross), the dense FFN, and the
-uniform layer wrapper that puts mixer, cross-attention and FFN between
-pre-norms (and post-norms, under ``sandwich_norm``), for layer kinds "A"
-(global attention), "L" (local, sliding-window attention over a ring
-cache), "M" (Mamba2) and "R" (RG-LRU), as ``repro.models.blocks`` does.
+"""Layer blocks: attention (self and cross), the dense and routed FFNs,
+and the uniform layer wrapper that puts mixer, cross-attention and FFN
+between pre-norms (and post-norms, under ``sandwich_norm``), for layer
+kinds "A" (global attention), "L" (local, sliding-window attention over
+a ring cache), "M" (Mamba2) and "R" (RG-LRU), as ``repro.models.blocks``
+does.
 
 Every block has three entry points:
   init_*       parameters, as children of an ``nn.Module`` tree
@@ -10,9 +11,12 @@ Every block has three entry points:
   *_decode     one token against the cache
 
 The JAX package's ``ShardCtx`` has no counterpart: the port runs one
-device.  MoE FFNs raise ``NotImplementedError`` naming their ROADMAP
-queue.  Prefill positions are always ``0 .. S-1``: the port prefills a
-sequence from its first token (a VLM's from its first patch position).
+device.  An MoE FFN (``cfg.n_experts``) routes through
+``models/moe.py``, with arctic's dense residual FFN beside it where
+``cfg.dense_residual``: a full-sequence layer buckets to capacity and
+returns the load-balance loss, a decode step routes dropless.  Prefill
+positions are always ``0 .. S-1``: the port prefills a sequence from its
+first token (a VLM's from its first patch position).
 
 A decoder layer of an encoder-decoder arch carries a cross-attention
 (``cross``, after the mixer's residual): its queries come from the
@@ -42,6 +46,7 @@ from .attention import attention, decode_attention
 from .common import (Init, ParamModule, apply_rope, layer_norm, rms_norm,
                      rope_cos_sin)
 from .config import ModelConfig
+from .moe import init_moe, moe_block
 from .ssm import (init_mamba2, init_rglru, mamba2_decode, mamba2_forward,
                   rglru_decode, rglru_forward)
 
@@ -284,12 +289,18 @@ def _write_token(p, h_t, q, cache, pos, cfg: ModelConfig, window,
 
 def init_ffn(init: Init, parent: ParamModule, cfg: ModelConfig,
              name: str = "ffn") -> None:
-    """The dense FFN as child ``name`` of ``parent``."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE FFNs are ROADMAP queue 5 (MoE)")
+    """The FFN as child ``name`` of ``parent``: the routed experts
+    (``moe``, and ``wi_dense``/``wo_dense`` for a dense residual) where
+    the config has experts, else the dense FFN."""
     d, f = cfg.d_model, cfg.d_ff
     p = ParamModule()
-    if cfg.mlp_kind in ("swiglu", "geglu"):
+    if cfg.n_experts:
+        init_moe(init, p, d_model=d, d_ff=f, n_experts=cfg.n_experts,
+                 name="moe")
+        if cfg.dense_residual:
+            init.dense(p, "wi_dense", (d, 2, f), fan_in=d)
+            init.dense(p, "wo_dense", (f, d), fan_in=f)
+    elif cfg.mlp_kind in ("swiglu", "geglu"):
         init.dense(p, "wi", (d, 2, f), fan_in=d)
         init.dense(p, "wo", (f, d), fan_in=f)
     else:
@@ -305,17 +316,34 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def ffn_forward(p, x, cfg: ModelConfig):
-    """x (..., d) -> (..., d): SwiGLU / GeGLU / MLP."""
+def _glu(x, wi, wo, cfg: ModelConfig):
+    h = torch.einsum("...d,dtf->...tf", x, wi.to(x.dtype))
+    gate, up = h[..., 0, :], h[..., 1, :]
+    g = _gelu(gate) if cfg.mlp_kind == "geglu" else F.silu(gate)
+    return (g * up) @ wo.to(x.dtype)
+
+
+def ffn_forward(p, x, cfg: ModelConfig, *, dropless: bool = False):
+    """x (..., d) -> (out (..., d), aux): SwiGLU / GeGLU / MLP with aux
+    None, or the routed experts (bucketed to capacity, or ``dropless``)
+    plus the dense residual where the config has one, with aux their
+    load-balance loss (float32 scalar)."""
     cdt = x.dtype
+    if cfg.n_experts:
+        lead = x.shape[:-1]
+        out, aux = moe_block(p["moe"], x.reshape(-1, cfg.d_model),
+                             top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             dropless=dropless)
+        out = out.reshape(*lead, cfg.d_model)
+        if cfg.dense_residual:
+            out = out + _glu(x, p["wi_dense"], p["wo_dense"], cfg)
+        return out, aux
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        h = torch.einsum("...d,dtf->...tf", x, p["wi"].to(cdt))
-        gate, up = h[..., 0, :], h[..., 1, :]
-        g = _gelu(gate) if cfg.mlp_kind == "geglu" else F.silu(gate)
-        return (g * up) @ p["wo"].to(cdt)
+        return _glu(x, p["wi"], p["wo"], cfg), None
     h = x @ p["wi"].to(cdt) + p["bi"].to(cdt)
     h = _gelu(h) if cfg.act == "gelu" else F.silu(h)
-    return h @ p["wo"].to(cdt) + p["bo"].to(cdt)
+    return h @ p["wo"].to(cdt) + p["bo"].to(cdt), None
 
 
 # ---------------------------------------------------------------------------
@@ -363,13 +391,15 @@ def _local(kind: str, cfg: ModelConfig):
     return cfg.window, cfg
 
 
-def _ffn_residual(p, h, cfg: ModelConfig):
+def _ffn_residual(p, h, cfg: ModelConfig, *, dropless: bool = False):
+    """-> (h + the FFN's output, its aux or None)."""
     if not cfg.d_ff:
-        return h
-    out = ffn_forward(p["ffn"], norm_apply(p, h, cfg, "ln_ffn"), cfg)
+        return h, None
+    out, aux = ffn_forward(p["ffn"], norm_apply(p, h, cfg, "ln_ffn"), cfg,
+                           dropless=dropless)
     if cfg.sandwich_norm:
         out = norm_apply(p, out, cfg, "ln_ffn_post")
-    return h + out
+    return h + out, aux
 
 
 def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
@@ -377,7 +407,8 @@ def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
                   use_kernel: bool = True):
     """Full-sequence layer (``causal=False``: an encoder layer; with
     ``enc_out`` a decoder layer's cross-attention reads it); returns (h,
-    cache_entry | None)."""
+    aux | None, cache_entry | None), aux the MoE load-balance loss of a
+    routed FFN (bucketed to capacity)."""
     _check_kind(kind)
     window, cfg = _local(kind, cfg)
     x = norm_apply(p, h, cfg, "ln_mix")
@@ -400,7 +431,8 @@ def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
         h = h + attention_forward(p["cross"],
                                   norm_apply(p, h, cfg, "ln_cross"), cfg,
                                   enc_out=enc_out, use_kernel=use_kernel)
-    return _ffn_residual(p, h, cfg), cache if want_cache else None
+    h, aux = _ffn_residual(p, h, cfg)
+    return h, aux, cache if want_cache else None
 
 
 def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
@@ -411,7 +443,7 @@ def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
     layer's pair with None where a new tensor is made), else a new
     one.  ``enc_cache`` is the layer's frozen cross-attention cache, of
     which ``enc_len`` slots are read (``None``: all of them); it is not
-    written."""
+    written.  A routed FFN routes dropless, as the reference's decode."""
     _check_kind(kind)
     window, cfg = _local(kind, cfg)
     x = norm_apply(p, h_t, cfg, "ln_mix")
@@ -432,7 +464,7 @@ def layer_decode(p, h_t, kind: str, cfg: ModelConfig, *, cache, pos,
                                   cross_len=_cache_seq_len(enc_cache, cfg)
                                   if enc_len is None else enc_len)
         h_t = h_t + out
-    return _ffn_residual(p, h_t, cfg), cache
+    return _ffn_residual(p, h_t, cfg, dropless=True)[0], cache
 
 
 def make_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,

@@ -152,15 +152,21 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return per_tok.sum() / n
 
 
+def _add_aux(total, aux):
+    return aux if total is None else total if aux is None else total + aux
+
+
 def _group_forward(gp, h, pattern, cfg: ModelConfig, want_cache: bool,
                    use_kernel: bool, enc_out=None):
-    caches = {}
+    """One layer group -> (h, the group's aux | None, its caches)."""
+    caches, aux_g = {}, None
     for i, kind in enumerate(pattern):
-        h, caches[f"p{i}"] = layer_forward(gp[f"p{i}"], h, kind, cfg,
-                                           enc_out=enc_out,
-                                           want_cache=want_cache,
-                                           use_kernel=use_kernel)
-    return h, caches
+        h, aux, caches[f"p{i}"] = layer_forward(gp[f"p{i}"], h, kind, cfg,
+                                                enc_out=enc_out,
+                                                want_cache=want_cache,
+                                                use_kernel=use_kernel)
+        aux_g = _add_aux(aux_g, aux)
+    return h, aux_g, caches
 
 
 def encode(params, frames, cfg: ModelConfig, *, use_kernel: bool = True):
@@ -182,36 +188,41 @@ def encode(params, frames, cfg: ModelConfig, *, use_kernel: bool = True):
 
 def decoder_pass(params, h, cfg: ModelConfig, *, enc_out=None,
                  want_cache: bool = False, use_kernel: bool = True):
-    """-> (h after the final norm, caches | None), caches as
-    ``{"groups": [...], "tail": [...]}`` of raw layer emissions; an
-    encoder-decoder's layers read ``enc_out`` in their cross-attention.
-    Under grad mode with ``cfg.remat == "full"`` each layer group is
-    recomputed in the backward instead of keeping its activations."""
+    """-> (h after the final norm, aux, caches | None), caches as
+    ``{"groups": [...], "tail": [...]}`` of raw layer emissions and aux
+    the routed FFNs' load-balance losses summed over groups and tail
+    (None where no layer routes); an encoder-decoder's layers read
+    ``enc_out`` in their cross-attention.  Under grad mode with
+    ``cfg.remat == "full"`` each layer group is recomputed in the
+    backward instead of keeping its activations (the same routing)."""
     n_groups, pattern, tail = cfg.layer_groups()
     remat = (cfg.remat == "full" and not want_cache
              and torch.is_grad_enabled())
-    groups = []
+    groups, aux_total = [], None
     for g in range(n_groups):
         gp = params["groups"][g]
         if remat:
-            h = checkpoint(
+            h, aux = checkpoint(
                 lambda x, gp=gp: _group_forward(gp, x, pattern, cfg, False,
                                                 use_kernel,
-                                                enc_out=enc_out)[0],
+                                                enc_out=enc_out)[:2],
                 h, use_reentrant=False)
             groups.append(None)
         else:
-            h, c = _group_forward(gp, h, pattern, cfg, want_cache,
-                                  use_kernel, enc_out=enc_out)
+            h, aux, c = _group_forward(gp, h, pattern, cfg, want_cache,
+                                       use_kernel, enc_out=enc_out)
             groups.append(c)
+        aux_total = _add_aux(aux_total, aux)
     tails = []
     for i, kind in enumerate(tail):
-        h, c = layer_forward(params[f"tail{i}"]["layer"], h, kind, cfg,
-                             enc_out=enc_out, want_cache=want_cache,
-                             use_kernel=use_kernel)
+        h, aux, c = layer_forward(params[f"tail{i}"]["layer"], h, kind, cfg,
+                                  enc_out=enc_out, want_cache=want_cache,
+                                  use_kernel=use_kernel)
+        aux_total = _add_aux(aux_total, aux)
         tails.append(c)
     h = norm_apply(params["final"], h, cfg, "ln")
-    return h, ({"groups": groups, "tail": tails} if want_cache else None)
+    return h, aux_total, ({"groups": groups, "tail": tails} if want_cache
+                          else None)
 
 
 def assemble_input(params, batch, cfg: ModelConfig, *,
@@ -236,22 +247,23 @@ def assemble_input(params, batch, cfg: ModelConfig, *,
 
 def forward_loss(params, batch, cfg: ModelConfig, *,
                  aux_weight: float = 0.01, use_kernel: bool = True):
-    """Training objective: CE + ``aux_weight`` * aux, with aux 0 for the
-    dense and SSM archs the port runs (the MoE load-balance loss is
-    ROADMAP queue 5).  A VLM's logits at its patch positions are dropped
-    where the labels cover the text alone.  Returns ``(total, {"loss",
+    """Training objective: CE + ``aux_weight`` * aux, aux the routed FFNs'
+    load-balance loss summed over the layers (0 where no layer routes).
+    A VLM's logits at its patch positions are dropped where the labels
+    cover the text alone.  Returns ``(total, {"loss",
     "aux"})``.  On the GPU attention runs on K6 and the SSD on K7 unless
     ``use_kernel=False``; their gradients are the plain versions'."""
     h, _, enc_out = assemble_input(params, batch, cfg,
                                    use_kernel=use_kernel)
-    h, _ = decoder_pass(params, h, cfg, enc_out=enc_out,
-                        use_kernel=use_kernel)
+    h, aux, _ = decoder_pass(params, h, cfg, enc_out=enc_out,
+                             use_kernel=use_kernel)
     logits = lm_logits(params, h, cfg)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:   # a VLM: the patch positions
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     loss = ce_loss(logits, labels)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -313,8 +325,8 @@ def prefill(params, batch, cfg: ModelConfig, *,
                                    use_kernel=use_kernel)
     B, S = h.shape[0], h.shape[1]
     max_seq = max_seq or S
-    h, raw = decoder_pass(params, h, cfg, enc_out=enc_out, want_cache=True,
-                          use_kernel=use_kernel)
+    h, _, raw = decoder_pass(params, h, cfg, enc_out=enc_out,
+                             want_cache=True, use_kernel=use_kernel)
     dt, dev = cfg.compute_torch_dtype, h.device
 
     def entry(p, raw_entry, kind):

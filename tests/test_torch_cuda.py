@@ -1241,3 +1241,60 @@ def test_encdec_and_vlm_prefill_run_k6_at_every_attention_layer(dev, arch):
     b, _, _ = legacy_generate(cfg, params, toks, 6, max_seq,
                               use_kernel=False, **fr)
     assert (a == b).all()
+
+
+# -- the MoE FFN on the card ---------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_block_on_the_card_matches_the_cpu(dev, dtype, dropless):
+    """``moe_block`` on the card against the same call on the CPU, at
+    capacity factor 1.0 (pairs dropped) and dropless: the same routing
+    (float32 router on both), the output within the dtype's limit, the
+    load-balance loss at 1e-5."""
+    from repro_torch.models.common import Init, ParamModule
+    from repro_torch.models.moe import init_moe, moe_block
+
+    dt = getattr(torch, dtype)
+    p = ParamModule()
+    init_moe(Init(torch.Generator().manual_seed(0), dt, "cpu"), p,
+             d_model=64, d_ff=128, n_experts=8)
+    cpu = {k: v.detach() for k, v in p["moe"].named_parameters()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (96, 64)).astype(np.float32)).to(dt)
+    kw = dict(top_k=2, capacity_factor=1.0, dropless=dropless)
+    got, aux = moe_block(card, x.to(dev), **kw)
+    want, want_aux = moe_block(cpu, x, **kw)
+    assert got.dtype == dt and got.device.type == "cuda"
+    _close(got, want, _tol(dtype))
+    _close(aux, want_aux, 1e-5)
+
+
+def test_moe_smoke_decode_is_captured_once(dev):
+    """phi3.5-moe's smoke config served on the card by the default
+    ``Batcher``: the dropless decode step (sort, gathers, batched expert
+    products) captured once and replayed, its streams those of the eager
+    (``regions=False``) batcher."""
+    import repro_torch.configs as configs
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime.batcher import Batcher
+
+    cfg = configs.get_smoke("phi3.5-moe").with_(capacity_factor=1.0)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (3, 16, 5, 12)]
+
+    def serve(opts):
+        b = Batcher(cfg, params, batch=2, max_seq=28, executor_opts=opts,
+                    log=lambda *_: None)
+        reqs = [b.submit(q, max_new_tokens=6) for q in prompts]
+        b.run()
+        return [r.generated for r in reqs], b
+
+    eager, _ = serve({"regions": False})
+    got, bc = serve({})
+    assert bc.executor.regions and bc.executor.donate
+    assert bc.cache_stats()["decode"]["trace_events"] == 1
+    assert got == eager

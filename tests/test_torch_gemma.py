@@ -2,7 +2,10 @@
 package on the CPU: sliding-window "L" attention over its ring cache, the
 sandwich norms, RG-LRU "R" layers, and both models served by the
 ``Batcher`` with a window small enough that the ring wraps in prefill and
-in decode.  Inputs are made with numpy from a seed and handed to both.
+in decode; then, for kinds "M" (mamba2-130m) and "R", prompts shorter
+than the conv window (1 and 2 tokens) prefilled and decoded against the
+decode from a zero state, also through the ``Batcher``.  Inputs are made
+with numpy from a seed and handed to both.
 
 Tolerances: the ring cache's prefill write bit for bit (the same values
 placed); RG-LRU in float32 1e-5 (the port's doubling scan and XLA's
@@ -271,3 +274,67 @@ def test_batcher_matches_reference_batcher(arch, kv_layout):
         eager = Batcher(tc, tp, batch=2, max_seq=MAX_SEQ,
                         executor_opts={"regions": False})
         assert _serve(eager, prompts) == refs
+
+
+# -- prompts shorter than the conv window --------------------------------------
+
+def _decode_from_zero(tc, tp, toks, max_seq):
+    """Every position's logits, the whole sequence decoded token by token
+    from empty caches (zero SSM, RG-LRU and conv states)."""
+    caches = tlm.init_caches(tp, tc, toks.shape[0], max_seq, "cpu")
+    out = []
+    for t in range(toks.shape[1]):
+        logits, caches = tlm.decode_step(tp, caches, toks[:, t], tc)
+        out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("prompt", [1, 2])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_prompt_shorter_than_the_conv_window_then_decode(arch, prompt):
+    """A prompt of fewer than ``d_conv - 1`` tokens (kinds "M" and "R"),
+    prefilled and then decoded, gives the logits of the token-by-token
+    decode from a zero state at every position: the prefill's conv state
+    is the zero-padded window (the reference cannot decode here; ROADMAP,
+    faults of the port against the reference)."""
+    tc = tconfigs.get_smoke(arch)
+    assert prompt < tc.d_conv - 1
+    tp = tlm.init_lm(tc, torch.Generator().manual_seed(0), "cpu")
+    n = prompt + 4
+    toks = torch.from_numpy(np.random.default_rng(prompt).integers(
+        1, tc.vocab_size, (2, n)).astype(np.int32))
+    logits, caches = tlm.prefill(tp, {"tokens": toks[:, :prompt]}, tc,
+                                 max_seq=n)
+    got = [logits]
+    for t in range(prompt, n - 1):
+        logits, caches = tlm.decode_step(tp, caches, toks[:, t], tc)
+        got.append(logits)
+    want = _decode_from_zero(tc, tp, toks, n)[prompt - 1:n - 1]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_batcher_serves_prompts_shorter_than_the_conv_window(arch):
+    """1- and 2-token prompts through the default ``Batcher``: each
+    stream is the greedy stream of the decode from a zero state."""
+    tc = tconfigs.get_smoke(arch)
+    tp = tlm.init_lm(tc, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, tc.vocab_size, (L,)).astype(np.int32)
+               for L in (1, 2, 1, 2)]
+    gen = 5
+    b = Batcher(tc, tp, batch=2, max_seq=MAX_SEQ)
+    reqs = [b.submit(p, max_new_tokens=gen) for p in prompts]
+    b.run()
+    for p, r in zip(prompts, reqs):
+        toks = torch.from_numpy(p[None])
+        caches = tlm.init_caches(tp, tc, 1, MAX_SEQ, "cpu")
+        for t in range(len(p)):
+            logits, caches = tlm.decode_step(tp, caches, toks[:, t], tc)
+        want = []
+        for _ in range(gen):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            want.append(int(nxt))
+            logits, caches = tlm.decode_step(tp, caches, nxt, tc)
+        assert r.generated == want

@@ -13,7 +13,9 @@ relative in float32 and one bfloat16 step (2^-7 relative) for a bfloat16
 parameter, whose float32 update is rounded once; the schedules 1e-6.
 AdamW's first update is sign(g) * lr wherever |g| is tiny, so a gradient
 that differs at rounding level can flip it: the trajectory is held by its
-loss (rtol 1e-5), not by its parameters."""
+loss (rtol 1e-5), not by its parameters.  The launcher's batches for the
+encoder-decoder and the VLM (frames, patches) are held bit for bit
+against the reference launcher's, and it trains both smoke configs."""
 
 import dataclasses
 import functools
@@ -372,3 +374,71 @@ def test_plain_vjp_is_the_plain_versions_gradient():
     for g, t, n in zip(got, ins, needs):
         if n:
             torch.testing.assert_close(g, t.grad, rtol=0, atol=0)
+
+
+# -- the launcher: frames and patches ------------------------------------------
+
+FRONTEND = ["seamless-m4t-medium", "llava-next-mistral-7b"]
+LAUNCH = ["--smoke", "--steps", "2", "--batch", "2", "--seq", "16"]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _reference_batches(arch, monkeypatch, tmp_path):
+    """The batches the reference's ``launch/train.py`` hands its
+    supervisor, recorded by a stand-in ``Supervisor`` (its trainer is not
+    built: only ``batch_at`` runs)."""
+    from repro.launch import train as jtrain
+
+    got = []
+
+    class Recorder:
+        def __init__(self, **_):
+            pass
+
+        def run(self, state, batch_at, start_step, num_steps, on_step):
+            got.extend(batch_at(i) for i in range(start_step, num_steps))
+            raise _Stop
+
+    monkeypatch.setattr(jtrain, "build_trainer", lambda *a, **k: (None, None))
+    monkeypatch.setattr(jtrain, "Supervisor", Recorder)
+    with pytest.raises(_Stop):
+        jtrain.main(["--arch", arch, *LAUNCH, "--ckpt-dir",
+                     str(tmp_path / "ref")])
+    return got
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_launcher_batches_equal_the_references(arch, monkeypatch, tmp_path):
+    """Tokens, labels and the frames (encoder-decoder) or patches (VLM) of
+    each step bit for bit the reference launcher's."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_batch_at
+
+    want = _reference_batches(arch, monkeypatch, tmp_path)
+    cfg = tconfigs.get_smoke(arch)
+    batch_at = make_batch_at(cfg, SyntheticLM(vocab_size=cfg.vocab_size,
+                                              seq_len=16, global_batch=2),
+                             batch=2, seq=16, device="cpu")
+    extra = "frames" if cfg.is_encdec else "patches"
+    for i, w in enumerate(want):
+        b = batch_at(i)
+        assert set(b) == set(w) == {"tokens", "labels", extra}
+        for k, v in b.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(w[k]),
+                                          err_msg=f"step {i} {k}")
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_launcher_trains_encoder_decoder_and_vlm(arch, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch ... --smoke --device
+    cpu`` takes its steps: finite losses over frames or patches."""
+    from repro_torch.launch import train as ttrain
+
+    log = ttrain.main(["--arch", arch, *LAUNCH, "--device", "cpu",
+                       "--ckpt-dir", str(tmp_path / "port")])
+    assert len(log) == 2
+    assert all(np.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in log)
+    assert "[train] done: 2 steps" in capsys.readouterr().out

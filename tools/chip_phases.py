@@ -10,7 +10,10 @@ version and timed, then phase 3's gemma3-12b and recurrentgemma-9b with
 the ring check), ``archs`` (phase 3g: K6 at the new archs' prefill
 shapes against its plain version and timed, qwen1.5-4b and chatglm3-6b
 through the ``Batcher``, seamless-m4t-medium and llava-next-mistral-7b
-through the uniform loop with the decode check), ``regions`` (phase 3b's
+through the uniform loop with the decode check), ``moe`` (phase 3h:
+K6 at the 3g and 3h prefill shapes against its plain version and timed,
+phi3.5-moe and arctic-480b cut in depth through the ``Batcher``),
+``regions`` (phase 3b's
 four graphs), ``serve``
 (phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
 3d), ``examples`` (phase 3e: tuning on a mesh and the examples) or
@@ -31,8 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-PHASES = ("out", "lm", "local", "archs", "regions", "serve", "async",
-          "mesh", "examples", "train")
+PHASES = ("out", "lm", "local", "archs", "moe", "regions", "serve",
+          "async", "mesh", "examples", "train")
 
 
 def main() -> int:
@@ -102,6 +105,10 @@ def main() -> int:
             for arch in cs.LM_DENSE_ARCHS] + [
             cs.serve_frontend(arch, card, zero_counts, counts_now)
             for arch in cs.LM_FRONTEND_ARCHS],
+        "moe": lambda: [cs.serving_attention_parity(),
+                        cs.serving_attention_times(card)] + [
+            cs.serve_lm(arch, card, zero_counts, counts_now)
+            for arch in cs.LM_MOE_ARCHS],
         "regions": lambda: cs.regions_phase(card, zero_counts, counts_now),
         "serve": lambda: [cs.serve_regions(arch, card, zero_counts,
                                            counts_now)
