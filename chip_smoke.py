@@ -68,10 +68,11 @@ result line):
    (``captured_prefills``, for comparison), tokens/s each and equal streams; each length's
    captured prefill alone (first call, replay, memory) and the 8
    requests on those replays; the batcher's token streams
-   equal the uniform loop's (``legacy_generate``) for each equal-length
-   pair; the kernel route's last-position prefill logits within
-   ``LOGIT_TOL`` of the plain route's on the same weights, and a
-   deliberately wrong variant outside it.  Then gemma3-12b (48 layers,
+   equal the per-request loop's (``per_request_generate``: each row
+   prefilled alone, as the batcher does, then the uniform decode) for
+   each equal-length pair; the kernel route's last-position prefill
+   logits within ``LOGIT_TOL`` of the plain route's on the same weights,
+   and a deliberately wrong variant outside it.  Then gemma3-12b (48 layers,
    5 local to 1 global, head dim 256) and recurrentgemma-9b (38 layers,
    RG-LRU and local attention) at their published configs, with the
    same checks (K6 once per attention layer, local or global, per
@@ -94,16 +95,17 @@ result line):
    ``Batcher`` with gemma3-12b's requests and checks (K6 once per layer
    per request: 320 and 224 launches; the decode captured once; a fresh
    worker with no new capture and equal streams; streams equal
-   ``legacy_generate``'s; prefill logits within ``LOGIT_TOL``, attention
+   ``per_request_generate``'s; prefill logits within ``LOGIT_TOL``, attention
    without its causal mask outside it; one request alone); then
    seamless-m4t-medium (12 encoder layers over 4096 frames of 1024, 12
    decoder layers with cross-attention, head dim 64) and
    llava-next-mistral-7b (32 layers over 2048 patch positions and the
    text) through the uniform loop (``legacy_generate``, where
-   ``launch/serve.py`` sends them): 4 rows of 512 tokens, 32 new each,
-   K6 once per attention layer per row (36 and 32: the encoder's and
-   the cross-attention's too), prefill logits within the limit (the
-   encoder run causal, or llava without its causal mask, outside it),
+   ``launch/serve.py`` sends them): 4 rows of 512 tokens prefilled in
+   one call, 32 new each, K6 once per attention layer over the rows (36
+   and 32: the encoder's and the cross-attention's too), prefill logits
+   within the limit (the encoder run causal, or llava without its
+   causal mask, outside it),
    and the decode check: 512 tokens prefilled, 16 teacher-forced through
    the decode step, the last logits within ``FRONTEND_DECODE_TOL`` of one
    prefill of 528 with the same frames or patches (seamless's cross
@@ -123,8 +125,9 @@ result line):
    capture and equal streams; one request alone against the weights'
    read), plus: the (token, k) pairs each request's prefill drops at
    capacity factor 1.25 (``_dispatch_slots`` wrapped here); each
-   request's stream equal, with no tolerance, to ``legacy_generate`` on
-   that request alone (4 rows of it, the batcher's decode width); the
+   request's stream equal, with no tolerance, to
+   ``per_request_generate`` on that request (4 rows of it, each
+   prefilled alone, at the batcher's decode width); the
    kernel route's prefill logits within ``LOGIT_TOL`` of the plain
    route's with the plain route replaying the kernel route's expert
    choices (``_top_k`` wrapped here; also printed without the replay,
@@ -229,7 +232,14 @@ result line):
    detached (what the route did before its ``autograd.Function``) outside
    the limit, for qwen3-8b and mamba2-130m (float32: its gradients at
    random init amplify one bf16 step of y_intra many times); then
-   mamba2-130m at its
+   phi3.5-moe at its published width cut to 2 layers (bf16, remat,
+   microbatches 2), 4 steps of 2 x 2048 under
+   ``torch.use_deterministic_algorithms(True)`` through
+   ``make_train_step`` with the local dispatch and with ``mesh=`` a (4,
+   2) mesh of the card (the MoE all-to-all), the loss finite and
+   falling, K6 twice a layer a microbatch a step, ms a step each way,
+   and its gradient gate with the plain route replaying the kernel
+   route's expert choices; then mamba2-130m at its
    published config, batch 8 x 2048, through the ``Supervisor`` with a
    ``CheckpointManager`` (a temporary directory, deleted) every 2 steps,
    8 steps under ``torch.use_deterministic_algorithms(True)``, clean and
@@ -240,8 +250,39 @@ result line):
    largest kernels of a profiled one (also of qwen3-8b's); the
    ``Prefetcher`` bringing the batches onto the card; ``examples/train_lm_torch.py --steps 50``;
    the serve launcher's ``--smoke --chaos`` (both archs) and ``--smoke
-   --legacy`` in this process.  (a)'s and the supervised runs' K6/K7
-   launches join the kernels line's;
+   --legacy`` in this process.  (a)'s, phi3.5-moe's and the supervised
+   runs' K6/K7 launches join the kernels line's;
+3i. explicit collectives (``parallel_phase``) on meshes of shards of
+   the one card (``core/collectives.py``: copies and views on the
+   card), every gate fatal: the MoE all-to-all (``make_moe_a2a``) on a
+   (4, 2) ("data", "model") mesh of 8 shards, 4 x 2048 tokens bf16, at
+   one phi3.5-moe layer's published widths (16 experts, d 4096, f 6400;
+   2.5 GB of experts placed as views) and one arctic-480b layer's (128
+   experts, d 7168, f 4864; 26.8 GB): at capacity 1.25 within the bf16
+   limit (``A2A_TOL``) of ``moe_block`` on each data shard's tokens, at
+   capacity 8 of ``moe_block`` over all of them, ``residual_tp`` both
+   ways, the reference replaying the a2a's expert choices; the reverse
+   exchange with the shard order reversed outside the limit;
+   phi3.5-moe's gradients of x, the router, ``wi`` and ``wo`` within
+   ``A2A_GRAD_TOL`` of the per-shard ``moe_block``'s; printed: the aux
+   against the per-shard mean, pairs dropped, the bytes an all-to-all
+   moves, ms against ``moe_block``.  phi3.5-moe cut to 4 layers at its
+   published width, a prefill of 4 x 2048 tokens through ``moe_a2a``
+   (``moe_a2a_for``): K6 once per layer, the last logits within
+   ``LOGIT_TOL`` of the prefill of each row alone without the hook
+   (replaying the hook's expert choices; printed free too), the reverse
+   exchange reversed outside; its K6 launches join the kernels line's.
+   Sequence parallelism on ("sp",) of 4: mamba2-130m's conv input (B 8,
+   4 x 2048, 1792 channels) through ``seqpar_conv_halo`` and
+   ``causal_conv1d`` bit for bit the unsharded conv; recurrentgemma-9b's
+   RG-LRU width (B 4, 4 x 2048) through per-shard ``linear_scan`` and
+   ``seqpar_scan_carry`` within float32 rtol 1e-5 of the unsharded scan,
+   a carry without the decay product outside.  ``compressed_psum`` on
+   ("data",) of 8 over a gradient tree shaped like mamba2-130m's
+   parameters (float32, seeded per shard): 30 steps with error feedback,
+   the time-averaged mean within 2e-2 of the true mean, the int32 sums
+   equal to float64 sums; payload bytes and ms a call printed.  The
+   phase's seconds and peak memory are printed;
 4. times — per kernel (CUDA events around 30 calls back to back, the
    median of 5 such batches, after warm-up) beside
    its bound (bytes over 3.35 TB/s, or operations over the peak rate
@@ -265,6 +306,7 @@ the rest of the repository beside it, the script fails before any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -432,9 +474,41 @@ TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 2, 5
 # 0.4 % perturbation of the plain version), so its gate runs the
 # published config in float32, where K7 and the plain version differ at
 # ~1e-6 relative (the CPU emulation: ~2e-4 for a 1e-6 perturbation)
-GRAD_REL_TOL = {"qwen3-8b": 3e-2, "mamba2-130m": 2e-2}
+# phi3.5-moe at its published width cut to 2 layers (bf16, remat,
+# microbatches 2: ~46 GB of weights, float32 moments and gradient sums),
+# 4 steps on one repeated batch of 2 x 2048 under deterministic
+# algorithms, with the local dispatch and with moe_a2a on a (4, 2) mesh
+# of the card; its gradient gate replays the kernel route's expert
+# choices on the plain route (K6's rounding alone flips some)
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 2, 2, 4
+GRAD_REL_TOL = {"qwen3-8b": 3e-2, "mamba2-130m": 2e-2, "phi3.5-moe": 3e-2}
 GRAD_NEEDED = {"qwen3-8b": {"wq", "wk", "wv"},
-               "mamba2-130m": {"wx", "wB", "wC", "wdt"}}
+               "mamba2-130m": {"wx", "wB", "wC", "wdt"},
+               "phi3.5-moe": {"wq", "wk", "wv"}}
+# phase 3i, explicit collectives on meshes of shards on the one card: the
+# MoE all-to-all on a (4, 2) ("data", "model") mesh, 4 x 2048 tokens at
+# the published widths of one phi3.5-moe layer (16 experts, d 4096, f
+# 6400) and one arctic-480b layer (128 experts, d 7168, f 4864), bf16;
+# its limit is bf16's (atol, rtol): the split d_ff sums rounded apart
+# (each to bf16) against one rounding, ~1.5 bf16 steps; its gradients
+# (relative L2 per tensor) against the per-shard moe_block's
+PAR_MESH, PAR_TOKENS = (4, 2), 2048
+A2A_TOL = (2e-2, 2e-2)
+A2A_GRAD_TOL = 2e-2
+A2A_CASES = ((1.25, False), (1.25, True), (8.0, False), (8.0, True))
+# phi3.5-moe at its published width cut to 4 layers, 4 rows of 2048
+# tokens prefilled through the hook
+HOOK_LAYERS = 4
+# sequence parallelism on ("sp",) of 4: mamba2-130m's conv input (B 8)
+# and recurrentgemma-9b's RG-LRU width (B 4), 4 x 2048 tokens; the
+# carry within float32 rtol 1e-5 (and 1e-5 of the largest state absolute)
+SP_SHARDS, SP_SEQ, SP_CONV_BATCH, SP_SCAN_BATCH = 4, 2048, 8, 4
+SP_CARRY_TOL = 1e-5
+# compressed_psum on ("data",) of 8: a gradient tree shaped like
+# mamba2-130m's parameters, float32, seeded per shard; 30 steps with
+# error feedback, the time-averaged mean within 2e-2 of the true mean
+# (the reference test's gate)
+CPSUM_SHARDS, CPSUM_STEPS, CPSUM_TOL = 8, 30, 2e-2
 
 
 def log(msg: str) -> None:
@@ -799,7 +873,7 @@ def serve_lm(arch: str, card: str, zero_counts, read_counts) -> dict:
     once, the prefills eager); check launches, the serve launcher's smoke
     checks (the decode captured once; a fresh worker ``Batcher`` serving
     the same requests with no new decode capture and equal streams),
-    token streams against ``legacy_generate`` and the kernel route's
+    token streams against ``per_request_generate`` and the kernel route's
     prefill logits against the plain route's.  Measures tokens/s with
     the decode capture and without it (the worker); two batchers of one
     signature stepped in turn; ragged traffic of 8 new lengths with
@@ -1008,10 +1082,59 @@ def serve_measurements(arch: str, card: str, cfg, params, batcher, worker,
             "interleaved": inter}
 
 
+def per_request_generate(cfg, params, tokens, gen: int, max_seq: int):
+    """The ``Batcher``'s semantics on a uniform batch, the reference for
+    its streams: each row of ``tokens`` (B, S) prefilled on its own (a
+    routed arch buckets each request's tokens alone, and the prefill's
+    products run at the batcher's shapes, which the card's libraries may
+    sum in another order than a batched prefill's), the caches stacked
+    along the batch axis, then greedy decode of the whole batch at one
+    position.  Returns ``((B, gen) tokens, prefill s, decode s)``."""
+    import torch
+
+    from repro_torch.core import Layout
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import prefill
+
+    dev = next(params.parameters()).device
+    tokens = torch.as_tensor(tokens).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [prefill(params, {"tokens": tokens[b:b + 1]}, cfg,
+                    max_seq=max_seq) for b in range(tokens.shape[0])]
+    kv_axis = 1 if cfg.kv_layout is Layout.SOA else 0
+
+    def cat(xs):
+        if isinstance(xs[0], tuple):    # a Mamba or RG-LRU layer's pair
+            return tuple(torch.cat(list(z)) for z in zip(*xs))
+        return torch.cat(xs, dim=kv_axis)
+
+    parts = [c for _, c in rows]
+    caches = {"groups": [{k: cat([p["groups"][g][k] for p in parts])
+                          for k in grp}
+                         for g, grp in enumerate(parts[0]["groups"])],
+              "tail": [cat([p["tail"][i] for p in parts])
+                       for i in range(len(parts[0]["tail"]))],
+              "pos": parts[0]["pos"]}
+    logits = torch.cat([lg for lg, _ in rows])
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    step = steps.make_decode_step(cfg)
+    toks = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [toks]
+    t1 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, caches = step(params, caches, toks)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(toks)
+    out = torch.stack(out, dim=1).cpu().numpy()
+    return out, t_prefill, time.perf_counter() - t1
+
+
 def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
                  counts, expect, extra: dict, run: dict) -> dict:
     """The rest of phase 3 for ``arch``: the batcher's streams (``reqs``)
-    against ``legacy_generate``'s, the kernel route's prefill logits
+    against ``per_request_generate``'s, the kernel route's prefill logits
     against the plain route's (and a wrong variant outside the limit), the
     ring check where the arch has local layers, and where a prefill's and
     a decode step's time goes at batch 1.  Returns the phase's record."""
@@ -1019,26 +1142,25 @@ def serve_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
     import torch
 
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.launch.serve import legacy_generate
     from repro_torch.models import attention as model_attention
     from repro_torch.models.lm import prefill
 
     dev = torch.device("cuda")
-    # the uniform loop on each equal-length pair, repeated to the
+    # the per-request loop on each equal-length pair, repeated to the
     # batcher's 4 slots so that both decode at one batch width
     for i in range(0, len(prompts), 2):
         rows = np.stack([prompts[i], prompts[i + 1]] * (LM_SLOTS // 2))
-        gen, t_pre, t_dec = legacy_generate(cfg, params,
-                                            torch.from_numpy(rows), LM_GEN,
-                                            LM_MAX_SEQ)
+        gen, t_pre, t_dec = per_request_generate(
+            cfg, params, torch.from_numpy(rows), LM_GEN, LM_MAX_SEQ)
         for j in (0, 1):
             if reqs[i + j].generated != gen[j].tolist():
                 raise AssertionError(
                     f"{arch}: request {i + j} ({len(prompts[i + j])} "
                     f"tokens) streams {reqs[i + j].generated} from the "
-                    f"batcher, {gen[j].tolist()} from legacy_generate")
+                    f"batcher, {gen[j].tolist()} from the per-request "
+                    f"loop")
         log(f"{arch} streams of the {len(prompts[i])}-token pair equal "
-            f"legacy_generate's ({LM_GEN} tokens each; its prefill "
+            f"the per-request loop's ({LM_GEN} tokens each; its prefill "
             f"{t_pre * 1e3:.1f} ms for 4 rows, decode "
             f"{t_dec / (LM_GEN - 1) * 1e3:.3f} ms per step)")
 
@@ -1150,7 +1272,7 @@ def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
     """Phase 3h's checks of an MoE arch after its batcher's run: the
     (token, k) pairs each request's prefill drops (``_dispatch_slots``
     wrapped here); the batcher's streams (``reqs``) against
-    ``legacy_generate`` on each request alone, repeated to the batcher's
+    ``per_request_generate`` on each request, repeated to the batcher's
     4 slots so both decode at one width (equal, no tolerance; a
     difference prints its first position and the top-2 logit gap there);
     the kernel route's prefill logits against the plain route's with the
@@ -1163,7 +1285,6 @@ def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
     import numpy as np
     import torch
 
-    from repro_torch.launch.serve import legacy_generate
     from repro_torch.models import attention as model_attention
     from repro_torch.models import moe
     from repro_torch.models.lm import prefill
@@ -1174,23 +1295,12 @@ def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
         return torch.from_numpy(np.asarray(ids, np.int32)[None]).to(dev)
 
     # the pairs each request's prefill drops, layer by layer
-    real_slots = moe._dispatch_slots
     drops = []
-
-    def counting(gate_idx, E, C):
-        out = real_slots(gate_idx, E, C)
-        drops[-1].append((~out[1]).sum())
-        return out
-
-    moe._dispatch_slots = counting
-    try:
-        for prompt in prompts:
-            drops.append([])
+    for prompt in prompts:
+        with dropped_pairs() as row:
             prefill(params, {"tokens": tokens_of(prompt)}, cfg,
                     max_seq=len(prompt) + 1)
-    finally:
-        moe._dispatch_slots = real_slots
-    drops = [[int(d) for d in row] for row in drops]
+        drops.append([int(d) for d in row])
     for prompt, row in zip(prompts, drops):
         cap = moe.moe_capacity(len(prompt), cfg.n_experts, cfg.top_k,
                                cfg.capacity_factor)
@@ -1199,12 +1309,12 @@ def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
             f"over {len(row)} layers (capacity {cap} an expert; per layer "
             f"{min(row)}-{max(row)})")
 
-    # the uniform loop on each request alone, 4 rows of it
+    # the per-request loop on each request, 4 rows of it (each row
+    # prefilled alone, as the batcher does)
     for i, prompt in enumerate(prompts):
         rows = np.stack([prompt] * LM_SLOTS)
-        gen, t_pre, t_dec = legacy_generate(cfg, params,
-                                            torch.from_numpy(rows), LM_GEN,
-                                            LM_MAX_SEQ)
+        gen, t_pre, t_dec = per_request_generate(
+            cfg, params, torch.from_numpy(rows), LM_GEN, LM_MAX_SEQ)
         want = reqs[i].generated
         for row in gen:
             if row.tolist() == want:
@@ -1215,36 +1325,24 @@ def moe_checks(arch: str, card: str, cfg, params, prompts, reqs, kinds,
                 list(prompt) + want[:pos])}, cfg)[0].float().topk(2).values
             log(f"{arch}: request {i} ({len(prompt)} tokens) first differs "
                 f"at generated position {pos}: batcher {want[pos]}, "
-                f"legacy_generate {int(row[pos])}; top-2 logit gap there "
+                f"per-request loop {int(row[pos])}; top-2 logit gap there "
                 f"{float(top2[0, 0] - top2[0, 1]):.4e}")
             raise AssertionError(f"{arch}: request {i}'s stream differs from "
-                                 f"legacy_generate's")
+                                 f"the per-request loop's")
         log(f"{arch} stream of request {i} ({len(prompt)} tokens) equals "
-            f"legacy_generate's on it alone ({LM_SLOTS} rows; its prefill "
+            f"the per-request loop's ({LM_SLOTS} rows; its prefill "
             f"{t_pre * 1e3:.1f} ms, decode "
             f"{t_dec / (LM_GEN - 1) * 1e3:.3f} ms per step)")
 
     # the kernel route against the plain route, the plain route replaying
     # the kernel route's expert choices
     tokens = tokens_of(prompts[0])
-    real_top = moe._top_k
 
     def logits(use_kernel=True, replay=None, c=cfg):
-        chosen = []
-
-        def route(probs, k):
-            idx = real_top(probs, k) if replay is None \
-                else replay[len(chosen)]
-            chosen.append(idx)
-            return idx
-
-        moe._top_k = route
-        try:
+        with expert_choices(replay=replay) as chosen:
             out = prefill(params, {"tokens": tokens}, c,
                           max_seq=tokens.shape[1] + 1,
                           use_kernel=use_kernel)[0].float()
-        finally:
-            moe._top_k = real_top
         return out, chosen
 
     got, kernel_route = logits()
@@ -1593,8 +1691,9 @@ def serve_frontend(arch: str, card: str, zero_counts, read_counts) -> dict:
     its published config through the uniform loop (``legacy_generate``,
     where ``launch/serve.py`` sends these archs): ``FRONTEND_ROWS`` rows
     of ``FRONTEND_PROMPT`` tokens with their frames or patches, ``LM_GEN``
-    new tokens each.  Checked: K6 once per attention layer per row (the
-    encoder's, the decoder's self- and cross-attention), the kernel
+    new tokens each, prefilled in one call.  Checked: K6 once per
+    attention layer (the encoder's, the decoder's self- and
+    cross-attention) over the rows, the kernel
     route's prefill logits against the plain route's (the encoder run
     causal, or llava without its causal mask, outside the limit) and the
     decode check (``frontend_decode_check``).  Measured: prefill ms a row
@@ -1626,8 +1725,9 @@ def serve_frontend(arch: str, card: str, zero_counts, read_counts) -> dict:
     front = 0 if cfg.is_encdec else cfg.frontend_tokens
     max_seq = FRONTEND_PROMPT + LM_GEN + front
 
-    # the main path: the uniform loop, each row prefilled alone (K6 at
-    # every attention layer), the decode steps over the whole batch
+    # the main path: the uniform loop, one prefill over the rows (K6 once
+    # at every attention layer, over the whole batch), the decode steps
+    # over the whole batch
     legacy_generate(cfg, params, tokens[:1], 2, max_seq,
                     **{k: v[:1] for k, v in fr.items()})   # warm-up
     torch.cuda.synchronize()
@@ -1636,8 +1736,7 @@ def serve_frontend(arch: str, card: str, zero_counts, read_counts) -> dict:
                                         max_seq, **fr)
     counts = read_counts()
     per_row = cfg.n_layers * (2 if cfg.is_encdec else 1) + cfg.enc_layers
-    expect = {"flash_attention": per_row * FRONTEND_ROWS,
-              "ssd_intra_chunk": 0}
+    expect = {"flash_attention": per_row, "ssd_intra_chunk": 0}
     if gen.shape != (FRONTEND_ROWS, LM_GEN) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: generated {gen.shape} tokens, or "
@@ -1651,7 +1750,8 @@ def serve_frontend(arch: str, card: str, zero_counts, read_counts) -> dict:
         f" a row), decode {step_ms:.3f} ms per step ({FRONTEND_ROWS} rows), "
         f"{tok_s:.1f} tokens/s end to end, "
         f"{FRONTEND_ROWS * (LM_GEN - 1) / t_dec:.1f} decoding; K6 "
-        f"{counts['flash_attention']} launches ({per_row} a row); peak "
+        f"{counts['flash_attention']} launches (one per attention layer, "
+        f"over the {FRONTEND_ROWS} rows); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
 
     # prefill ms of one row, and the encoder's alone, synchronised
@@ -2562,9 +2662,9 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
     ``regions=True`` with ``async_regions`` True and False under both
     ``donate``s, each regions run from a cold executable cache: final
     states bit for bit, equal ``(t, vmax)`` logs, callbacks on the pool or
-    on the main thread.  Overlap: ms per step sync and async, without and
-    with a host time calibrated to the sync step, the device busy share,
-    the gate.  Faults: the ladder down to ``sequential`` and back with
+    on the main thread.  Overlap: ms per step sync and async, in turns,
+    without and with a host time calibrated to the sync step, the device
+    busy share, the gate.  Faults: the ladder down to ``sequential`` and back with
     zero new captures, and the watchdog.  Returns the numbers."""
     import threading
 
@@ -2639,28 +2739,34 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
             if donate:
                 keep[mode] = ex
             del ex
-    # -- overlap: ms per step both ways, without and with the host time
+    # -- overlap: ms per step both ways, without and with the host time;
+    # the two ways take turns (sync, async, async, sync, ...), so that the
+    # host's drift from one run to the next (its sleeps' overshoot moves
+    # by a few tenths of a ms within a minute) falls on both alike
     times = {}
     for host in ("no host time", "host time"):
         if host == "host time":
             # the host time a step: the synchronous step's own
             diag.host_s = times[("no host time", False)] / 1e3
+        runs = {False: [], True: []}
+        slept_s = {False: [], True: []}
+        before = {mode: dict(ex.async_stats) for mode, ex in keep.items()}
+        for i in range(ASYNC_REPS):
+            for mode in ((False, True) if i % 2 == 0 else (True, False)):
+                diag.reset()
+                got, ms = whole(keep[mode])
+                runs[mode].append(ms)
+                slept_s[mode] += diag.slept
+                del got
         for mode in (False, True):
             ex = keep[mode]
-            runs = []
-            diag.reset()
-            before = dict(ex.async_stats)
-            for _ in range(ASYNC_REPS):
-                got, ms = whole(ex)
-                runs.append(ms)
-                del got
-            times[(host, mode)] = statistics.median(runs)
+            times[(host, mode)] = statistics.median(runs[mode])
             # the dispatcher's own time a step: the wall less its waits
             # on callbacks (the in-flight cap of 32, the final drain)
-            waited = (ex.async_stats["wait_s"] - before["wait_s"]) * 1e3 \
-                / (ASYNC_REPS * steps)
+            waited = (ex.async_stats["wait_s"] - before[mode]["wait_s"]) \
+                * 1e3 / (ASYNC_REPS * steps)
             snap = (ex.async_stats["snapshot_bytes"]
-                    - before["snapshot_bytes"]) / (ASYNC_REPS * steps)
+                    - before[mode]["snapshot_bytes"]) / (ASYNC_REPS * steps)
             state = ex.init_state(**inp)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2674,9 +2780,9 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
                     f"({100 * dev_ms / times[(host, mode)]:.1f} %; the "
                     f"profiled run {prof_ms:.3f} ms a step)")
             times[(host, mode, "busy")] = dev_ms
-            slept = ("" if not diag.slept else
+            slept = ("" if not slept_s[mode] else
                      f"; a sleep of {1e3 * diag.host_s:.3f} ms took "
-                     f"{1e3 * statistics.median(diag.slept):.3f} ms "
+                     f"{1e3 * statistics.median(slept_s[mode]):.3f} ms "
                      f"(median) on the callback's thread")
             waits = (f"; the dispatcher waited {waited:.3f} ms a step on "
                      f"callbacks, snapshots {snap:.0f} bytes a step, "
@@ -2684,9 +2790,9 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
                      if mode else "")
             log(f"async overlap {'async' if mode else 'sync'}, {host} "
                 f"({1e3 * diag.host_s:.3f} ms a callback): ms per step "
-                f"{times[(host, mode)]:.3f} (runs "
-                f"{', '.join(f'{ms:.3f}' for ms in runs)}); device busy "
-                f"{busy}{slept}{waits} ({card})")
+                f"{times[(host, mode)]:.3f} (runs in turns "
+                f"{', '.join(f'{ms:.3f}' for ms in runs[mode])}); device "
+                f"busy {busy}{slept}{waits} ({card})")
     diag.host_s = 0.0
     gain = times[("host time", False)] / times[("host time", True)]
     log(f"async overlap: sync/async with the host time {gain:.2f}x "
@@ -3284,33 +3390,41 @@ def grad_rel_diffs(a: dict, b: dict) -> dict:
     return out
 
 
-def grad_gate(arch: str, params, batch, cfg, detach, card: str) -> dict:
+def grad_gate(arch: str, params, batch, cfg, detach, card: str,
+              replay_routes: bool = False) -> dict:
     """Phase 3f(b): the kernel route's gradients of one batch against the
     plain route's (``use_kernel=False``), parameter by parameter, within
     ``GRAD_REL_TOL[arch]`` relative L2; the projections that feed the
     kernel (``needed``) must get a non-zero gradient; and the same
     gradients with the kernel's output detached (``detach``: a context
     that patches the model to drop the kernel's gradient, what the route
-    did before its ``autograd.Function``) must fall outside the limit."""
+    did before its ``autograd.Function``) must fall outside the limit.
+    With ``replay_routes`` (a routed arch) the plain route and the
+    detached variant replay the kernel route's expert choices, call by
+    call (the remat recompute's too)."""
     import torch
 
     from repro_torch.models.lm import forward_loss
 
-    def loss_and_grads(params, batch, cfg, use_kernel=True):
+    def loss_and_grads(params, batch, cfg, use_kernel=True, replay=None):
         # a gradient the route never reaches reads 0 (the detached variant
         # leaves the projections into the kernel out of the graph, where
         # the train step's autograd.grad would raise)
         names, leaves = zip(*params.named_parameters())
-        loss = forward_loss(params, batch, cfg, use_kernel=use_kernel)[0]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        return loss.detach(), dict(zip(names, grads))
+        with expert_choices(replay=replay) as chosen:
+            loss = forward_loss(params, batch, cfg,
+                                use_kernel=use_kernel)[0]
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), dict(zip(names, grads)), chosen
 
     needed = GRAD_NEEDED[arch]
     lim = GRAD_REL_TOL[arch]
     t0 = time.perf_counter()
-    loss_k, kern = loss_and_grads(params, batch, cfg)
-    loss_p, plain = loss_and_grads(params, batch, cfg, use_kernel=False)
+    loss_k, kern, routes = loss_and_grads(params, batch, cfg)
+    routes = routes if replay_routes else None
+    loss_p, plain, _ = loss_and_grads(params, batch, cfg, use_kernel=False,
+                                      replay=routes)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     rel = grad_rel_diffs(kern, plain)
@@ -3336,7 +3450,7 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str) -> dict:
                              f"from the plain route's, limit {lim:g}")
     del kern
     with detach():
-        _, cut = loss_and_grads(params, batch, cfg)
+        _, cut, _ = loss_and_grads(params, batch, cfg, replay=routes)
     rel_cut = grad_rel_diffs(cut, plain)
     bad = sorted(n for n, v in rel_cut.items() if v > lim)
     log(f"grad gate {arch} wrong variant (the kernel's output detached): "
@@ -3384,6 +3498,103 @@ class TimedCheckpoints:
 
     def __getattr__(self, name):
         return getattr(self.mgr, name)
+
+
+def train_moe(card: str, zero_counts, counts_now, on_card,
+              k6_detached) -> dict:
+    """Phase 3f(a2): phi3.5-moe at its published width cut to
+    ``TRAIN_MOE_LAYERS`` layers (bf16, AdamW, ``remat="full"``,
+    microbatches 2), ``TRAIN_MOE_STEPS`` steps on one repeated
+    ``SyntheticLM`` batch of ``TRAIN_MOE_BATCH`` x ``TRAIN_SEQ`` under
+    ``torch.use_deterministic_algorithms(True)``, through
+    ``make_train_step`` once with the local dispatch and once with
+    ``mesh=`` a ``PAR_MESH`` mesh of the card (``moe_a2a``): each run's
+    loss finite and falling, K6 twice a layer a microbatch a step, ms a
+    step; then the gradient gate on the local dispatch's model, the
+    plain route replaying the kernel route's expert choices."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import init_lm, param_count
+    from repro_torch.optim import cosine_schedule
+
+    dev = torch.device("cuda")
+    full = configs.get("phi3.5-moe")
+    cfg = full.with_(n_layers=TRAIN_MOE_LAYERS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_MOE_BATCH, seed=0)
+    batch = on_card(data.batch_at(0))
+    mesh = make_mesh(PAR_MESH, ("data", "model"),
+                     devices=["cuda:0"] * (PAR_MESH[0] * PAR_MESH[1]))
+    log(f"train phi3.5-moe: published width (d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}), depth "
+        f"cut {full.n_layers} -> {cfg.n_layers} layers: "
+        f"{param_count(cfg)} parameters; {cfg.param_dtype}, "
+        f"{cfg.optimizer}, remat={cfg.remat}, microbatches "
+        f"{cfg.microbatches}, batch {TRAIN_MOE_BATCH} x {TRAIN_SEQ}, "
+        f"deterministic algorithms")
+    out = {"k6": 0}
+    # K6 in each microbatch's forward, and again in its remat recompute
+    expect = ((2 if cfg.remat == "full" else 1) * TRAIN_MOE_LAYERS
+              * cfg.microbatches * TRAIN_MOE_STEPS)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode, m in (("local dispatch", None),
+                        (f"moe_a2a on {PAR_MESH}", mesh)):
+            step_fn, opt = make_train_step(
+                cfg, lr=cosine_schedule(3e-4, min(100, TRAIN_MOE_STEPS // 10),
+                                        TRAIN_MOE_STEPS),
+                device=dev, mesh=m)
+            params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+            params.requires_grad_(True)
+            state = {"params": params, "opt": opt.init(params),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            losses, times = [], []
+            for _ in range(TRAIN_MOE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step_fn(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+            counts = counts_now()
+            step_s = statistics.median(times[1:])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"train phi3.5-moe ({mode}): losses "
+                f"{[round(x, 4) for x in losses]}; {step_s * 1e3:.1f} ms a "
+                f"step (median of steps 2-{TRAIN_MOE_STEPS}; the first "
+                f"{times[0] * 1e3:.1f}), "
+                f"{TRAIN_MOE_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak "
+                f"{peak:.2f} GiB; K6 launches {counts['flash_attention']} "
+                f"({card})")
+            if counts["flash_attention"] != expect:
+                raise AssertionError(f"train phi3.5-moe ({mode}): launches "
+                                     f"{counts}, expected flash_attention "
+                                     f"{expect}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"train phi3.5-moe ({mode}): losses "
+                                     f"{losses} not finite and falling")
+            out["k6"] += counts["flash_attention"]
+            out[mode] = dict(losses=losses, step_ms=step_s * 1e3,
+                             first_ms=times[0] * 1e3, peak_gib=peak)
+            if m is None:
+                out["gate"] = grad_gate(
+                    "phi3.5-moe", params, {k: v[:1] for k, v in
+                                           batch.items()},
+                    cfg, k6_detached, card, replay_routes=True)
+            del step_fn, opt, params, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
 
 
 def train_phase(card: str, zero_counts, counts_now) -> dict:
@@ -3597,6 +3808,13 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- (a2) phi3.5-moe, full width, depth cut, deterministic: the local
+    # dispatch and moe_a2a on a mesh of the card; its gradient gate -------
+    out["moe"] = train_moe(card, zero_counts, counts_now, on_card,
+                           k6_detached)
+    out["gate"]["phi3.5-moe"] = out["moe"].pop("gate")
+    out["launches"]["flash_attention"] += out["moe"].pop("k6")
+
     # -- (c) mamba2-130m through the Supervisor, a step fault, a restore --
     pf = Prefetcher(mdata, depth=2, device=dev)
     try:
@@ -3743,6 +3961,535 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
                   ["--smoke", "--legacy"]):
         log(f"serve {' '.join(flags)} on the card:")
         serve.main(flags)
+    return out
+
+
+@contextlib.contextmanager
+def expert_choices(replay=None, order=None):
+    """``models/moe.py``'s ``_top_k`` wrapped: yields the list of every
+    call's choice, in call order; with ``replay``, call ``i`` returns
+    ``replay[order(i)]`` (``order`` defaults to ``i``) in place of its
+    own choice."""
+    from repro_torch.models import moe
+
+    real = moe._top_k
+    chosen = []
+
+    def route(probs, k):
+        i = len(chosen)
+        idx = real(probs, k) if replay is None \
+            else replay[i if order is None else order(i)]
+        chosen.append(idx)
+        return idx
+
+    moe._top_k = route
+    try:
+        yield chosen
+    finally:
+        moe._top_k = real
+
+
+@contextlib.contextmanager
+def dropped_pairs():
+    """``models/moe.py``'s ``_dispatch_slots`` wrapped: yields the list
+    of the (token, k) pairs each call drops (device scalars), in call
+    order."""
+    from repro_torch.models import moe
+
+    real = moe._dispatch_slots
+    dropped = []
+
+    def counting(gate_idx, n_experts, C):
+        slots = real(gate_idx, n_experts, C)
+        dropped.append((~slots[1]).sum())
+        return slots
+
+    moe._dispatch_slots = counting
+    try:
+        yield dropped
+    finally:
+        moe._dispatch_slots = real
+
+
+@contextlib.contextmanager
+def reverse_exchange_reversed():
+    """The wrong variant of the a2a: its reverse ``all_to_all`` takes the
+    shards of each group in reversed order, so each data shard gets
+    another shard's experts' outputs."""
+    from repro_torch.core import collectives as coll
+
+    real = coll.all_to_all
+
+    def wrong(xs, mesh, axes, split_axis, concat_axis):
+        if split_axis == 1:
+            xs = list(xs)
+            perm = list(range(len(xs)))
+            for group in coll.axis_groups(mesh, axes):
+                for a, b in zip(group, reversed(group)):
+                    perm[a] = b
+            xs = [xs[j] for j in perm]
+        return real(xs, mesh, axes, split_axis, concat_axis)
+
+    coll.all_to_all = wrong
+    try:
+        yield
+    finally:
+        coll.all_to_all = real
+
+
+def moe_layer_weights(cfg, gen):
+    """One MoE layer's router and experts at ``cfg``'s widths, bf16, made
+    on the card from ``gen`` (fan-in scaled normals)."""
+    import torch
+
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def dense(*shape, fan_in):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).mul_(fan_in ** -0.5)
+
+    return {"router": dense(d, E, fan_in=d), "wi": dense(E, d, 2, f, fan_in=d),
+            "wo": dense(E, f, d, fan_in=f)}
+
+
+def a2a_block_checks(arch: str, card: str, grads: bool) -> dict:
+    """Phase 3i(a): one MoE layer of ``arch`` at its published widths on
+    a ``PAR_MESH`` mesh of 8 shards on the card, experts placed by
+    ``place_experts`` (views of the weights), 4 x ``PAR_TOKENS`` tokens:
+    for each of ``A2A_CASES`` the a2a within ``A2A_TOL`` of the per-shard
+    ``moe_block`` (capacity 1.25: what expert parallelism computes) or
+    of ``moe_block`` over all the tokens (capacity 8, nothing dropped),
+    the reference replaying the a2a's expert choices (float32 logits
+    at another matmul shape may flip a near tie); the reverse exchange
+    with the shard order reversed outside it.  With ``grads``: the
+    gradients of x, the router, ``wi`` and ``wo`` within ``A2A_GRAD_TOL``
+    (relative L2) of the per-shard ``moe_block``'s.  Printed: the aux
+    against the per-shard mean, pairs dropped, the bytes each all-to-all
+    moves and ms against ``moe_block``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import moe
+
+    cfg = configs.get(arch)
+    E, d, f, K = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe_layer_weights(cfg, gen)
+    dp = PAR_MESH[0]
+    T = dp * PAR_TOKENS
+    x = torch.randn(T, d, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    mesh = make_mesh(PAR_MESH, ("data", "model"),
+                     devices=["cuda:0"] * (PAR_MESH[0] * PAR_MESH[1]))
+    before = torch.cuda.memory_allocated()
+    placed = moe.place_experts(p, mesh, dp_axes=("data",))
+    views = all(s.untyped_storage().data_ptr()
+                == p[n].untyped_storage().data_ptr()
+                for n in ("wi", "wo") for s in placed[n].shards)
+    grown = torch.cuda.memory_allocated() - before
+    nbytes = sum(p[n].numel() * 2 for n in ("wi", "wo"))
+    log(f"a2a {arch}: {E} experts top-{K}, d {d}, f {f}: "
+        f"{nbytes / 1e9:.2f} GB of experts; placed on {PAR_MESH} "
+        f"(\"data\", \"model\") shards of cuda:0 as views: {views}, "
+        f"{grown} bytes allocated by the placing")
+    if not views or grown > 1 << 20:
+        raise AssertionError(f"a2a {arch}: placing the experts copied them")
+    chunks = list(torch.chunk(x, dp))
+    out = {"cases": {}}
+    for cf, rtp in A2A_CASES:
+        fn = moe.make_moe_a2a(mesh, dp_axes=("data",), top_k=K,
+                              capacity_factor=cf, residual_tp=rtp)
+        with expert_choices() as chosen:
+            y, aux = fn(placed, x)
+        if cf == 8.0:
+            with expert_choices(replay=[torch.cat(chosen)]):
+                want, aux_all = moe.moe_block(p, x, top_k=K,
+                                              capacity_factor=cf)
+            what = "moe_block over all the tokens"
+        else:
+            with expert_choices(replay=chosen):
+                parts = [moe.moe_block(p, xs, top_k=K, capacity_factor=cf)
+                         for xs in chunks]
+            want = torch.cat([o for o, _ in parts])
+            aux_all = torch.stack([a for _, a in parts]).mean()
+            what = "the per-shard moe_block"
+        err, bad = outside(y, want, *A2A_TOL)
+        C_l = moe.moe_capacity(PAR_TOKENS, E, K, cf)
+        log(f"a2a {arch} capacity {cf} residual_tp={rtp}: C_l {C_l}, "
+            f"against {what}: max |difference| {err:.4e}, {bad} outside "
+            f"(atol {A2A_TOL[0]:g}, rtol {A2A_TOL[1]:g}); aux "
+            f"{float(aux):.6f}, "
+            f"{'over all tokens' if cf == 8.0 else 'the per-shard mean'} "
+            f"{float(aux_all):.6f}")
+        if bad:
+            raise AssertionError(f"a2a {arch} capacity {cf} "
+                                 f"residual_tp={rtp}: outside the limit")
+        out["cases"][(cf, rtp)] = err
+    # the wrong variant, the pairs dropped, the bytes, the times (1.25)
+    fn = moe.make_moe_a2a(mesh, dp_axes=("data",), top_k=K,
+                          capacity_factor=1.25, residual_tp=False)
+    with expert_choices() as chosen:
+        y, aux = fn(placed, x)
+    with expert_choices(replay=chosen):
+        want = torch.cat([moe.moe_block(p, xs, top_k=K,
+                                        capacity_factor=1.25)[0]
+                          for xs in chunks])
+    with reverse_exchange_reversed(), expert_choices(replay=chosen):
+        wrong, _ = fn(placed, x)
+    werr, wbad = outside(wrong, want, *A2A_TOL)
+    log(f"a2a {arch} wrong variant (the reverse exchange's shard order "
+        f"reversed): max |difference| {werr:.4e}, {wbad} outside")
+    if not wbad:
+        raise AssertionError(f"a2a {arch}: the limit does not see the "
+                             f"reverse exchange reversed")
+    with dropped_pairs() as dropped:
+        fn(placed, x)
+    dropped = [int(n) for n in dropped]
+    C_l = moe.moe_capacity(PAR_TOKENS, E, K, 1.25)
+    buf_bytes = E * C_l * d * 2
+    ep = PAR_MESH[0]
+    moved = PAR_MESH[0] * PAR_MESH[1] * buf_bytes * (ep - 1) // ep
+    a2a_ms = time_ms(lambda: fn(placed, x), iters=5, reps=3, warmup=1)
+    block_ms = time_ms(lambda: moe.moe_block(p, x, top_k=K,
+                                             capacity_factor=1.25),
+                       iters=5, reps=3, warmup=1)
+    shard_ms = time_ms(lambda: [moe.moe_block(p, xs, top_k=K,
+                                              capacity_factor=1.25)
+                                for xs in chunks], iters=5, reps=3,
+                       warmup=1)
+    log(f"a2a {arch} capacity 1.25: pairs dropped per data shard "
+        f"{dropped} of {PAR_TOKENS * K} each; a bucket buffer "
+        f"({E}, {C_l}, {d}) bf16 = {buf_bytes} bytes a shard, each "
+        f"all_to_all moving {moved} bytes between shards "
+        f"({buf_bytes * (ep - 1) // ep} a shard; copies within the card's "
+        f"memory); ms a call: a2a {a2a_ms:.3f}, "
+        f"moe_block over all {T} tokens {block_ms:.3f}, moe_block on each "
+        f"data shard {shard_ms:.3f} ({card})")
+    out.update(wrong=werr, dropped=dropped, moved=moved, a2a_ms=a2a_ms,
+               block_ms=block_ms, shard_ms=shard_ms)
+    if grads:
+        out["grads"] = a2a_grad_gate(arch, card, p, x, mesh, K)
+    return out
+
+
+def a2a_grad_gate(arch: str, card: str, p, x, mesh, K: int) -> dict:
+    """The a2a's gradients (capacity 1.25, ``residual_tp``, as the model
+    runs it) of ``sum(y * r) + aux`` against the per-shard
+    ``moe_block``'s replaying its expert choices, per tensor within
+    ``A2A_GRAD_TOL`` relative L2."""
+    import torch
+
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r = torch.randn(x.shape, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    fn = moe.make_moe_a2a(mesh, dp_axes=("data",), top_k=K,
+                          capacity_factor=1.25, residual_tp=True)
+
+    def grads_of(run, replay=None):
+        leaves = {"x": x.detach().clone().requires_grad_(),
+                  **{n: p[n].detach().requires_grad_() for n in p}}
+        with expert_choices(replay=replay) as chosen:
+            y, aux = run({n: leaves[n] for n in p}, leaves["x"])
+            loss = (y.float() * r.float()).sum() + aux
+            g = torch.autograd.grad(loss, list(leaves.values()))
+        return dict(zip(leaves, g)), chosen
+
+    got, chosen = grads_of(fn)
+
+    def per_shard(pp, xx):
+        parts = [moe.moe_block(pp, xs, top_k=K, capacity_factor=1.25)
+                 for xs in torch.chunk(xx, PAR_MESH[0])]
+        return (torch.cat([o for o, _ in parts]),
+                torch.stack([a for _, a in parts]).mean())
+
+    want, _ = grads_of(per_shard, replay=chosen)
+    rel = grad_rel_diffs(got, want)
+    log(f"a2a {arch} gradients against the per-shard moe_block (capacity "
+        f"1.25, residual_tp): relative L2 "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
+        f"(limit {A2A_GRAD_TOL:g}) ({card})")
+    bad = {k: v for k, v in rel.items() if not v <= A2A_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"a2a {arch}: gradients {bad} outside the "
+                             f"limit")
+    return rel
+
+
+def hook_prefill_checks(card: str, zero_counts, counts_now) -> dict:
+    """Phase 3i(b): phi3.5-moe at its published width cut to
+    ``HOOK_LAYERS`` layers, a prefill of 4 rows x ``PAR_TOKENS`` tokens
+    with ``moe_a2a`` on the ``PAR_MESH`` mesh (``moe_a2a_for``, as the
+    reference's ``make_ctx`` builds it): K6 once per layer for the call,
+    the last-position logits within ``LOGIT_TOL`` of the port's prefill
+    of each row alone without the hook (each data shard holds one row,
+    so expert parallelism computes that), the rows replaying the hook's
+    expert choices; printed without the replay too, with the count of
+    choices that differ; the reverse exchange reversed outside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.launch.steps import moe_a2a_for
+    from repro_torch.models.lm import init_lm, prefill
+
+    dev = torch.device("cuda")
+    arch = "phi3.5-moe"
+    full = configs.get(arch)
+    cfg = full.with_(n_layers=HOOK_LAYERS)
+    log(f"{arch} through the hook: reduced: {HOOK_LAYERS} of "
+        f"{full.n_layers} layers (the published width)")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = make_mesh(PAR_MESH, ("data", "model"),
+                     devices=["cuda:0"] * (PAR_MESH[0] * PAR_MESH[1]))
+    fn = moe_a2a_for(cfg, mesh)
+    if fn is None:
+        raise AssertionError(f"{arch}: moe_a2a_for gave no a2a on "
+                             f"{PAR_MESH}")
+    rows = PAR_MESH[0]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (rows, PAR_TOKENS)).astype(np.int32)).to(dev)
+    max_seq = PAR_TOKENS + 1
+
+    def hooked():
+        return prefill(params, {"tokens": tokens}, cfg, max_seq=max_seq,
+                       moe_a2a=fn)[0].float()
+
+    hooked()                                           # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    with expert_choices() as chosen:
+        got = hooked()
+    counts = counts_now()
+    if counts["flash_attention"] != HOOK_LAYERS or counts["ssd_intra_chunk"]:
+        raise AssertionError(f"{arch} through the hook: launches {counts}, "
+                             f"expected flash_attention {HOOK_LAYERS}")
+    if tuple(got.shape) != (rows, cfg.padded_vocab()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch} through the hook: logits of shape "
+                             f"{tuple(got.shape)}, or not finite")
+
+    def each_row(replay=None):
+        outs, routes = [], []
+        for b in range(rows):
+            with expert_choices(replay=replay,
+                                order=lambda i, b=b: i * rows + b) as ch:
+                outs.append(prefill(params, {"tokens": tokens[b:b + 1]},
+                                    cfg, max_seq=max_seq)[0].float())
+            routes.append(ch)
+        return torch.cat(outs), routes
+
+    want, _ = each_row(replay=chosen)
+    free, free_routes = each_row()
+    err = float((got - want).abs().max())
+    free_err = float((got - free).abs().max())
+    differ = sum(int((chosen[i * rows + b] != free_routes[b][i])
+                     .any(dim=-1).sum())
+                 for b in range(rows) for i in range(HOOK_LAYERS))
+    with reverse_exchange_reversed():
+        wrong = hooked()
+    werr = float((wrong - want).abs().max())
+    hook_ms = time_ms(hooked, iters=3, reps=3, warmup=1)
+    rows_ms = time_ms(lambda: each_row(), iters=2, reps=3, warmup=1)
+    log(f"{arch} prefill of {rows} x {PAR_TOKENS} tokens through moe_a2a "
+        f"on {PAR_MESH}: K6 {counts['flash_attention']} launches (one a "
+        f"layer); last-position logits against each row alone replaying "
+        f"the hook's expert choices: max |difference| {err:.4e} (limit "
+        f"{LOGIT_TOL[arch]:g}, max |x| {float(want.abs().max()):.3f}); "
+        f"without the replay {free_err:.4e}, {differ} of "
+        f"{rows * PAR_TOKENS * HOOK_LAYERS} (token, layer) choices differ;"
+        f" the reverse exchange reversed {werr:.4e}; ms: through the hook "
+        f"{hook_ms:.3f}, the rows alone {rows_ms:.3f} ({card})")
+    if not err <= LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch} through the hook: logits outside the "
+                             f"limit")
+    if not werr > LOGIT_TOL[arch]:
+        raise AssertionError(f"{arch} through the hook: the limit does not "
+                             f"see the reverse exchange reversed")
+    return {"counts": counts, "err": err, "free_err": free_err,
+            "differ": differ, "wrong": werr, "hook_ms": hook_ms,
+            "rows_ms": rows_ms}
+
+
+def seqpar_checks(card: str) -> dict:
+    """Phase 3i(c): sequence parallelism on a ("sp",) mesh of
+    ``SP_SHARDS`` on the card.  The conv halo: mamba2-130m's conv input
+    (its x, B and C streams), B ``SP_CONV_BATCH``, ``SP_SHARDS`` x
+    ``SP_SEQ`` tokens: ``causal_conv1d`` per shard with the halo as its
+    prefix bit for bit the unsharded conv (zero halos differ).  The scan
+    carry: recurrentgemma-9b's RG-LRU width, B ``SP_SCAN_BATCH``, decays
+    in (0.998, 1): per-shard ``linear_scan`` from zero, then
+    ``seqpar_scan_carry``: each shard's carried last state within
+    ``SP_CARRY_TOL`` of the unsharded scan's; a carry without the
+    shard's decay product outside."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models.ssm import (causal_conv1d, linear_scan,
+                                        seqpar_conv_halo, seqpar_scan_carry)
+
+    mesh = make_mesh((SP_SHARDS,), ("sp",), devices=["cuda:0"] * SP_SHARDS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mcfg = configs.get("mamba2-130m")
+    C = mcfg.padded_ssm_heads() * mcfg.ssm_head_dim + 2 * mcfg.ssm_state
+    K = mcfg.d_conv
+    S = SP_SHARDS * SP_SEQ
+    x = torch.randn(SP_CONV_BATCH, S, C, generator=gen, device="cuda",
+                    dtype=mcfg.compute_torch_dtype)
+    w = torch.randn(C, K, generator=gen, device="cuda").mul_(K ** -0.5).to(
+        mcfg.param_torch_dtype)
+    shards = list(torch.chunk(x, SP_SHARDS, dim=1))
+    halos = seqpar_conv_halo(shards, mesh, width=K - 1, axis_name="sp")
+    got = torch.cat([causal_conv1d(s, w, prefix=h)
+                     for s, h in zip(shards, halos)], dim=1)
+    want = causal_conv1d(x, w)
+    zero = torch.cat([causal_conv1d(s, w) for s in shards], dim=1)
+    same = torch.equal(got, want)
+    zdiff = int((zero != want).sum())
+    log(f"seqpar conv halo: mamba2-130m's conv input ({SP_CONV_BATCH}, "
+        f"{SP_SHARDS} x {SP_SEQ}, {C}) {x.dtype}, width {K - 1}: bit for "
+        f"bit the unsharded conv: {same}; zero halos differ in {zdiff} "
+        f"values")
+    if not same or not zdiff:
+        raise AssertionError("seqpar conv halo: not the unsharded conv, or "
+                             "the check does not see zero halos")
+    del x, shards, halos, got, want, zero
+    R = configs.get("recurrentgemma-9b").lru_width
+    a = torch.rand(SP_SCAN_BATCH, S, R, generator=gen, device="cuda") \
+        .mul_(0.002).add_(0.998)
+    b = torch.randn(SP_SCAN_BATCH, S, R, generator=gen, device="cuda")
+    want = linear_scan(a, b)[:, SP_SEQ - 1::SP_SEQ]        # (B, shards, R)
+    a_s, b_s = torch.chunk(a, SP_SHARDS, dim=1), torch.chunk(b, SP_SHARDS,
+                                                             dim=1)
+    h_local = [linear_scan(x_, y_)[:, -1] for x_, y_ in zip(a_s, b_s)]
+    a_total = [x_.prod(dim=1) for x_ in a_s]
+    inc = seqpar_scan_carry(a_total, h_local, mesh, axis_name="sp")
+    last = torch.stack([c * t + h for c, t, h in zip(inc, a_total,
+                                                     h_local)], dim=1)
+    wrong = torch.stack([c + h for c, h in zip(inc, h_local)], dim=1)
+    atol = SP_CARRY_TOL * float(want.abs().max())
+    err, bad = outside(last, want, atol, SP_CARRY_TOL)
+    werr, wbad = outside(wrong, want, atol, SP_CARRY_TOL)
+    log(f"seqpar scan carry: RG-LRU width {R} ({SP_SCAN_BATCH}, "
+        f"{SP_SHARDS} x {SP_SEQ}) float32, decay products "
+        f"{[round(float(t.mean()), 4) for t in a_total]}: carried last "
+        f"states against the unsharded scan max |difference| {err:.4e}, "
+        f"{bad} outside (rtol {SP_CARRY_TOL:g}, atol {atol:.3e}); without "
+        f"the decay product {werr:.4e}, {wbad} outside ({card})")
+    if bad or not wbad:
+        raise AssertionError("seqpar scan carry: outside the limit, or the "
+                             "limit does not see a carry without the decay")
+    return {"conv_equal": same, "carry_err": err, "carry_wrong": werr}
+
+
+def compressed_psum_checks(card: str) -> dict:
+    """Phase 3i(d): ``compressed_psum`` on a ("data",) mesh of
+    ``CPSUM_SHARDS`` on the card over a gradient tree shaped like
+    mamba2-130m's parameters, float32, seeded per shard:
+    ``CPSUM_STEPS`` steps with error feedback, the time-averaged mean
+    within ``CPSUM_TOL`` of the true mean; every int32 payload sum equal
+    to a float64 sum of the payloads.  Printed: payload bytes against
+    float32's, ms a call."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import make_mesh
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import ErrorFeedbackState, compressed_psum
+
+    dev = torch.device("cuda")
+    mcfg = configs.get("mamba2-130m")
+    shapes = {n: p.shape for n, p in init_lm(
+        mcfg, torch.Generator(device=dev).manual_seed(0),
+        dev).named_parameters()}
+    mesh = make_mesh((CPSUM_SHARDS,), ("data",),
+                     devices=["cuda:0"] * CPSUM_SHARDS)
+    grads = {n: [] for n in shapes}
+    for i in range(CPSUM_SHARDS):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        for n, shape in shapes.items():
+            grads[n].append(torch.randn(shape, generator=gen, device=dev))
+    numel = sum(g[0].numel() for g in grads.values())
+    real = coll.psum
+    sums = [0, 0]
+
+    def checked(xs, mesh_, axes):
+        out = real(xs, mesh_, axes)
+        if xs[0].dtype == torch.int32 and sums[0] < len(shapes):
+            # the first step's payload sums, each against float64's
+            ref = torch.stack([x.double() for x in xs]).sum(dim=0)
+            sums[0] += 1
+            sums[1] += int(not torch.equal(out[0].double(), ref))
+        return out
+
+    ef = ErrorFeedbackState.init(grads)
+    total = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+    coll.psum = checked
+    try:
+        for _ in range(CPSUM_STEPS):
+            mean, ef = compressed_psum(grads, mesh, "data", ef=ef)
+            for n in total:
+                total[n] += mean[n][0]
+    finally:
+        coll.psum = real
+    err = max(float((total[n] / CPSUM_STEPS
+                     - torch.stack(grads[n]).mean(dim=0)).abs().max())
+              for n in total)
+    call_ms = time_ms(lambda: compressed_psum(grads, mesh, "data", ef=ef),
+                      iters=3, reps=3, warmup=1)
+    payload = numel + 4 * len(shapes)
+    log(f"compressed_psum on ({CPSUM_SHARDS},) \"data\": {len(shapes)} "
+        f"tensors, {numel} float32 values a shard (mamba2-130m's "
+        f"parameters): {CPSUM_STEPS} steps with error feedback, the "
+        f"time-averaged mean within {err:.4e} of the true mean (limit "
+        f"{CPSUM_TOL:g}); the first step's {sums[0]} int32 payload sums, "
+        f"{sums[1]} unequal to the float64 sum; payload {payload} bytes a "
+        f"shard against {4 * numel} in float32 "
+        f"({4 * numel / payload:.2f}x less); "
+        f"{call_ms:.3f} ms a call ({card})")
+    if not err <= CPSUM_TOL or sums[1] or not sums[0]:
+        raise AssertionError("compressed_psum: the mean outside the limit, "
+                             "or an int32 sum unequal to float64's")
+    return {"err": err, "call_ms": call_ms, "payload": payload,
+            "f32_bytes": 4 * numel}
+
+
+def parallel_phase(card: str, zero_counts, counts_now) -> dict:
+    """Phase 3i: explicit collectives on meshes of shards on the card:
+    the MoE all-to-all (``a2a_block_checks`` for phi3.5-moe with its
+    gradients, then arctic-480b), phi3.5-moe's prefill through the hook
+    (``hook_prefill_checks``), sequence parallelism (``seqpar_checks``)
+    and ``compressed_psum`` (``compressed_psum_checks``).  Returns the
+    readings and the hook prefill's K6 launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"phi": a2a_block_checks("phi3.5-moe", card, grads=True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["arctic"] = a2a_block_checks("arctic-480b", card, grads=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hook"] = hook_prefill_checks(card, zero_counts, counts_now)
+    out["launches"] = {"flash_attention":
+                       out["hook"]["counts"]["flash_attention"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seqpar"] = seqpar_checks(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cpsum"] = compressed_psum_checks(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["secs"] = time.perf_counter() - t0
+    log(f"phase 3i: {out['secs']:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
+        f"({card})")
     return out
 
 
@@ -4363,6 +5110,13 @@ def main() -> int:
         launches[k] += n
     peak("3f")
 
+    # -- 3i. explicit collectives: the MoE all-to-all, phi3.5-moe's prefill
+    # through the hook, sequence parallelism, compressed_psum ------------
+    par = parallel_phase(card, zero_counts, counts_now)
+    for k, n in par["launches"].items():
+        launches[k] += n
+    peak("3i")
+
     # -- 4. times -----------------------------------------------------------
     results = {}
     x, y = randn(SAXPY_N), randn(SAXPY_N)
@@ -4661,6 +5415,29 @@ def main() -> int:
         f"written in {tm['write_ms']:.1f} ms, recovery "
         f"{tm['recovery_ms']:.1f} ms; gradient gate max relative L2 "
         f"{trn['gate']['mamba2-130m']['max_rel']:.3e} ({card})")
+
+    tmo = trn["moe"]
+    log(f"train phi3.5-moe ({TRAIN_MOE_LAYERS} layers, {TRAIN_MOE_BATCH} x "
+        f"{TRAIN_SEQ}, deterministic): "
+        + "; ".join(f"{mode} {r['step_ms']:.1f} ms a step, peak "
+                    f"{r['peak_gib']:.2f} GiB" for mode, r in tmo.items())
+        + f"; gradient gate max relative L2 "
+        f"{trn['gate']['phi3.5-moe']['max_rel']:.3e} ({card})")
+    for arch in ("phi", "arctic"):
+        a = par[arch]
+        log(f"a2a {arch}: worst forward max |difference| "
+            f"{max(a['cases'].values()):.4e} over {len(a['cases'])} cases, "
+            f"wrong variant {a['wrong']:.4e}; ms a2a {a['a2a_ms']:.3f}, "
+            f"moe_block {a['block_ms']:.3f}, per shard {a['shard_ms']:.3f}; "
+            f"{a['moved']} bytes an all_to_all ({card})")
+    h = par["hook"]
+    log(f"phase 3i: phi3.5-moe prefill through the hook logits "
+        f"{h['err']:.4e} (free {h['free_err']:.4e}, {h['differ']} choices "
+        f"differ; wrong {h['wrong']:.4e}), {h['hook_ms']:.3f} ms against "
+        f"{h['rows_ms']:.3f} for the rows alone; seqpar carry "
+        f"{par['seqpar']['carry_err']:.4e}; compressed_psum mean "
+        f"{par['cpsum']['err']:.4e}, {par['cpsum']['call_ms']:.3f} ms a "
+        f"call; {par['secs']:.1f} s ({card})")
 
     entries = []
     for name, meta in kernels.items():

@@ -377,22 +377,6 @@ def _host_pool() -> ThreadPoolExecutor:
         return _HOST_POOL
 
 
-_POOL_THREAD = threading.local()
-
-
-def _side_stream(device: torch.device):
-    """The calling pool thread's own stream on ``device``: a callback's
-    device work (a ``.cpu()``, a ``float()``) goes there, not behind every
-    later step on the dispatching stream."""
-    streams = getattr(_POOL_THREAD, "streams", None)
-    if streams is None:
-        streams = _POOL_THREAD.streams = {}
-    stream = streams.get(device)
-    if stream is None:
-        stream = streams[device] = torch.cuda.Stream(device)
-    return stream
-
-
 def _tensor_of(v):
     data = v.data if isinstance(v, RecordArray) else v
     return data if isinstance(data, torch.Tensor) else None
@@ -423,16 +407,21 @@ class _AsyncRun:
     time runs the queue in order (program order of side effects), so
     consecutive callbacks run on one thread without a hand-off between
     threads; it is submitted when a callback is queued and none runs, and
-    ends when the queue is empty.  A callback runs with its thread's side
-    stream current (and so its device), after that stream was made to
-    wait, on the card, for a CUDA event recorded after its arguments'
-    snapshots on the dispatching stream (its only data dependency: never
-    ``torch.cuda.synchronize``, which would wait for every step dispatched
-    behind it); the host does not wait for the event, so the callback's
-    first device read does.  After a failure the callbacks
-    queued behind it are cancelled.  ``max_inflight`` bounds the
-    pipeline's depth; a dispatcher at the cap waits until half of it has
-    drained.
+    ends when the queue is empty.  The call has one side stream, which a
+    pool task makes current (and so its device) when it starts.  A
+    callback runs after that stream was made to wait, on the card, for a
+    CUDA event recorded after its arguments' snapshots on the dispatching
+    stream (its only data dependency: never ``torch.cuda.synchronize``,
+    which would wait for every step dispatched behind it); the host does
+    not wait for the event, so the callback's first device read does.
+    The wait is queued just before the callback, never at submit, where
+    it would put the callback's reads behind every later step's event.
+    Whatever else a callback needs is done by the dispatcher at submit,
+    which has time to spare while the callbacks are the slower side: the
+    pool thread does as little as it can between two callbacks.  After a
+    failure the callbacks queued behind it are cancelled.
+    ``max_inflight`` bounds the pipeline's depth; a dispatcher at the cap
+    waits until half of it has drained.
 
     ``host_timeout`` (seconds, None: no watchdog) bounds every wait on a
     callback — the in-flight cap, a drain: past it the wait raises
@@ -458,6 +447,7 @@ class _AsyncRun:
         self._failed = False           # a callback failed: cancel the rest
         self._cancelled = threading.Event()
         self._hung: set = set()        # futures the watchdog gave up on
+        self._side = None              # the call's side stream (CUDA)
 
     def submit(self, region_index: int, fn, vals) -> None:
         self.check()
@@ -467,8 +457,7 @@ class _AsyncRun:
             # issues steps in bursts while the callbacks run alone, not one
             # step per finished callback, which starts exactly when the
             # next callback starts and takes the interpreter lock from it
-            while len(self.tasks) > self.max_inflight // 2:
-                self._wait_oldest()
+            self._wait_until(len(self.tasks) - self.max_inflight // 2)
         storages = self._storages()
         snapped = []
         for v in vals:
@@ -477,8 +466,16 @@ class _AsyncRun:
             self.stats["snapshot_bytes"] += nbytes
         event = None
         if self.device.type == "cuda":
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
+            for v in snapped:
+                data = _tensor_of(v)
+                if data is not None and data.is_cuda:
+                    # the allocator must not reuse the block before the
+                    # side stream's reads of it are done
+                    data.record_stream(self._side)
         fut: Future = Future()
         with self._lock:
             self._queue.append((region_index, fn, snapped, event, fut))
@@ -493,7 +490,9 @@ class _AsyncRun:
 
     def _run_queue(self) -> None:
         """The pool task: run the queued callbacks in order until none is
-        left."""
+        left, with the call's side stream current."""
+        if self._side is not None:
+            torch.cuda.set_stream(self._side)
         while True:
             with self._lock:
                 if not self._queue:
@@ -509,22 +508,9 @@ class _AsyncRun:
             _fault_trip("executor.host", detail=f"region{region_index}")
             if self._cancelled.is_set():   # the watchdog gave up meanwhile
                 raise _HostTaskCancelled()
-            if fn is not None and event is None:
-                fn(*vals)
-            elif fn is not None:
-                side = _side_stream(self.device)
-                side.wait_event(event)
-                for v in vals:
-                    data = _tensor_of(v)
-                    if data is not None and data.is_cuda:
-                        # the allocator must not reuse the block before
-                        # the side stream's reads of it are done
-                        data.record_stream(side)
-                if getattr(_POOL_THREAD, "current", None) is not side:
-                    # a pool thread keeps its side stream (and so its
-                    # device) current from one callback to the next
-                    torch.cuda.set_stream(side)
-                    _POOL_THREAD.current = side
+            if event is not None:
+                self._side.wait_event(event)
+            if fn is not None:
                 fn(*vals)
         except BaseException as exc:
             if not isinstance(exc, _HostTaskCancelled):
@@ -542,30 +528,51 @@ class _AsyncRun:
         for *_, fut in queued:
             fut.set_exception(_HostTaskCancelled())
 
+    def _give_up(self, region_index: int, fut) -> None:
+        """The watchdog's end of a wait: cancel every callback not yet
+        started and raise :class:`HostTimeoutError` for ``fut``."""
+        self._hung.add(fut)
+        self._cancel_queued()
+        err = HostTimeoutError(
+            f"host callback of region {region_index} still running "
+            f"after {self.host_timeout}s — cancelling its successors")
+        err.site = "executor.host"
+        raise err from None
+
     def _timed_result(self, region_index: int, fut):
         """``fut.result`` under the watchdog; a timeout cancels every
         callback not yet started and raises :class:`HostTimeoutError`."""
         try:
             return fut.result(timeout=self.host_timeout)
         except FuturesTimeout:
-            self._hung.add(fut)
-            self._cancel_queued()
-            err = HostTimeoutError(
-                f"host callback of region {region_index} still running "
-                f"after {self.host_timeout}s — cancelling its successors")
-            err.site = "executor.host"
-            raise err from None
+            self._give_up(region_index, fut)
 
-    def _wait_oldest(self) -> None:
-        region_index, fut = self.tasks[0]
+    def _wait_until(self, n: int) -> None:
+        """Wait until the ``n`` oldest callbacks have ended, take them off
+        and re-raise the first failure among them.  They end in order, so
+        the dispatcher sleeps on the n-th alone: one wake-up for ``n``
+        callbacks, where a wake-up as each ended took the interpreter lock
+        from the pool thread just as it started the next.  The watchdog
+        still bounds each callback: a wait in which the oldest unfinished
+        one does not end within ``host_timeout`` raises for it."""
         t0 = time.perf_counter()
         try:
-            self._timed_result(region_index, fut)
-        except _HostTaskCancelled:
-            pass
+            last = self.tasks[n - 1][1]
+            while not last.done():
+                region_index, fut = next(
+                    t for t in self.tasks if not t[1].done())
+                try:
+                    last.exception(timeout=self.host_timeout)
+                except FuturesTimeout:
+                    if not fut.done():
+                        self._give_up(region_index, fut)
         finally:
             self.stats["wait_s"] += time.perf_counter() - t0
-        self.tasks.popleft()
+        for _ in range(n):
+            exc = self.tasks[0][1].exception()
+            if exc is not None and not isinstance(exc, _HostTaskCancelled):
+                raise exc
+            self.tasks.popleft()
 
     def check(self) -> None:
         """Raise the failure of a callback that already failed, without

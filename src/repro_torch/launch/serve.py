@@ -46,7 +46,6 @@ import torch
 
 from .. import configs
 from ..core.device import resolve_device
-from ..core.layout import Layout
 from ..models.lm import init_lm, prefill
 from . import steps as S
 
@@ -60,29 +59,25 @@ def _sync(device: torch.device) -> None:
 
 def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
                     use_kernel: bool = True, *, frames=None, patches=None):
-    """The uniform loop: prefill, then greedy decode of the whole batch at
-    one position.  ``tokens`` (B, S) int, with ``frames`` (B, S_enc,
-    frontend_dim) for an encoder-decoder or ``patches`` (B,
-    frontend_tokens, frontend_dim) for a VLM (``max_seq`` then counts the
-    patch positions); returns ``((B, gen) token array, prefill seconds,
-    decode seconds)``.
+    """The uniform loop, as the reference's: one prefill over the whole
+    batch, then greedy decode of the whole batch at one position.
+    ``tokens`` (B, S) int, with ``frames`` (B, S_enc, frontend_dim) for an
+    encoder-decoder or ``patches`` (B, frontend_tokens, frontend_dim) for
+    a VLM (``max_seq`` then counts the patch positions); returns ``((B,
+    gen) token array, prefill seconds, decode seconds)``.
 
-    Each row is prefilled on its own and the caches are stacked: the
-    batcher prefills one request at a time, and a batched prefill runs
-    its matrix products at another shape, which the GPU's libraries may
-    sum in another order, and greedy decoding would follow any rounding
-    difference.  The decode steps run the whole batch at once."""
+    The prefill buckets a routed arch's B*S tokens together, so its
+    experts' capacity is reckoned over the batch, as the reference's
+    (the ``Batcher`` prefills one request at a time: its streams are
+    this loop's on each request alone)."""
     dev = next(params.parameters()).device
     batch = {"tokens": tokens, "frames": frames, "patches": patches}
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
              if v is not None}
     _sync(dev)
     t0 = time.perf_counter()
-    rows = [prefill(params, {k: v[b:b + 1] for k, v in batch.items()}, cfg,
-                    max_seq=max_seq, use_kernel=use_kernel)
-            for b in range(batch["tokens"].shape[0])]
-    logits = torch.cat([r[0] for r in rows])
-    caches = _stack_caches([r[1] for r in rows], cfg)
+    logits, caches = prefill(params, batch, cfg, max_seq=max_seq,
+                             use_kernel=use_kernel)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     step = S.make_decode_step(cfg)
@@ -96,29 +91,6 @@ def legacy_generate(cfg, params, tokens, gen: int, max_seq: int,
     out = torch.stack(out, dim=1).cpu().numpy()
     t_decode = time.perf_counter() - t1
     return out, t_prefill, t_decode
-
-
-def _stack_caches(parts: list, cfg) -> dict:
-    """Per-row caches (batch 1 each, at one position) stacked along the
-    batch axis: axis 1 of SoA KV storage (its component axis leads), axis
-    0 of everything else; an encoder-decoder's ``{"self", "cross"}``
-    entry on both keys."""
-    kv_axis = 1 if cfg.kv_layout is Layout.SOA else 0
-
-    def cat(xs):
-        if isinstance(xs[0], tuple):    # a Mamba or RG-LRU layer's pair
-            return tuple(torch.cat(list(z)) for z in zip(*xs))
-        if isinstance(xs[0], dict):     # self and cross KV storage
-            return {k: cat([x[k] for x in xs]) for k in xs[0]}
-        return torch.cat(xs, dim=kv_axis)
-
-    first = parts[0]
-    return {"groups": [{k: cat([p["groups"][g][k] for p in parts])
-                        for k in grp}
-                       for g, grp in enumerate(first["groups"])],
-            "tail": [cat([p["tail"][i] for p in parts])
-                     for i in range(len(first["tail"]))],
-            "pos": first["pos"]}
 
 
 def _prompts(cfg, batch: int, prompt_len: int, rng=None) -> np.ndarray:

@@ -7,7 +7,10 @@ The train step (:func:`make_train_step`) differentiates ``forward_loss``
 with autograd, accumulates float32 gradients over ``cfg.microbatches``,
 clips them by their global norm and updates the parameters and the
 optimizer state in place; on the GPU its forward runs K6 / K7, whose
-gradients are their plain versions'.
+gradients are their plain versions'.  Given a mesh, an MoE arch's
+routed FFNs run expert-parallel (``models/moe.py``'s ``make_moe_a2a``)
+where the reference's ``make_ctx`` builds its ``moe_a2a``
+(:func:`moe_a2a_for`).
 
 The decode step is a Graph with one node per layer.  Every attention
 cache is a *record* DistTensor (fields k, v over the (B, S, Hkv) or (B,
@@ -44,11 +47,13 @@ from ..models.config import ModelConfig
 from ..models.lm import (_prefill_to_decode_cache, decode_step,
                          decoder_pass, embed_tokens, forward_loss,
                          lm_logits, prefill)
+from ..models.moe import make_moe_a2a
 from ..optim import clip_by_global_norm, cosine_schedule, make_optimizer
 
 __all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
            "PrefillGraph", "cache_state_overrides", "make_decode_graph",
            "make_prefill_graph", "make_train_step", "loss_and_grads",
+           "moe_a2a_for",
            "make_prefill_step", "make_decode_step", "ENC_LEN_SERVE"]
 
 #: the frozen encoder length of an encoder-decoder's served decode: the
@@ -56,24 +61,47 @@ __all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
 ENC_LEN_SERVE = 4096
 
 
+def moe_a2a_for(cfg: ModelConfig, mesh):
+    """The expert-parallel MoE FFN that the reference's ``make_ctx``
+    builds for a training or prefill shape on ``mesh``, else None: only
+    for an MoE arch under the "tp" sharding on a mesh whose "model" axis
+    is > 1 and whose "data" size is > 1 and divides the expert count
+    (the reference's rules then put the experts on "data").  Its data
+    axes are "pod" and "data" where the mesh has them;
+    ``cfg.shard_activations`` scatters its output over "model"."""
+    if mesh is None or not cfg.n_experts or cfg.train_sharding == "fsdp" \
+            or mesh.shape.get("model", 1) <= 1:
+        return None
+    data = mesh.shape.get("data", 1)
+    if data <= 1 or cfg.n_experts % data:
+        return None
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return make_moe_a2a(mesh, dp_axes=dp, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        residual_tp=cfg.shard_activations)
+
+
 def make_train_step(cfg: ModelConfig, *, lr=None, total_steps: int = 10_000,
-                    clip_norm: float = 1.0, device: Any = None):
+                    clip_norm: float = 1.0, device: Any = None, mesh=None):
     """-> ``(train_step, opt)``; ``train_step(state, batch) -> (state,
     metrics)`` with ``state = {"params": module, "opt": opt state,
     "step": int32 scalar tensor}`` on ``device`` (``None``: the GPU),
     updated in place and returned, and ``metrics = {"loss",
     "grad_norm"}`` float32 scalar tensors (no host sync in the step).
     ``batch`` holds ``tokens`` and ``labels`` (numpy arrays or tensors;
-    they are moved to ``device``).  The parameters must require grad."""
+    they are moved to ``device``).  The parameters must require grad.
+    With ``mesh``, routed FFNs run through :func:`moe_a2a_for`'s
+    expert-parallel block where it gives one."""
     dev = resolve_device(device)
     opt = make_optimizer(cfg.optimizer,
                          lr or cosine_schedule(3e-4, 200, total_steps))
+    moe_a2a = moe_a2a_for(cfg, mesh)
 
     def train_step(state, batch):
         params = state["params"]
         batch = {key: torch.as_tensor(v).to(dev, non_blocking=True)
                  for key, v in batch.items()}
-        loss, grads = loss_and_grads(params, batch, cfg)
+        loss, grads = loss_and_grads(params, batch, cfg, moe_a2a=moe_a2a)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         opt.update(grads, state["opt"], params, state["step"])
         state["step"].add_(1)
@@ -83,17 +111,18 @@ def make_train_step(cfg: ModelConfig, *, lr=None, total_steps: int = 10_000,
     return train_step, opt
 
 
-def loss_and_grads(params, batch, cfg: ModelConfig):
+def loss_and_grads(params, batch, cfg: ModelConfig, *, moe_a2a=None):
     """The train step's objective and its gradients: ``(loss, {parameter
     name: gradient})``.  With ``cfg.microbatches = k > 1`` the batch is
     split into k row blocks, the gradients summed in float32 and divided
     by k, and the loss is the mean of the k losses, as the reference's
-    scan; with k = 1 each gradient is in its parameter's dtype."""
+    scan; with k = 1 each gradient is in its parameter's dtype.  Routed
+    FFNs go through ``moe_a2a`` where given."""
     names, leaves = zip(*params.named_parameters())
     k = cfg.microbatches
 
     def loss_fn(mb):
-        return forward_loss(params, mb, cfg)[0]
+        return forward_loss(params, mb, cfg, moe_a2a=moe_a2a)[0]
 
     if k == 1:
         loss = loss_fn(batch)

@@ -10,11 +10,15 @@ Every block has three entry points:
   *_forward    full sequence (prefill), optionally emitting the cache
   *_decode     one token against the cache
 
-The JAX package's ``ShardCtx`` has no counterpart: the port runs one
-device.  An MoE FFN (``cfg.n_experts``) routes through
-``models/moe.py``, with arctic's dense residual FFN beside it where
-``cfg.dense_residual``: a full-sequence layer buckets to capacity and
-returns the load-balance loss, a decode step routes dropless.  Prefill
+The JAX package's ``ShardCtx`` has one counterpart here: ``moe_a2a``,
+the expert-parallel MoE FFN (``models/moe.py``'s ``make_moe_a2a``), which
+the full-sequence entry points take and hand down to every routed FFN
+that is not dropless, as the reference's ``ctx.moe_a2a``; its other
+fields (GSPMD shardings) are not ported.  An MoE FFN
+(``cfg.n_experts``) routes through ``models/moe.py``, with arctic's dense
+residual FFN beside it where ``cfg.dense_residual``: a full-sequence
+layer buckets to capacity (through ``moe_a2a`` where given) and returns
+the load-balance loss, a decode step routes dropless.  Prefill
 positions are always ``0 .. S-1``: the port prefills a sequence from its
 first token (a VLM's from its first patch position).
 
@@ -323,18 +327,23 @@ def _glu(x, wi, wo, cfg: ModelConfig):
     return (g * up) @ wo.to(x.dtype)
 
 
-def ffn_forward(p, x, cfg: ModelConfig, *, dropless: bool = False):
+def ffn_forward(p, x, cfg: ModelConfig, *, dropless: bool = False,
+                moe_a2a=None):
     """x (..., d) -> (out (..., d), aux): SwiGLU / GeGLU / MLP with aux
     None, or the routed experts (bucketed to capacity, or ``dropless``)
     plus the dense residual where the config has one, with aux their
-    load-balance loss (float32 scalar)."""
+    load-balance loss (float32 scalar).  A routed FFN that is not
+    dropless goes through ``moe_a2a(p["moe"], x2d)`` where given."""
     cdt = x.dtype
     if cfg.n_experts:
         lead = x.shape[:-1]
-        out, aux = moe_block(p["moe"], x.reshape(-1, cfg.d_model),
-                             top_k=cfg.top_k,
-                             capacity_factor=cfg.capacity_factor,
-                             dropless=dropless)
+        x2d = x.reshape(-1, cfg.d_model)
+        if moe_a2a is not None and not dropless:
+            out, aux = moe_a2a(p["moe"], x2d)
+        else:
+            out, aux = moe_block(p["moe"], x2d, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 dropless=dropless)
         out = out.reshape(*lead, cfg.d_model)
         if cfg.dense_residual:
             out = out + _glu(x, p["wi_dense"], p["wo_dense"], cfg)
@@ -391,12 +400,13 @@ def _local(kind: str, cfg: ModelConfig):
     return cfg.window, cfg
 
 
-def _ffn_residual(p, h, cfg: ModelConfig, *, dropless: bool = False):
+def _ffn_residual(p, h, cfg: ModelConfig, *, dropless: bool = False,
+                  moe_a2a=None):
     """-> (h + the FFN's output, its aux or None)."""
     if not cfg.d_ff:
         return h, None
     out, aux = ffn_forward(p["ffn"], norm_apply(p, h, cfg, "ln_ffn"), cfg,
-                           dropless=dropless)
+                           dropless=dropless, moe_a2a=moe_a2a)
     if cfg.sandwich_norm:
         out = norm_apply(p, out, cfg, "ln_ffn_post")
     return h + out, aux
@@ -404,11 +414,12 @@ def _ffn_residual(p, h, cfg: ModelConfig, *, dropless: bool = False):
 
 def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
                   enc_out=None, want_cache: bool = False,
-                  use_kernel: bool = True):
+                  use_kernel: bool = True, moe_a2a=None):
     """Full-sequence layer (``causal=False``: an encoder layer; with
     ``enc_out`` a decoder layer's cross-attention reads it); returns (h,
     aux | None, cache_entry | None), aux the MoE load-balance loss of a
-    routed FFN (bucketed to capacity)."""
+    routed FFN (bucketed to capacity, through ``moe_a2a`` where
+    given)."""
     _check_kind(kind)
     window, cfg = _local(kind, cfg)
     x = norm_apply(p, h, cfg, "ln_mix")
@@ -431,7 +442,7 @@ def layer_forward(p, h, kind: str, cfg: ModelConfig, *, causal: bool = True,
         h = h + attention_forward(p["cross"],
                                   norm_apply(p, h, cfg, "ln_cross"), cfg,
                                   enc_out=enc_out, use_kernel=use_kernel)
-    h, aux = _ffn_residual(p, h, cfg)
+    h, aux = _ffn_residual(p, h, cfg, moe_a2a=moe_a2a)
     return h, aux, cache if want_cache else None
 
 

@@ -24,6 +24,11 @@ text: positions run over both, and decoding starts after both).
 ``cfg.remat == "full"`` recomputes each layer group, and each encoder
 layer, in the backward (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint`` of its scanned bodies.
+
+``forward_loss`` and ``prefill`` take ``moe_a2a``, the expert-parallel
+MoE FFN of ``models/moe.py``'s ``make_moe_a2a``, where the reference's
+``ShardCtx`` carries it: every routed FFN of the decoder that is not
+dropless goes through it (a decode step never does).
 """
 
 from __future__ import annotations
@@ -157,14 +162,15 @@ def _add_aux(total, aux):
 
 
 def _group_forward(gp, h, pattern, cfg: ModelConfig, want_cache: bool,
-                   use_kernel: bool, enc_out=None):
+                   use_kernel: bool, enc_out=None, moe_a2a=None):
     """One layer group -> (h, the group's aux | None, its caches)."""
     caches, aux_g = {}, None
     for i, kind in enumerate(pattern):
         h, aux, caches[f"p{i}"] = layer_forward(gp[f"p{i}"], h, kind, cfg,
                                                 enc_out=enc_out,
                                                 want_cache=want_cache,
-                                                use_kernel=use_kernel)
+                                                use_kernel=use_kernel,
+                                                moe_a2a=moe_a2a)
         aux_g = _add_aux(aux_g, aux)
     return h, aux_g, caches
 
@@ -187,12 +193,14 @@ def encode(params, frames, cfg: ModelConfig, *, use_kernel: bool = True):
 
 
 def decoder_pass(params, h, cfg: ModelConfig, *, enc_out=None,
-                 want_cache: bool = False, use_kernel: bool = True):
+                 want_cache: bool = False, use_kernel: bool = True,
+                 moe_a2a=None):
     """-> (h after the final norm, aux, caches | None), caches as
     ``{"groups": [...], "tail": [...]}`` of raw layer emissions and aux
     the routed FFNs' load-balance losses summed over groups and tail
     (None where no layer routes); an encoder-decoder's layers read
-    ``enc_out`` in their cross-attention.  Under grad mode with
+    ``enc_out`` in their cross-attention, and routed FFNs go through
+    ``moe_a2a`` where given.  Under grad mode with
     ``cfg.remat == "full"`` each layer group is recomputed in the
     backward instead of keeping its activations (the same routing)."""
     n_groups, pattern, tail = cfg.layer_groups()
@@ -205,19 +213,21 @@ def decoder_pass(params, h, cfg: ModelConfig, *, enc_out=None,
             h, aux = checkpoint(
                 lambda x, gp=gp: _group_forward(gp, x, pattern, cfg, False,
                                                 use_kernel,
-                                                enc_out=enc_out)[:2],
+                                                enc_out=enc_out,
+                                                moe_a2a=moe_a2a)[:2],
                 h, use_reentrant=False)
             groups.append(None)
         else:
             h, aux, c = _group_forward(gp, h, pattern, cfg, want_cache,
-                                       use_kernel, enc_out=enc_out)
+                                       use_kernel, enc_out=enc_out,
+                                       moe_a2a=moe_a2a)
             groups.append(c)
         aux_total = _add_aux(aux_total, aux)
     tails = []
     for i, kind in enumerate(tail):
         h, aux, c = layer_forward(params[f"tail{i}"]["layer"], h, kind, cfg,
                                   enc_out=enc_out, want_cache=want_cache,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, moe_a2a=moe_a2a)
         aux_total = _add_aux(aux_total, aux)
         tails.append(c)
     h = norm_apply(params["final"], h, cfg, "ln")
@@ -246,17 +256,19 @@ def assemble_input(params, batch, cfg: ModelConfig, *,
 
 
 def forward_loss(params, batch, cfg: ModelConfig, *,
-                 aux_weight: float = 0.01, use_kernel: bool = True):
+                 aux_weight: float = 0.01, use_kernel: bool = True,
+                 moe_a2a=None):
     """Training objective: CE + ``aux_weight`` * aux, aux the routed FFNs'
-    load-balance loss summed over the layers (0 where no layer routes).
-    A VLM's logits at its patch positions are dropped where the labels
-    cover the text alone.  Returns ``(total, {"loss",
-    "aux"})``.  On the GPU attention runs on K6 and the SSD on K7 unless
-    ``use_kernel=False``; their gradients are the plain versions'."""
+    load-balance loss summed over the layers (0 where no layer routes;
+    through ``moe_a2a`` where given).  A VLM's logits at its patch
+    positions are dropped where the labels cover the text alone.
+    Returns ``(total, {"loss", "aux"})``.  On the GPU attention runs on
+    K6 and the SSD on K7 unless ``use_kernel=False``; their gradients are
+    the plain versions'."""
     h, _, enc_out = assemble_input(params, batch, cfg,
                                    use_kernel=use_kernel)
     h, aux, _ = decoder_pass(params, h, cfg, enc_out=enc_out,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, moe_a2a=moe_a2a)
     logits = lm_logits(params, h, cfg)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:   # a VLM: the patch positions
@@ -314,19 +326,22 @@ def _cross_cache(p, enc_out, cfg: ModelConfig):
 
 
 def prefill(params, batch, cfg: ModelConfig, *,
-            max_seq: Optional[int] = None, use_kernel: bool = True):
+            max_seq: Optional[int] = None, use_kernel: bool = True,
+            moe_a2a=None):
     """Process the prompts ``batch["tokens"]`` (B, S) (with their
     ``frames`` or ``patches``, see the module docstring); -> (last-token
     logits (B, Vp), caches).  ``max_seq`` counts a VLM's patch positions.
     On the GPU attention runs on K6 (the encoder's and the
     cross-attention's too) and the SSD on K7 unless
-    ``use_kernel=False``."""
+    ``use_kernel=False``.  The routed FFNs bucket the B*S tokens
+    together, through ``moe_a2a`` where given."""
     h, _, enc_out = assemble_input(params, batch, cfg,
                                    use_kernel=use_kernel)
     B, S = h.shape[0], h.shape[1]
     max_seq = max_seq or S
     h, _, raw = decoder_pass(params, h, cfg, enc_out=enc_out,
-                             want_cache=True, use_kernel=use_kernel)
+                             want_cache=True, use_kernel=use_kernel,
+                             moe_a2a=moe_a2a)
     dt, dev = cfg.compute_torch_dtype, h.device
 
     def entry(p, raw_entry, kind):

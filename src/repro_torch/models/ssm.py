@@ -17,6 +17,14 @@ with ``lax.associative_scan``, outside any Pallas kernel; here it is a
 log-depth doubling scan in float32 torch ops (ceil(log2 S) passes, the
 same combine), whose tree differs from XLA's, so the two agree to
 float32 rounding, not bit for bit.
+
+Sequence parallelism over a mesh axis, as the reference's
+``seqpar_conv_halo`` and ``seqpar_scan_carry``: each shard holds a run of
+the sequence; the causal conv takes its left halo from the previous
+shard (a ``ppermute``), and a linear recurrence run on each shard from a
+zero state gets its true incoming state from an exclusive scan over the
+shards' (decay product, last state) pairs (an ``all_gather``, then a
+scan).
 """
 
 from __future__ import annotations
@@ -26,12 +34,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core import collectives as coll
+from ..core.mesh import Mesh
 from ..kernels.ssd.ops import ssd, ssd_decode_step
 from .common import Init, ParamModule
 
 __all__ = ["RG_LRU_C", "causal_conv1d", "conv_state_update",
            "init_mamba2", "mamba2_forward", "mamba2_decode", "init_rglru",
-           "linear_scan", "rglru_forward", "rglru_decode"]
+           "linear_scan", "rglru_forward", "rglru_decode",
+           "seqpar_conv_halo", "seqpar_scan_carry"]
 
 f32 = torch.float32
 
@@ -305,3 +316,39 @@ def rglru_decode(p, xt: torch.Tensor, state, *, out=None):
                       out=None if out is None else out[0])
     y = (h_new.to(cdt) * yb) @ p["wo"].to(cdt)
     return y, (h_new, full[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism over a mesh axis
+# ---------------------------------------------------------------------------
+
+def seqpar_conv_halo(x_shards, mesh: Mesh, *, width: int,
+                     axis_name: str) -> list:
+    """The left halo of every sequence shard: ``x_shards`` (one (B, S_l,
+    C) tensor per mesh shard, sequence split over ``axis_name``) -> per
+    shard the previous shard's last ``width`` tokens (B, width, C), zeros
+    for the first shard (the causal boundary).  A ``ppermute``, as
+    ``repro.core.halo``'s one-sided exchange."""
+    n = coll.axis_size(mesh, axis_name)
+    send = [x[:, x.shape[1] - width:] for x in x_shards]
+    return coll.ppermute(send, mesh, axis_name,
+                         [(i, i + 1) for i in range(n - 1)])
+
+
+def seqpar_scan_carry(a_total, h_local, mesh: Mesh, *,
+                      axis_name: str) -> list:
+    """The state entering every sequence shard of a linear recurrence.
+    Each shard ran the recurrence from a zero state: ``h_local`` is its
+    last state and ``a_total`` the product of its decays, one (B, R)
+    tensor each per mesh shard.  Shard ``i`` gets the exclusive scan
+    ``carry <- carry * a_j + h_j`` over shards ``j < i`` from zero,
+    computed on every shard from the ``all_gather`` of both."""
+    a_all = coll.all_gather(a_total, mesh, axis_name)
+    h_all = coll.all_gather(h_local, mesh, axis_name)
+    out = []
+    for i, (a, h) in enumerate(zip(a_all, h_all)):
+        carry = torch.zeros_like(h[0])
+        for j in range(coll.axis_index(mesh, axis_name, i)):
+            carry = carry * a[j] + h[j]
+        out.append(carry)
+    return out

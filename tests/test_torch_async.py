@@ -34,6 +34,7 @@ from repro_torch.core import (Boundary, DistTensor, ExecutionKind, Executor,
                               concurrent_padded_access,
                               make_reduction_result)
 from repro_torch.interop import state_from_reference
+from repro_torch.runtime.faults import HostTimeoutError
 from repro_torch.runtime.supervisor import StepStats
 
 LAYOUTS = (Layout.AOS, Layout.SOA, Layout.AOSOA)
@@ -373,6 +374,75 @@ def test_async_executor_usable_after_callback_failure():
     st = ex(ex.init_state())
     assert ran == [1.0]
     assert torch.equal(st["a"], torch.full((8,), 1.0))
+
+
+def _step_log_graph(record):
+    """device(a += 1) -> host(record(a[0])): one callback a step."""
+    a = DistTensor("a", (8,))
+    g = Graph(name="steplog")
+    g.split(lambda x: x + 1.0, a, writes=(0,))
+    g.then(lambda x: record(float(x[0])), exec_kind=ExecutionKind.Cpu,
+           args=(a,))
+    return g
+
+
+def test_in_flight_cap_keeps_order_and_values():
+    """Slow callbacks fill the pipeline to ``max_inflight`` and no
+    further; every step's callback still runs once, in order, on its own
+    step's value."""
+    seen = []
+
+    def record(v):
+        time.sleep(0.002)
+        seen.append(v)
+
+    ex = _ex(_step_log_graph(record), donate=False)
+    st = ex.run(ex.init_state(), 100)
+    assert seen == [float(i) for i in range(1, 101)]
+    assert ex.async_stats["peak_inflight"] == 32
+    assert ex.async_stats["callbacks"] == 100
+    assert torch.equal(st["a"], torch.full((8,), 100.0))
+
+
+def test_in_flight_cap_raises_the_first_failure():
+    """A callback that fails while the dispatcher waits at the cap
+    surfaces its own exception from the run, and no later callback
+    fires."""
+    seen = []
+
+    def record(v):
+        time.sleep(0.002)
+        if v == 20.0:
+            raise ValueError("step 20 failed")
+        seen.append(v)
+
+    ex = _ex(_step_log_graph(record), donate=False)
+    with pytest.raises(ValueError, match="step 20 failed"):
+        ex.run(ex.init_state(), 100)
+    assert seen == [float(i) for i in range(1, 20)]
+
+
+@pytest.mark.parametrize("hang", [False, True])
+def test_in_flight_cap_watchdog_bounds_each_callback(hang):
+    """At the cap the dispatcher waits for 16 callbacks at once, and
+    ``host_timeout`` still bounds each of them, not their sum: 16
+    callbacks of 0.03 s pass under a 0.2 s watchdog, and one that hangs
+    raises ``HostTimeoutError`` without the wait running to its end."""
+    def record(v):
+        time.sleep(2.0 if hang and v == 20.0 else 0.03)
+
+    ex = _ex(_step_log_graph(record), donate=False, host_timeout=0.2,
+             degrade=False)
+    t0 = time.perf_counter()
+    if not hang:
+        ex.run(ex.init_state(), 60)
+        assert ex.async_stats["peak_inflight"] == 32
+        return
+    with pytest.raises(HostTimeoutError) as info:
+        ex.run(ex.init_state(), 60)
+    assert time.perf_counter() - t0 < 1.9, "the watchdog waited out the hang"
+    assert info.value.site == "executor.host"
+    time.sleep(2.0)   # let the hung worker finish its sleep
 
 
 def test_async_flag_not_in_plan_signature():

@@ -797,7 +797,7 @@ def test_async_callbacks_read_snapshots_of_their_step(dev, donate):
 
 def test_async_callback_reads_on_its_threads_side_stream(dev):
     """A callback runs on a ``ripple-host`` thread under the executor's
-    device, on that thread's own stream: not the dispatching stream, not
+    device, on the call's side stream: not the dispatching stream, not
     the legacy default stream, so its read does not queue behind later
     steps."""
     from repro_torch.core import clear_executable_cache

@@ -378,9 +378,9 @@ def test_assemble_input_matches_reference(arch):
 @pytest.mark.parametrize("arch", FRONTEND)
 def test_legacy_generate_matches_reference(arch):
     """The uniform loop, token for token: 3 prompts of 6 tokens with
-    their frames or patches, 5 tokens each (the port prefills each row
-    alone and stacks the caches, the {"self", "cross"} entries on both
-    keys)."""
+    their frames or patches, 5 tokens each (one prefill over the three
+    rows, as the reference's; the decode reads the {"self", "cross"}
+    entries of its caches)."""
     jc, tc, jp, tp = _models(arch)
     toks = np.random.default_rng(13).integers(1, 256, (3, 6)).astype(
         np.int32)

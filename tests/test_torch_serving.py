@@ -123,8 +123,8 @@ def test_injected_faults_replay_the_same_streams(served):
 
 
 def test_legacy_loop_matches_the_batcher(served):
-    """The port's uniform loop (per-row prefill, batched decode) on the
-    equal-length prompts gives the Batcher's streams."""
+    """The port's uniform loop (one prefill over both rows, batched
+    decode) on the equal-length prompts gives the Batcher's streams."""
     tc, tp, _, _, prompts, refs = served
     pair = np.stack([prompts[0], prompts[2]])
     gen, _, _ = legacy_generate(tc, tp, torch.from_numpy(pair), 4, MAX_SEQ)

@@ -16,8 +16,10 @@ phi3.5-moe and arctic-480b cut in depth through the ``Batcher``),
 ``regions`` (phase 3b's
 four graphs), ``serve``
 (phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
-3d), ``examples`` (phase 3e: tuning on a mesh and the examples) or
-``train`` (phase 3f: training, the gradient gate, the supervisor).  Each
+3d), ``examples`` (phase 3e: tuning on a mesh and the examples),
+``train`` (phase 3f: training, the gradient gate, the supervisor) or
+``parallel`` (phase 3i: the MoE all-to-all, phi3.5-moe's prefill through
+the hook, sequence parallelism, ``compressed_psum``).  Each
 phase runs as ``chip_smoke.py`` runs it, with its checks, ``--repeat``
 times in a row; a failed check is printed and the next run goes on.  The
 kernels are built first.  Exits non-zero if any run failed.
@@ -35,7 +37,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 PHASES = ("out", "lm", "local", "archs", "moe", "regions", "serve",
-          "async", "mesh", "examples", "train")
+          "async", "mesh", "examples", "train", "parallel")
 
 
 def main() -> int:
@@ -117,7 +119,9 @@ def main() -> int:
         "mesh": lambda: cs.mesh_phase(card, zero_counts, counts_now, eik),
         "examples": lambda: cs.examples_phase(card, zero_counts,
                                               counts_now),
-        "train": lambda: cs.train_phase(card, zero_counts, counts_now)}
+        "train": lambda: cs.train_phase(card, zero_counts, counts_now),
+        "parallel": lambda: cs.parallel_phase(card, zero_counts,
+                                              counts_now)}
 
     def eik_mid():
         """The eikonal kernel's mid-solve input of chip_smoke.py."""
