@@ -223,8 +223,10 @@ result line):
    ``build_trainer``, the loss finite and falling, ms a step, tokens/s,
    peak memory and 6 N tokens over the step time at 989 TFLOP/s, K6
    twice a layer a step (forward and remat recompute; its backward is the
-   plain version recomputed), one profiled step (K6 against its
-   backward), and K6's forward and backward timed alone at that shape;
+   plain version recomputed), one profiled step (its device time and
+   K6's kernels in it; K6's backward a step: one call's kernels profiled
+   alone at its shape times the calls), and K6's forward and backward
+   timed alone at that shape;
    the gradient gate: the kernel route's gradients of one batch against
    ``use_kernel=False``'s within ``GRAD_REL_TOL`` per parameter, the
    projections into K6 (``wq``/``wk``/``wv``) and K7
@@ -250,7 +252,31 @@ result line):
    largest kernels of a profiled one (also of qwen3-8b's); the
    ``Prefetcher`` bringing the batches onto the card; ``examples/train_lm_torch.py --steps 50``;
    the serve launcher's ``--smoke --chaos`` (both archs) and ``--smoke
-   --legacy`` in this process.  (a)'s, phi3.5-moe's and the supervised
+   --legacy`` in this process; then (f) the other archs' training
+   (``TRAIN_ARCH_CASES``, each at every published width and cut in
+   depth with one layer of each kind: gemma3-12b 6 of 48 layers,
+   recurrentgemma-9b 3 of 38, qwen1.5-4b 4 of 40, chatglm3-6b 4 of 28,
+   seamless-m4t-medium whole with its frames, llava-next-mistral-7b 4 of
+   32 with 2048 patch positions, arctic-480b 1 of 35 under Adafactor
+   with one microbatch), each after its byte reckoning
+   (``train_reckoning``, under 80 GB) through ``build_trainer`` for
+   ``TRAIN_ARCH_STEPS`` steps of 2 x 2048 (arctic-480b 1 x 2048) and
+   one profiled step: the loss finite and falling, K6's launches exact
+   (``k6_calls``: every attention call, the encoder's and the
+   cross-attention's included, and again in the remat recompute), ms a
+   step, tokens/s, peak memory, the 6 N share, K6's forward against its
+   backward's device time (``k6_backward_share``), the largest kernels; the gradient gate on one row (seamless's encoder,
+   decoder and cross-attention projections apart; the detached variant
+   shown to take every K6 call and leave those projections no gradient;
+   arctic-480b over every leaf but its experts' ``wi``/``wo``, replaying
+   the expert choices); K6's forward and backward alone at each training
+   shape; recurrentgemma-9b's RG-LRU scan launches forward and backward;
+   and (g) the gradients of ``sum(out * r)`` of one recurrentgemma-9b
+   "R" layer, one gemma3-12b "L" layer and one seamless-m4t-medium
+   encoder layer with its frontend projection at published width, float32
+   with TF32 off, on the card against the CPU within ``LAYER_GRAD_TOL``
+   (``tools/chip_phases.py trainarchs`` runs (f) and (g) alone); the
+   phase's seconds.  (a)'s, (f)'s, phi3.5-moe's and the supervised
    runs' K6/K7 launches join the kernels line's;
 3i. explicit collectives (``parallel_phase``) on meshes of shards of
    the one card (``core/collectives.py``: copies and views on the
@@ -307,6 +333,7 @@ the rest of the repository beside it, the script fails before any result.
 from __future__ import annotations
 
 import contextlib
+import fnmatch
 import gc
 import json
 import os
@@ -481,10 +508,70 @@ TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 2, 5
 # of the card; its gradient gate replays the kernel route's expert
 # choices on the plain route (K6's rounding alone flips some)
 TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 2, 2, 4
-GRAD_REL_TOL = {"qwen3-8b": 3e-2, "mamba2-130m": 2e-2, "phi3.5-moe": 3e-2}
-GRAD_NEEDED = {"qwen3-8b": {"wq", "wk", "wv"},
-               "mamba2-130m": {"wx", "wB", "wC", "wdt"},
-               "phi3.5-moe": {"wq", "wk", "wv"}}
+# phase 3f(f): the other archs' training, each at every published width
+# (d_model, heads, KV heads, head dim, d_ff, vocab, window, lru_width,
+# experts, top-k, capacity factor), cut in depth to what the card's 80
+# GB holds with one layer of each kind its pattern has; seamless at its
+# full depth, arctic-480b in one layer with one microbatch (four would
+# add float32 gradient sums of 56 GB).  Each case is (the config's cut,
+# rows of TRAIN_SEQ tokens): arctic-480b takes one row, as its two rows
+# peaked at 75.4 GiB alone on the H100 and phase 3f finds ~3.6 GiB still
+# held by the phases before it, of the 79.2 GiB PyTorch can allocate
+# there.  TRAIN_ARCH_STEPS steps each (``train_reckoning`` gives the
+# bytes)
+TRAIN_ARCH_CASES = {
+    "gemma3-12b": ({"n_layers": 6}, 2),         # one group: 5 "L" + 1 "A"
+    "recurrentgemma-9b": ({"n_layers": 3}, 2),  # "R", "R", "L"
+    "qwen1.5-4b": ({"n_layers": 4}, 2),
+    "chatglm3-6b": ({"n_layers": 4}, 2),
+    "seamless-m4t-medium": ({}, 2),             # 12 encoder + 12 decoder
+    "llava-next-mistral-7b": ({"n_layers": 4}, 2),  # 2048 patches + text
+    "arctic-480b": ({"n_layers": 1, "microbatches": 1}, 1),
+}
+TRAIN_ARCH_STEPS = 3
+# the device memory a reckoning must stay under (the data sheet's 80 GB)
+CARD_BYTES = 80e9
+# the gradient gate's limit (relative L2 per parameter), the parameters
+# whose gradient passes through the kernel alone (fnmatch patterns over
+# the port's names: seamless names the encoder's self-attention, the
+# decoder's and the cross-attention's apart, so that one of them losing
+# its gradient cannot hide behind another) and those it leaves out
+# (arctic-480b: three gradient sets of its 26.8 GB of experts do not fit
+# beside the weights; its gate covers attention, norms, router,
+# embeddings and the dense residual).  H100 readings of the bf16 gates
+# (the kernel route; the plain route against itself at half its chunks,
+# the floor that rounding the attention output to bf16 sets): gemma3-12b
+# 1.08e-2 (1.04e-2), recurrentgemma-9b 5.6e-3 (5.2e-3), qwen1.5-4b
+# 9.6e-3 (9.6e-3), chatglm3-6b 7.9e-3 (8.1e-3), arctic-480b 7.9e-3
+# (6.3e-3); every detached variant 1.0.  seamless-m4t-medium reads
+# 9.60e-2 at its last decoder layers' wq/wk and its floor 9.66e-2 there
+# (24 layers at random init: near-uniform attention over 2048 keys makes
+# dL/dq a small difference of large terms), the encoder's and the
+# cross-attention's 2.3-2.8e-2; llava-next-mistral-7b 2.24e-2 (2.03e-2),
+# its loss down to 7e-3 on the repeated batch after four steps
+GRAD_REL_TOL = {"qwen3-8b": 3e-2, "mamba2-130m": 2e-2, "phi3.5-moe": 3e-2,
+                "gemma3-12b": 3e-2, "recurrentgemma-9b": 3e-2,
+                "qwen1.5-4b": 3e-2, "chatglm3-6b": 3e-2,
+                "seamless-m4t-medium": 0.2,
+                "llava-next-mistral-7b": 5e-2, "arctic-480b": 3e-2}
+_QKV = {"*.attn.wq", "*.attn.wk", "*.attn.wv"}
+GRAD_NEEDED = {"qwen3-8b": _QKV,
+               "mamba2-130m": {"*.wx", "*.wB", "*.wC", "*.wdt"},
+               "phi3.5-moe": _QKV, "gemma3-12b": _QKV,
+               "recurrentgemma-9b": _QKV, "qwen1.5-4b": _QKV,
+               "chatglm3-6b": _QKV,
+               "seamless-m4t-medium": {
+                   f"{part}.{w}" for w in ("wq", "wk", "wv")
+                   for part in ("encoder.*.attn", "groups.*.attn",
+                                "groups.*.cross")},
+               "llava-next-mistral-7b": _QKV, "arctic-480b": _QKV}
+GRAD_GATE_EXCLUDES = {"arctic-480b": ("*.moe.wi", "*.moe.wo")}
+# phase 3f(g): the backward of the layers that have no kernel, card
+# against CPU in float32 (one row of LAYER_GRAD_SEQ tokens at the
+# published widths), relative L2 per parameter
+LAYER_GRAD_CASES = (("recurrentgemma-9b", "R"), ("gemma3-12b", "L"),
+                    ("seamless-m4t-medium", "encoder"))
+LAYER_GRAD_SEQ, LAYER_GRAD_TOL = 512, 1e-4
 # phase 3i, explicit collectives on meshes of shards on the one card: the
 # MoE all-to-all on a (4, 2) ("data", "model") mesh, 4 x 2048 tokens at
 # the published widths of one phi3.5-moe layer (16 experts, d 4096, f
@@ -3394,14 +3481,21 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
               replay_routes: bool = False) -> dict:
     """Phase 3f(b): the kernel route's gradients of one batch against the
     plain route's (``use_kernel=False``), parameter by parameter, within
-    ``GRAD_REL_TOL[arch]`` relative L2; the projections that feed the
-    kernel (``needed``) must get a non-zero gradient; and the same
-    gradients with the kernel's output detached (``detach``: a context
-    that patches the model to drop the kernel's gradient, what the route
-    did before its ``autograd.Function``) must fall outside the limit.
-    With ``replay_routes`` (a routed arch) the plain route and the
-    detached variant replay the kernel route's expert choices, call by
-    call (the remat recompute's too)."""
+    ``GRAD_REL_TOL[arch]`` relative L2, over the parameters
+    ``GRAD_GATE_EXCLUDES`` leaves in; the projections that feed the
+    kernel (``GRAD_NEEDED``, fnmatch patterns) must get a non-zero
+    gradient; and the same gradients with the kernel's output detached
+    (``detach``: a context that patches the model to drop the kernel's
+    gradient, what the route did before its ``autograd.Function``) must
+    fall outside the limit.  Where ``detach`` yields the calls it took
+    (``k6_detached``) they must be every K6 call of the forward and its
+    remat recompute (an encoder's layers are not recomputed then), and
+    every ``GRAD_NEEDED`` projection's gradient 0 under it.  For a K6
+    arch the plain route at half its chunks is printed against the plain
+    route: the limit's floor, the bf16 route's own rounding.  With
+    ``replay_routes`` (a routed arch) the plain route and the detached
+    variant replay the kernel route's expert choices, call by call (the
+    remat recompute's too)."""
     import torch
 
     from repro_torch.models.lm import forward_loss
@@ -3410,7 +3504,8 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
         # a gradient the route never reaches reads 0 (the detached variant
         # leaves the projections into the kernel out of the graph, where
         # the train step's autograd.grad would raise)
-        names, leaves = zip(*params.named_parameters())
+        names, leaves = zip(*[(n, t) for n, t in params.named_parameters()
+                              if gated(arch, n)])
         with expert_choices(replay=replay) as chosen:
             loss = forward_loss(params, batch, cfg,
                                 use_kernel=use_kernel)[0]
@@ -3418,7 +3513,10 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
                                         materialize_grads=True)
         return loss.detach(), dict(zip(names, grads)), chosen
 
-    needed = GRAD_NEEDED[arch]
+    def needed(pattern=None):
+        pats = GRAD_NEEDED[arch] if pattern is None else (pattern,)
+        return lambda n: any(fnmatch.fnmatchcase(n, p) for p in pats)
+
     lim = GRAD_REL_TOL[arch]
     t0 = time.perf_counter()
     loss_k, kern, routes = loss_and_grads(params, batch, cfg)
@@ -3429,19 +3527,20 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
     secs = time.perf_counter() - t0
     rel = grad_rel_diffs(kern, plain)
     worst = max(rel, key=rel.get)
-    zero = [n for n in kern if n.rsplit(".", 1)[-1] in needed
+    zero = [n for n in kern if needed()(n)
             and float(kern[n].float().norm()) == 0.0]
     log(f"grad gate {arch} ({cfg.param_dtype}, {cfg.n_layers} layers, "
         f"batch {tuple(batch['tokens'].shape)}): loss kernel route "
         f"{float(loss_k):.6f}, plain "
-        f"{float(loss_p):.6f}; {len(rel)} parameters, max relative L2 "
-        f"difference {rel[worst]:.3e} ({worst}; limit {lim:g}); median "
-        f"{statistics.median(rel.values()):.3e}; both routes {secs:.2f} s "
-        f"({card})")
-    for part in sorted(needed):
-        vals = [v for n, v in rel.items() if n.rsplit(".", 1)[-1] == part]
+        f"{float(loss_p):.6f}; {len(rel)} parameters"
+        f"{' (without ' + ', '.join(GRAD_GATE_EXCLUDES[arch]) + ')' if arch in GRAD_GATE_EXCLUDES else ''}"
+        f", max relative L2 difference {rel[worst]:.3e} ({worst}; limit "
+        f"{lim:g}); median {statistics.median(rel.values()):.3e}; both "
+        f"routes {secs:.2f} s ({card})")
+    for part in sorted(GRAD_NEEDED[arch]):
+        vals = [v for n, v in rel.items() if needed(part)(n)]
         log(f"grad gate {arch} {part}: relative L2 difference max "
-            f"{max(vals):.3e} over {len(vals)} layers")
+            f"{max(vals):.3e} over {len(vals)} tensors")
     if zero:
         raise AssertionError(f"{arch}: zero gradient through the kernel for "
                              f"{zero}")
@@ -3449,7 +3548,21 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
         raise AssertionError(f"{arch}: {worst} gradient {rel[worst]:.3e} "
                              f"from the plain route's, limit {lim:g}")
     del kern
-    with detach():
+    if detach is k6_detached:
+        # the limit's floor: the plain route against itself at half its
+        # chunks, which moves its float32 sums as K6's do and rounds the
+        # attention output to bf16 once as K6 does
+        half = cfg.with_(q_chunk=cfg.q_chunk // 2, k_chunk=cfg.k_chunk // 2)
+        _, ctrl, _ = loss_and_grads(params, batch, half, use_kernel=False,
+                                    replay=routes)
+        rel_ctrl = grad_rel_diffs(ctrl, plain)
+        w = max(rel_ctrl, key=rel_ctrl.get)
+        log(f"grad gate {arch} control (the plain route at chunks "
+            f"{half.q_chunk} against {cfg.q_chunk}): max relative L2 "
+            f"{rel_ctrl[w]:.3e} ({w}), median "
+            f"{statistics.median(rel_ctrl.values()):.3e}")
+        del ctrl
+    with detach() as calls:
         _, cut, _ = loss_and_grads(params, batch, cfg, replay=routes)
     rel_cut = grad_rel_diffs(cut, plain)
     bad = sorted(n for n, v in rel_cut.items() if v > lim)
@@ -3459,6 +3572,22 @@ def grad_gate(arch: str, params, batch, cfg, detach, card: str,
     if not bad:
         raise AssertionError(f"{arch}: the gradient limit does not see the "
                              f"kernel's output detached")
+    if calls is not None:
+        leaked = [n for n in cut if needed()(n)
+                  and float(cut[n].float().norm()) != 0.0]
+        # the forward's calls and the remat recompute's, but for an
+        # encoder's: with every K6 output detached its output reaches the
+        # loss only through the (detached) cross-attention, so the
+        # backward never unpacks its layers' checkpoints
+        want = k6_calls(cfg)[1] - (cfg.enc_layers if cfg.remat == "full"
+                                   else 0)
+        log(f"grad gate {arch} wrong variant: {len(calls)} K6 calls "
+            f"detached (expected {want}), {len(leaked)} GRAD_NEEDED "
+            f"projections with a gradient under it")
+        if len(calls) != want or leaked:
+            raise AssertionError(f"{arch}: the detached variant took "
+                                 f"{len(calls)} K6 calls, left gradients "
+                                 f"in {leaked[:5]}")
     return {"max_rel": rel[worst], "worst": worst,
             "detached_max": max(rel_cut.values())}
 
@@ -3597,6 +3726,518 @@ def train_moe(card: str, zero_counts, counts_now, on_card,
     return out
 
 
+def k6_calls(cfg) -> tuple[int, int]:
+    """K6 calls in one forward of ``cfg``'s model (its attention layers,
+    an encoder-decoder's cross-attentions and encoder layers) and in one
+    microbatch of a train step, where ``remat="full"`` recomputes the
+    layer groups and the encoder's layers in the backward."""
+    n_groups, pattern, tail = cfg.layer_groups()
+
+    def attn(kinds):
+        return sum(k in ("A", "L") for k in kinds) * (2 if cfg.is_encdec
+                                                      else 1)
+
+    grouped = n_groups * attn(pattern) + cfg.enc_layers
+    fwd = grouped + attn(tail)
+    return fwd, fwd + (grouped if cfg.remat == "full" else 0)
+
+
+def layer_kinds(cfg) -> set:
+    """The layer kinds of ``cfg``'s depth (its pattern cycled)."""
+    return {cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)}
+
+
+def train_attention_shapes(cfg, seq: int) -> dict:
+    """The attention calls of training ``cfg`` on rows of ``seq`` tokens
+    (with ``launch/train.make_batch_at``'s ``seq`` frames or
+    ``frontend_tokens`` patch positions), by label: ``(Sq, Skv, Hq, Hkv,
+    D, causal, window)``."""
+    H, Hkv, D = cfg.padded_heads(), cfg.padded_kv_heads(), cfg.head_dim
+    if cfg.is_encdec:
+        return {"encoder": (seq, seq, H, Hkv, D, False, None),
+                "decoder self": (seq, seq, H, Hkv, D, True, None),
+                "cross": (seq, seq, H, Hkv, D, False, None)}
+    S = seq + (cfg.frontend_tokens if cfg.frontend_dim else 0)
+    kinds = layer_kinds(cfg)
+    return {k: (S, S, H, Hkv, D, True, cfg.window if k == "L" else None)
+            for k in ("L", "A") if k in kinds}
+
+
+def gated(arch: str, name: str) -> bool:
+    """Whether the gradient gate compares parameter ``name`` of ``arch``
+    (``GRAD_GATE_EXCLUDES``)."""
+    return not any(fnmatch.fnmatchcase(name, pat)
+                   for pat in GRAD_GATE_EXCLUDES.get(arch, ()))
+
+
+def train_reckoning(arch: str, cfg, rows: int, seq: int) -> dict:
+    """Bytes of training ``cfg`` on ``rows`` x ``seq`` tokens, reckoned from
+    shapes (a model on the meta device, the optimizer's state made there):
+    the weights; their gradients (the parameter dtype, or float32 sums
+    and one microbatch's); the optimizer's state; the logits and their
+    gradient (16 bytes a logit: the bf16 logits, ``ce_loss``'s float32
+    copy, its exponentials, the float32 gradient and its bf16 cast); the
+    plain recompute of the largest attention call in K6's backward (the
+    float32 scores and probabilities it saves, 8 bytes a score of every
+    chunk pair the chunked version visits, and three float32 gradients
+    of one pair's); the gate's three gradient sets of its compared
+    leaves at one row.
+    ``step`` is weights + state + gradients + the larger transient;
+    ``gate`` weights + three gradient sets + the transient of one row
+    (the state is freed before the gate); ``peak`` the larger."""
+    from repro_torch.models.common import Init
+    from repro_torch.models.lm import _build_lm
+    from repro_torch.optim import make_optimizer
+
+    model = _build_lm(cfg, Init(None, cfg.param_torch_dtype, "meta"))
+    named = dict(model.named_parameters())
+    n = sum(p.numel() for p in named.values())
+    pb = cfg.param_torch_dtype.itemsize
+    state = make_optimizer(cfg.optimizer, 1.0).init(model)
+    moments = 4 * sum(t.numel() for leaf in state.values()
+                      for t in leaf.values())
+    S_out = seq + (cfg.frontend_tokens if cfg.frontend_dim
+                   and not cfg.is_encdec else 0)
+    logits = 16 * rows * S_out * cfg.padded_vocab()
+    attn = max(rows * hq * (8 * sq * skv + 12 * min(sq, cfg.q_chunk)
+                            * min(skv, cfg.k_chunk))
+               for sq, skv, hq, *_ in
+               train_attention_shapes(cfg, seq).values())
+    n_gated = sum(p.numel() for k, p in named.items() if gated(arch, k))
+    r = dict(params=n, weights=n * pb, moments=moments,
+             grads=n * (pb if cfg.microbatches == 1 else 4 + pb),
+             logits=logits, attention=attn, gated=n_gated)
+    transient = max(logits, attn)
+    r["step"] = r["weights"] + moments + r["grads"] + transient
+    r["gate"] = r["weights"] + 3 * n_gated * pb + transient // rows
+    r["peak"] = max(r["step"], r["gate"])
+    return r
+
+
+def train_config(arch: str):
+    """The published config of ``arch`` cut as ``TRAIN_ARCH_CASES`` says."""
+    from repro_torch import configs
+
+    return configs.get(arch).with_(**TRAIN_ARCH_CASES[arch][0])
+
+
+@contextlib.contextmanager
+def k6_detached():
+    """K6's output detached from the graph (what the model's route did
+    before ``FlashAttentionFn``): ``models.attention.flash_attention_fn``
+    patched to run under ``torch.no_grad``, which every attention call of
+    the model (decoder, encoder, cross-attention) goes through.  Yields
+    the list of the calls it took."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_fn
+    from repro_torch.models import attention as model_attention
+
+    calls = []
+
+    def cut(*args, **kw):
+        calls.append(1)
+        with torch.no_grad():
+            return flash_attention_fn(*args, **kw)
+
+    model_attention.flash_attention_fn = cut
+    try:
+        yield calls
+    finally:
+        model_attention.flash_attention_fn = flash_attention_fn
+
+
+def train_case(arch: str, cfg, rows: int, steps: int, card: str,
+               zero_counts, counts_now) -> tuple[dict, dict, dict]:
+    """Phase 3f's training of one case: ``cfg`` through
+    ``launch/train.build_trainer`` for ``steps`` steps on one repeated
+    batch of ``rows`` x ``TRAIN_SEQ`` (``SyntheticLM`` seed 0, with
+    ``make_batch_at``'s frames or patches), then one step under
+    ``torch.profiler`` (its CUDA activity: the CPU side's trace of
+    seamless's ~20k launches and their ops took 58 s on the H100's host).
+    Fatal: the loss finite and falling, and K6's launches
+    ``k6_calls(cfg)`` a microbatch a step, no other kernel.  Logged: ms
+    a step, tokens/s, peak memory, 6 N tokens over the step time at 989
+    TFLOP/s, the profiled step's device time, K6's kernels in it and its
+    largest kernels (``k6_backward_share`` sets K6's backward beside
+    them).  Returns (readings, the train state, the batch)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import build_trainer, make_batch_at
+    from repro_torch.models.lm import param_count
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, state = build_trainer(cfg, total_steps=steps, device=dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=rows, seed=0)
+    batch = make_batch_at(cfg, data, batch=rows, seq=TRAIN_SEQ,
+                          device=dev)(0)
+    zero_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one more step under the profiler: K6's kernels and the device time
+    # of the whole step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+    counts = counts_now()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = prof.key_averages()
+    k6_us = sum(e.self_device_time_total for e in ev
+                if e.device_type == cuda and "attn_" in e.key)
+    step_us = sum(e.self_device_time_total for e in ev
+                  if e.device_type == cuda)
+    expect = k6_calls(cfg)[1] * cfg.microbatches * (steps + 1)
+    others = {k: n for k, n in counts.items()
+              if k != "flash_attention" and n}
+    if counts["flash_attention"] != expect or others:
+        raise AssertionError(f"train {arch}: launches {counts}, expected "
+                             f"flash_attention {expect} and no other")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch}: losses {losses} not finite "
+                             f"and falling")
+    step_s = statistics.median(times[1:])
+    tokens = rows * TRAIN_SEQ
+    # the positions the model runs over: a VLM's patches too
+    positions = rows * (TRAIN_SEQ + (cfg.frontend_tokens if cfg.frontend_dim
+                                     and not cfg.is_encdec else 0))
+    n_params = param_count(cfg)
+    # a routed arch computes with top_k of its experts a token
+    n_active = n_params
+    if cfg.n_experts:
+        n_expert = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * cfg.n_layers
+        n_active -= n_expert * (1 - cfg.top_k / cfg.n_experts)
+    mfu = 6 * n_active * positions / (step_s * BF16_TC_OPS_PER_S)
+    out = dict(losses=losses, step_ms=step_s * 1e3, first_ms=times[0] * 1e3,
+               tok_s=tokens / step_s, peak_gib=peak_gib, mfu=mfu,
+               k6_us=k6_us, step_us=step_us,
+               k6=counts["flash_attention"], params=n_params,
+               active=n_active)
+    log(f"train {arch}: losses {[round(x, 4) for x in losses]} (falling "
+        f"{'every step' if all(a > b for a, b in zip(losses, losses[1:])) else 'overall'}); "
+        f"{step_s * 1e3:.1f} ms a step (median of steps 2-{steps}; the "
+        f"first {times[0] * 1e3:.1f}), {tokens / step_s:.0f} tokens/s, peak "
+        f"{peak_gib:.2f} GiB allocated, 6 N tokens / (step x 989 TFLOP/s) "
+        f"= {100 * mfu:.1f} % (N {n_active:.4g}"
+        f"{' active of ' + format(n_params, '.4g') if cfg.n_experts else ''}"
+        f", {positions} positions); K6 launches {counts['flash_attention']}"
+        f" ({card})")
+    log_top_kernels(f"train {arch} profiled step", {
+        e.key: (e.self_device_time_total, e.count) for e in ev
+        if e.device_type == cuda and e.self_device_time_total > 0},
+        step_s * 1e3, card)
+    log(f"train {arch} profiled step: device {step_us / 1e3:.2f} ms; K6 "
+        f"kernels {k6_us / 1e3:.3f} ms over "
+        f"{k6_calls(cfg)[1] * cfg.microbatches} launches ({card})")
+    return out, state, batch
+
+
+def train_attention_calls(cfg) -> dict:
+    """The attention calls of one forward of ``cfg``'s model, by the
+    labels of ``train_attention_shapes``."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    if cfg.is_encdec:
+        n = sum(k in ("A", "L") for k in kinds)
+        return {"encoder": cfg.enc_layers, "decoder self": n, "cross": n}
+    return {k: kinds.count(k) for k in ("L", "A") if k in kinds}
+
+
+def k6_backward_share(arch: str, cfg, r: dict, card: str) -> float:
+    """K6's backward (``FlashAttentionFnBackward``: the plain version
+    recomputed and differentiated) in a train step of ``cfg``: the
+    device time of one call profiled alone at each attention shape
+    (``k6_train_times``' ``bwd_dev_ms``) times the calls a step makes,
+    against the profiled step's device time in ``r``; set as
+    ``r["bwd_step_ms"]`` and returned."""
+    calls = train_attention_calls(cfg)
+    ms = cfg.microbatches * sum(n * r["k6_alone"][label]["bwd_dev_ms"]
+                                for label, n in calls.items())
+    r["bwd_step_ms"] = ms
+    log(f"train {arch}: K6's forward {r['k6_us'] / 1e3:.3f} ms in the "
+        f"profiled step, its backward {ms:.3f} ms a step ("
+        + ", ".join(f"{n} x {label} "
+                    f"{r['k6_alone'][label]['bwd_dev_ms']:.3f}"
+                    for label, n in calls.items())
+        + f" ms device, each call profiled alone) = "
+        f"{100 * ms / (r['step_us'] / 1e3):.1f} % of the step's "
+        f"{r['step_us'] / 1e3:.2f} device ms ({card})")
+    return ms
+
+
+def k6_train_times(arch: str, cfg, rows: int, card: str) -> dict:
+    """K6 alone at each attention shape of training ``cfg`` on ``rows`` x
+    ``TRAIN_SEQ`` (bf16): its forward (the kernel) against its backward
+    (``FlashAttentionFn``'s: the plain version recomputed and
+    differentiated; CUDA events around back-to-back calls, which the
+    host's launch rate can set, and the device time of its kernels from
+    one profiled call), and the plain forward alone.  Shapes that two
+    calls share are timed once."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_fn
+    from repro_torch.models.attention import attention
+
+    dev = torch.device("cuda")
+    out, done = {}, {}
+    for label, shape in train_attention_shapes(cfg, TRAIN_SEQ).items():
+        if shape in done:
+            out[label] = done[shape]
+            continue
+        Sq, Skv, H, Hkv, D, causal, window = shape
+        g = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn(rows, S, h, D, generator=g, device=dev)
+                   .bfloat16().requires_grad_()
+                   for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+        qpos = torch.arange(Sq, device=dev)
+        kpos = torch.arange(Skv, device=dev)
+
+        def plain(q, k, v):
+            return attention(q, k, v, qpos=qpos, kpos=kpos, causal=causal,
+                             window=window, impl=cfg.attn_impl,
+                             q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+                             use_kernel=False)
+
+        def kernel():
+            return flash_attention_fn(q, k, v, plain=plain, causal=causal,
+                                      window=window)
+
+        fwd_ms = time_ms(kernel, iters=10)
+        o = kernel()
+        grad_out = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+        def backward():
+            return torch.autograd.grad(o, (q, k, v), grad_out,
+                                       retain_graph=True)
+
+        bwd_ms = time_ms(backward, iters=3, reps=3, warmup=1)
+        bwd_dev_ms = sum(us for us, _ in device_time_by_kernel(
+            backward, warmup=1).values()) / 1e3
+        plain_ms = time_ms(lambda: plain(q.detach(), k.detach(),
+                                         v.detach()), iters=3, reps=3,
+                           warmup=1)
+        done[shape] = out[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                                        bwd_dev_ms=bwd_dev_ms,
+                                        plain_fwd_ms=plain_ms)
+        mask = ("causal" if causal else "no mask") + (
+            f", window {window}" if window else "")
+        log(f"train {arch} K6 {label} at ({rows}, {Sq}"
+            f"{'' if Sq == Skv else f' -> {Skv}'}, {H}/{Hkv} heads, {D}, "
+            f"{mask}) bf16: forward (kernel) {fwd_ms:.4f} ms, backward "
+            f"(plain {cfg.attn_impl} recompute) {bwd_ms:.4f} ms = "
+            f"{bwd_ms / fwd_ms:.1f}x (its kernels' device time "
+            f"{bwd_dev_ms:.4f} ms); the plain forward alone "
+            f"{plain_ms:.4f} ms ({card})")
+        del q, k, v, o, grad_out
+    return out
+
+
+def scan_launches(cfg, rows: int, card: str) -> dict:
+    """The RG-LRU's doubling scan (``models/ssm.linear_scan``) alone at
+    training ``cfg``'s width on ``rows`` x ``TRAIN_SEQ``, float32 as the
+    layer runs it: the kernels its forward and its backward launch and
+    their device ms (``device_time_by_kernel`` after one warm-up call
+    under the profiler, which loses a short trace's first records)."""
+    import torch
+
+    from repro_torch.models.ssm import linear_scan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (rows, TRAIN_SEQ, cfg.lru_width)
+    a = torch.rand(shape, generator=g, device=dev).requires_grad_()
+    b = torch.randn(shape, generator=g, device=dev).requires_grad_()
+    grad_h = torch.randn(shape, generator=g, device=dev)
+    h = linear_scan(a, b, dim=1)
+    out = {}
+    for part, fn in (("forward", lambda: linear_scan(a, b, dim=1)),
+                     ("backward", lambda: torch.autograd.grad(
+                         h, (a, b), grad_h, retain_graph=True))):
+        ev = device_time_by_kernel(fn, warmup=1)
+        out[part] = dict(launches=sum(n for _, n in ev.values()),
+                         ms=sum(us for us, _ in ev.values()) / 1e3)
+    log(f"RG-LRU scan alone at {shape} float32: forward "
+        f"{out['forward']['launches']} launches, "
+        f"{out['forward']['ms']:.3f} ms device; backward "
+        f"{out['backward']['launches']} launches, "
+        f"{out['backward']['ms']:.3f} ms ({card})")
+    return out
+
+
+def train_archs(card: str, zero_counts, counts_now) -> dict:
+    """Phase 3f(f): each case of ``TRAIN_ARCH_CASES`` at every published
+    width, cut in depth, through ``train_case`` (``TRAIN_ARCH_STEPS``
+    steps of its rows x ``TRAIN_SEQ``, after its byte
+    reckoning is logged and held under ``CARD_BYTES``), then its
+    gradient gate on one row and K6 alone at its training shapes
+    (recurrentgemma-9b also the RG-LRU scan's launches).  Returns the
+    readings by arch and the K6 launches of the training runs."""
+    import torch
+
+    from repro_torch import configs
+
+    out = {"k6": 0}
+    for arch in TRAIN_ARCH_CASES:
+        t_case = time.perf_counter()
+        full = configs.get(arch)
+        cfg, rows = train_config(arch), TRAIN_ARCH_CASES[arch][1]
+        rk = train_reckoning(arch, cfg, rows, TRAIN_SEQ)
+        log(f"train {arch}: published width (d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}"
+            f"{f', window {cfg.window}' if cfg.window else ''}"
+            f"{f', lru_width {cfg.lru_width}' if cfg.lru_width else ''}"
+            f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}"
+            f"), depth {full.n_layers} -> {cfg.n_layers}"
+            f"{f' (+ {cfg.enc_layers} encoder)' if cfg.enc_layers else ''}"
+            f" layers, kinds {''.join(sorted(layer_kinds(cfg)))}: "
+            f"{rk['params']} parameters; {cfg.param_dtype}, "
+            f"{cfg.optimizer}, remat={cfg.remat}, microbatches "
+            f"{cfg.microbatches}, batch {rows} x {TRAIN_SEQ}; "
+            f"reckoned GB: weights {rk['weights'] / 1e9:.2f}, gradients "
+            f"{rk['grads'] / 1e9:.2f}, optimizer {rk['moments'] / 1e9:.2f}, "
+            f"logits {rk['logits'] / 1e9:.2f}, attention recompute "
+            f"{rk['attention'] / 1e9:.2f}; step {rk['step'] / 1e9:.2f}, "
+            f"gate {rk['gate'] / 1e9:.2f} of {CARD_BYTES / 1e9:.0f}; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held before "
+            f"it")
+        if rk["peak"] > CARD_BYTES:
+            raise AssertionError(f"train {arch}: reckoned {rk['peak']} "
+                                 f"bytes, over the card's {CARD_BYTES}")
+        r, state, batch = train_case(arch, cfg, rows,
+                                     TRAIN_ARCH_STEPS, card, zero_counts,
+                                     counts_now)
+        out["k6"] += r["k6"]
+        r["reckoned"] = rk
+        # the gate needs no optimizer state: free it first
+        del state["opt"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["gate"] = grad_gate(arch, state["params"],
+                              {k: v[:1] for k, v in batch.items()}, cfg,
+                              k6_detached, card,
+                              replay_routes=bool(cfg.n_experts))
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["k6_alone"] = k6_train_times(arch, cfg, rows, card)
+        k6_backward_share(arch, cfg, r, card)
+        if cfg.lru_width:
+            r["scan"] = scan_launches(cfg, rows, card)
+        r["secs"] = time.perf_counter() - t_case
+        log(f"train {arch}: the case took {r['secs']:.1f} s")
+        out[arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def layer_grads_card_cpu(card: str) -> dict:
+    """Phase 3f(g): the backward of the layers that have no kernel, on the
+    card against the CPU, in float32 with TF32 off.  Per case of
+    ``LAYER_GRAD_CASES`` at its published width (a recurrentgemma-9b "R"
+    layer: the RG-LRU's conv, gates and doubling scan; a gemma3-12b "L"
+    layer: sandwich norms, qk-norm, the local RoPE base, GEGLU; a
+    seamless-m4t-medium encoder layer through ``encode``: the frontend
+    projection, LayerNorm, QKV bias), the same seeded weights on both
+    devices and one row of ``LAYER_GRAD_SEQ`` inputs: the gradients of
+    ``sum(out * r)`` per parameter within ``LAYER_GRAD_TOL`` relative L2
+    of the CPU's, none of them zero.  The CPU side is what tier-1 holds
+    against ``jax.grad``."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from repro_torch import configs
+    from repro_torch.models.blocks import init_layer, init_norm, \
+        layer_forward
+    from repro_torch.models.common import Init, ParamModule
+    from repro_torch.models.lm import encode
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for arch, kind in LAYER_GRAD_CASES:
+            enc = kind == "encoder"
+            cfg = configs.get(arch).with_(
+                param_dtype="float32", compute_dtype="float32",
+                remat="none", **({"enc_layers": 1} if enc else {}))
+            # made on the card (the CPU's generator is far slower at
+            # these sizes) and copied to each device
+            init = Init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32, "cuda")
+            p = ParamModule()
+            if enc:
+                init.dense(p, "frontend_proj", (cfg.frontend_dim,
+                                                cfg.d_model),
+                           fan_in=cfg.frontend_dim)
+                layer = ParamModule()
+                init_layer(init, layer, cfg, "A", name="p0")
+                p.add_module("encoder", nn.ModuleList([layer]))
+                fin = ParamModule()
+                init_norm(init, fin, cfg, "ln", cfg.d_model)
+                p.add_module("enc_final", fin)
+            else:
+                init_layer(init, p, cfg, kind, name="layer")
+            rng = np.random.default_rng(0)
+            x = rng.standard_normal((1, LAYER_GRAD_SEQ, cfg.frontend_dim
+                                     if enc else cfg.d_model))
+            r = rng.standard_normal((1, LAYER_GRAD_SEQ, cfg.d_model))
+
+            def grads(dev):
+                q = copy.deepcopy(p).to(dev)
+                q.requires_grad_(True)
+                h = torch.from_numpy(x.astype(np.float32)).to(dev)
+                y = (encode(q, h, cfg) if enc else
+                     layer_forward(q["layer"], h, kind, cfg)[0])
+                loss = (y * torch.from_numpy(r.astype(np.float32))
+                        .to(dev)).sum()
+                names, leaves = zip(*q.named_parameters())
+                return dict(zip(names, (t.cpu() for t in torch.autograd.grad(
+                    loss, leaves))))
+
+            t0 = time.perf_counter()
+            want = grads("cpu")
+            cpu_s = time.perf_counter() - t0
+            got = grads("cuda")
+            rel = grad_rel_diffs(got, want)
+            worst = max(rel, key=rel.get)
+            zero = [n for n, t in want.items() if float(t.norm()) == 0.0]
+            log(f"layer gradients {arch} {kind} (published width, float32, "
+                f"TF32 off, 1 x {LAYER_GRAD_SEQ}): {len(rel)} parameters, "
+                f"card against CPU max relative L2 {rel[worst]:.3e} "
+                f"({worst}; limit {LAYER_GRAD_TOL:g}), median "
+                f"{statistics.median(rel.values()):.3e}; the CPU side "
+                f"{cpu_s:.1f} s ({card})")
+            if zero:
+                raise AssertionError(f"layer gradients {arch} {kind}: zero "
+                                     f"gradients {zero}")
+            if rel[worst] > LAYER_GRAD_TOL:
+                raise AssertionError(f"layer gradients {arch} {kind}: "
+                                     f"{worst} {rel[worst]:.3e} from the "
+                                     f"CPU's, limit {LAYER_GRAD_TOL:g}")
+            out[f"{arch} {kind}"] = dict(max_rel=rel[worst], worst=worst,
+                                         cpu_s=cpu_s)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
 def train_phase(card: str, zero_counts, counts_now) -> dict:
     """Phase 3f: the training path on the card.  (a) qwen3-8b at its
     published width cut to ``TRAIN_QWEN_LAYERS`` layers, bf16, AdamW,
@@ -3604,9 +4245,10 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
     ``SyntheticLM`` batch (seed 0) of ``TRAIN_QWEN_BATCH`` x ``TRAIN_SEQ``
     through ``launch/train.build_trainer``'s step, the loss finite and
     falling; ms a step, tokens/s, peak memory, model FLOP utilisation;
-    K6 twice a layer a step (the forward and the remat recompute), and in
-    one profiled step the device time of K6 against its plain-recompute
-    backward, also timed alone at the training shape.  (b) the gradient
+    K6 twice a layer a step (the forward and the remat recompute), and
+    the device time of K6 in one profiled step against its
+    plain-recompute backward's (``k6_backward_share``), both also timed
+    alone at the training shape.  (b) the gradient
     gate (``grad_gate``) on one batch of (a)'s model and of mamba2-130m
     at its published config in float32 (see ``GRAD_REL_TOL``).
     (c) mamba2-130m at its published config, batch ``TRAIN_MAMBA_BATCH`` x
@@ -3622,9 +4264,12 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
     ``Prefetcher`` first brings the phase's batches to the card, each
     equal to its source's.  (d) ``examples/train_lm_torch.py --steps
     50``.  (e) the serve launcher's ``--smoke --chaos`` (both archs) and
-    ``--smoke --legacy``, in this process.  Returns the readings and the
-    launches of (a) and (c); (b) compares the kernels with their plain
-    versions and (d), (e) run reduced configs, so theirs do not count."""
+    ``--smoke --legacy``, in this process.  (f) ``train_archs``: the
+    other archs' training cases, and (g) ``layer_grads_card_cpu``.
+    Returns the readings and the launches of (a), (c) and (f)'s training
+    runs; (b) and (f)'s gates and alone timings compare the kernels with
+    their plain versions and (d), (e) run reduced configs, so theirs do
+    not count."""
     import tempfile
 
     import numpy as np
@@ -3633,16 +4278,14 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
     from repro_torch import configs
     from repro_torch.data import Prefetcher, SyntheticLM
     from repro_torch.checkpoint import named_leaves
-    from repro_torch.kernels.attention.kernel import flash_attention_fn
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.kernel import SsdIntraChunkFn
     from repro_torch.launch import serve
     from repro_torch.launch.train import build_trainer
-    from repro_torch.models import attention as model_attention
-    from repro_torch.models.attention import attention
     from repro_torch.models.lm import param_count
     from repro_torch.runtime import Fault, FaultPlan, Supervisor, fault_scope
 
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     out = {"launches": {}}
 
@@ -3652,132 +4295,29 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
     # -- (a) qwen3-8b, full width, depth cut ------------------------------
     full = configs.get("qwen3-8b")
     cfg = full.with_(n_layers=TRAIN_QWEN_LAYERS)
-    n_params = param_count(cfg)
     log(f"train qwen3-8b: published width (d_model {cfg.d_model}, {cfg.n_heads}"
         f" heads, {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}), depth cut {full.n_layers} -> {cfg.n_layers} "
-        f"layers: {n_params} parameters (the full model's {param_count(full)}"
-        f" need ~12 bytes each for bf16 weights and gradients and float32 "
-        f"moments, over the card's 80 GB); {cfg.param_dtype}, "
-        f"{cfg.optimizer}, remat={cfg.remat}, attn_impl={cfg.attn_impl}, "
-        f"batch {TRAIN_QWEN_BATCH} x {TRAIN_SEQ}")
-    torch.cuda.reset_peak_memory_stats()
-    step_fn, state = build_trainer(cfg, total_steps=TRAIN_QWEN_STEPS,
-                                   device=dev)
-    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                       global_batch=TRAIN_QWEN_BATCH, seed=0)
-    batch = on_card(data.batch_at(0))
-    zero_counts()
-    losses, times = [], []
-    for _ in range(TRAIN_QWEN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    # one more step under the profiler: K6's kernels against the device
-    # time of its backward (the plain recompute) and of the whole step
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, m = step_fn(state, batch)
-        torch.cuda.synchronize()
-    counts = counts_now()
-    ev = prof.key_averages()
-    k6_us = sum(e.self_device_time_total for e in ev
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "attn_" in e.key)
-    step_us = sum(e.self_device_time_total for e in ev
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    bwd = [e for e in ev if e.key.endswith("FlashAttentionFnBackward")]
-    bwd_us = sum(getattr(e, "device_time_total", 0.0) for e in bwd)
-    expect = 2 * TRAIN_QWEN_LAYERS * (TRAIN_QWEN_STEPS + 1)
-    out["launches"]["flash_attention"] = counts["flash_attention"]
-    if counts["flash_attention"] != expect or counts["ssd_intra_chunk"]:
-        raise AssertionError(f"train qwen3-8b: launches {counts}, expected "
-                             f"flash_attention {expect}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train qwen3-8b: losses {losses} not finite "
-                             f"and falling")
-    step_s = statistics.median(times[1:])
-    tokens = TRAIN_QWEN_BATCH * TRAIN_SEQ
-    mfu = 6 * n_params * tokens / (step_s * BF16_TC_OPS_PER_S)
-    out["qwen"] = dict(losses=losses, step_ms=step_s * 1e3,
-                       first_ms=times[0] * 1e3, tok_s=tokens / step_s,
-                       peak_gib=peak_gib, mfu=mfu, k6_us=k6_us,
-                       bwd_us=bwd_us, step_us=step_us)
-    log(f"train qwen3-8b: losses {[round(x, 4) for x in losses]} (falling "
-        f"{'every step' if all(a > b for a, b in zip(losses, losses[1:])) else 'overall'}); "
-        f"{step_s * 1e3:.1f} ms a step (median of steps 2-"
-        f"{TRAIN_QWEN_STEPS}; the first {times[0] * 1e3:.1f}), "
-        f"{tokens / step_s:.0f} tokens/s, peak {peak_gib:.2f} GiB "
-        f"allocated, 6 N tokens / (step x 989 TFLOP/s) = {100 * mfu:.1f} %; "
-        f"K6 launches {counts['flash_attention']} ({card})")
-    log_top_kernels("train qwen3-8b profiled step", {
-        e.key: (e.self_device_time_total, e.count) for e in ev
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0}, step_s * 1e3, card)
-    if bwd_us:
-        log(f"train qwen3-8b profiled step: device {step_us / 1e3:.2f} ms; "
-            f"K6 kernels {k6_us / 1e3:.3f} ms over "
-            f"{2 * TRAIN_QWEN_LAYERS} launches, its backward (plain "
-            f"recompute) {bwd_us / 1e3:.3f} ms over {len(bwd) and bwd[0].count}"
-            f" calls ({card})")
-    else:
-        log(f"train qwen3-8b profiled step: device {step_us / 1e3:.2f} ms; "
-            f"K6 kernels {k6_us / 1e3:.3f} ms; its backward: not measured "
-            f"(no FlashAttentionFnBackward range in the trace) ({card})")
+        f"layers: {param_count(cfg)} parameters (the full model's "
+        f"{param_count(full)} need ~12 bytes each for bf16 weights and "
+        f"gradients and float32 moments, over the card's 80 GB); "
+        f"{cfg.param_dtype}, {cfg.optimizer}, remat={cfg.remat}, "
+        f"attn_impl={cfg.attn_impl}, batch {TRAIN_QWEN_BATCH} x {TRAIN_SEQ}")
+    out["qwen"], state, batch = train_case(
+        "qwen3-8b", cfg, TRAIN_QWEN_BATCH, TRAIN_QWEN_STEPS, card,
+        zero_counts, counts_now)
+    out["launches"]["flash_attention"] = out["qwen"]["k6"]
     # K6 forward against its backward alone, at the training shape
-    B, S = TRAIN_QWEN_BATCH, TRAIN_SEQ
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).bfloat16()
-               .requires_grad_() for h in (H, Hkv, Hkv))
-    pos = torch.arange(S, device=dev)
-    plain = lambda q, k, v: attention(q, k, v, qpos=pos, kpos=pos,
-                                      impl=cfg.attn_impl,
-                                      q_chunk=cfg.q_chunk,
-                                      k_chunk=cfg.k_chunk, use_kernel=False)
-    fwd_ms = time_ms(lambda: flash_attention_fn(q, k, v, plain=plain),
-                     iters=10)
-    o = flash_attention_fn(q, k, v, plain=plain)
-    grad_out = torch.randn(o.shape, generator=g, device=dev).bfloat16()
-    bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), grad_out,
-                                                 retain_graph=True),
-                     iters=3, reps=3, warmup=1)
-    plain_fwd_ms = time_ms(lambda: plain(q.detach(), k.detach(),
-                                         v.detach()), iters=3, reps=3,
-                           warmup=1)
-    out["qwen"].update(k6_fwd_ms=fwd_ms, k6_bwd_ms=bwd_ms,
-                       plain_fwd_ms=plain_fwd_ms)
-    log(f"train K6 at ({B}, {S}, {H}/{Hkv} heads, {D}) bf16: forward "
-        f"(kernel) {fwd_ms:.4f} ms, backward (plain {cfg.attn_impl} "
-        f"recompute) {bwd_ms:.4f} ms = {bwd_ms / fwd_ms:.1f}x; the plain "
-        f"forward alone {plain_fwd_ms:.4f} ms ({card})")
-    del q, k, v, o, grad_out
+    out["qwen"]["k6_alone"] = k6_train_times("qwen3-8b", cfg,
+                                             TRAIN_QWEN_BATCH, card)
+    k6_backward_share("qwen3-8b", cfg, out["qwen"], card)
 
     # -- (b) the gradient gate ----------------------------------------------
-    import contextlib
-
-    @contextlib.contextmanager
-    def k6_detached():
-        def cut(*args, **kw):
-            with torch.no_grad():
-                return flash_attention_fn(*args, **kw)
-        model_attention.flash_attention_fn = cut
-        try:
-            yield
-        finally:
-            model_attention.flash_attention_fn = flash_attention_fn
-
     zero_counts()
     out["gate"] = {"qwen3-8b": grad_gate(
         "qwen3-8b", state["params"], {k: v[:1] for k, v in batch.items()},
         cfg, k6_detached, card)}
-    del state, step_fn, batch
+    del state, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3961,6 +4501,13 @@ def train_phase(card: str, zero_counts, counts_now) -> dict:
                   ["--smoke", "--legacy"]):
         log(f"serve {' '.join(flags)} on the card:")
         serve.main(flags)
+
+    # -- (f) the other archs' training, (g) the layers without a kernel --
+    out["archs"] = train_archs(card, zero_counts, counts_now)
+    out["launches"]["flash_attention"] += out["archs"].pop("k6")
+    out["layers"] = layer_grads_card_cpu(card)
+    out["secs"] = time.perf_counter() - t_phase
+    log(f"phase 3f: {out['secs']:.1f} s ({card})")
     return out
 
 
@@ -4503,6 +5050,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     import numpy as np
 
     from repro_torch.core import (Boundary, Executor, Layout, RecordArray,
@@ -5055,8 +5603,10 @@ def main() -> int:
     for arch in (("qwen3-8b", "mamba2-130m") + LM_LOCAL_ARCHS
                  + LM_DENSE_ARCHS + LM_FRONTEND_ARCHS + LM_MOE_ARCHS):
         serve = serve_frontend if arch in LM_FRONTEND_ARCHS else serve_lm
+        t_arch = time.perf_counter()
         run = serve(arch, card, zero_counts,
                     lambda: {k: w.launches for k, w in wrappers.items()})
+        log(f"serve {arch}: {time.perf_counter() - t_arch:.1f} s")
         lm_runs[arch] = run
         gc.collect()     # the model went with the serving function's frame
         torch.cuda.empty_cache()
@@ -5078,7 +5628,9 @@ def main() -> int:
     # serving, regions=True ----------------------------------------------
     def peak(phase):
         gib = torch.cuda.max_memory_allocated() / 2**30
-        log(f"phase {phase} peak {gib:.2f} GiB allocated ({card})")
+        log(f"phase {phase} peak {gib:.2f} GiB allocated; it ended "
+            f"{time.perf_counter() - t_script:.1f} s into the script "
+            f"({card})")
         torch.cuda.reset_peak_memory_stats()
 
     peak("3")
@@ -5104,7 +5656,7 @@ def main() -> int:
         launches[k] += n
     peak("3e")
 
-    # -- 3f. training: qwen3-8b (K6) and mamba2-130m (K7), the supervisor -
+    # -- 3f. training: the ten archs, the gradient gates, the supervisor --
     trn = train_phase(card, zero_counts, counts_now)
     for k, n in trn["launches"].items():
         launches[k] += n
@@ -5407,8 +5959,10 @@ def main() -> int:
     log(f"train qwen3-8b ({TRAIN_QWEN_LAYERS} layers, {TRAIN_QWEN_BATCH} x "
         f"{TRAIN_SEQ}): {tq['step_ms']:.1f} ms a step, {tq['tok_s']:.0f} "
         f"tokens/s, peak {tq['peak_gib']:.2f} GiB, {100 * tq['mfu']:.1f} % "
-        f"of 989 TFLOP/s; K6 forward {tq['k6_fwd_ms']:.4f} ms, its plain "
-        f"recompute backward {tq['k6_bwd_ms']:.4f} ms; gradient gate max "
+        f"of 989 TFLOP/s; K6 forward {tq['k6_alone']['A']['fwd_ms']:.4f} "
+        f"ms, its plain recompute backward "
+        f"{tq['k6_alone']['A']['bwd_ms']:.4f} ms alone, "
+        f"{tq['bwd_step_ms']:.3f} ms a step; gradient gate max "
         f"relative L2 {trn['gate']['qwen3-8b']['max_rel']:.3e}; train "
         f"mamba2-130m ({TRAIN_MAMBA_BATCH} x {TRAIN_SEQ}): "
         f"{tm['step_ms']:.1f} ms a step, checkpoint {tm['gb']:.3f} GB "
@@ -5416,6 +5970,29 @@ def main() -> int:
         f"{tm['recovery_ms']:.1f} ms; gradient gate max relative L2 "
         f"{trn['gate']['mamba2-130m']['max_rel']:.3e} ({card})")
 
+    for arch, r in trn["archs"].items():
+        shapes = "; ".join(
+            f"{label} {t['fwd_ms']:.4f} / {t['bwd_ms']:.4f}"
+            for label, t in r["k6_alone"].items())
+        scan = r.get("scan")
+        log(f"train {arch} ({train_config(arch).n_layers} layers, "
+            f"{TRAIN_ARCH_CASES[arch][1]} x {TRAIN_SEQ}): {r['step_ms']:.1f} ms a "
+            f"step, {r['tok_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} GiB "
+            f"(reckoned {r['reckoned']['step'] / 2**30:.2f}), "
+            f"{100 * r['mfu']:.1f} % of 989 TFLOP/s; profiled step device "
+            f"{r['step_us'] / 1e3:.2f} ms, K6 {r['k6_us'] / 1e3:.3f}, its "
+            f"backward {r['bwd_step_ms']:.3f}; K6 alone forward / "
+            f"backward ms: {shapes}; gradient gate max relative L2 "
+            f"{r['gate']['max_rel']:.3e} (detached "
+            f"{r['gate']['detached_max']:.3e})"
+            + (f"; RG-LRU scan launches forward {scan['forward']['launches']}"
+               f", backward {scan['backward']['launches']}" if scan else "")
+            + f" ({card})")
+    log(f"layer gradients, card against CPU (float32): "
+        + "; ".join(f"{k} {v['max_rel']:.3e}"
+                    for k, v in trn["layers"].items())
+        + f" (limit {LAYER_GRAD_TOL:g}); phase 3f {trn['secs']:.1f} s "
+        f"({card})")
     tmo = trn["moe"]
     log(f"train phi3.5-moe ({TRAIN_MOE_LAYERS} layers, {TRAIN_MOE_BATCH} x "
         f"{TRAIN_SEQ}, deterministic): "
@@ -5456,6 +6033,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})
 
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s ({card})")
     log(f"card: {card}")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ loop.
 
 The train step (:func:`make_train_step`) differentiates ``forward_loss``
 with autograd, accumulates float32 gradients over ``cfg.microbatches``,
-clips them by their global norm and updates the parameters and the
-optimizer state in place; on the GPU its forward runs K6 / K7, whose
+clips them in place by their global norm and updates the parameters
+and the optimizer state in place; on the GPU its forward runs K6 / K7, whose
 gradients are their plain versions'.  Given a mesh, an MoE arch's
 routed FFNs run expert-parallel (``models/moe.py``'s ``make_moe_a2a``)
 where the reference's ``make_ctx`` builds its ``moe_a2a``
@@ -48,7 +48,7 @@ from ..models.lm import (_prefill_to_decode_cache, decode_step,
                          decoder_pass, embed_tokens, forward_loss,
                          lm_logits, prefill)
 from ..models.moe import make_moe_a2a
-from ..optim import clip_by_global_norm, cosine_schedule, make_optimizer
+from ..optim import clip_by_global_norm_, cosine_schedule, make_optimizer
 
 __all__ = ["CacheSlot", "serving_cache_slots", "DecodeGraph",
            "PrefillGraph", "cache_state_overrides", "make_decode_graph",
@@ -102,7 +102,7 @@ def make_train_step(cfg: ModelConfig, *, lr=None, total_steps: int = 10_000,
         batch = {key: torch.as_tensor(v).to(dev, non_blocking=True)
                  for key, v in batch.items()}
         loss, grads = loss_and_grads(params, batch, cfg, moe_a2a=moe_a2a)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm_(grads, clip_norm)
         opt.update(grads, state["opt"], params, state["step"])
         state["step"].add_(1)
         return state, {"loss": loss.to(torch.float32),

@@ -5,12 +5,12 @@ its mean-reduce over a mesh (``compressed_psum``), as ``repro.optim``
 from .compression import (ErrorFeedbackState, compressed_psum,
                           dequantize_int8, quantize_int8)
 from .optimizers import (AdamW, Adafactor, Optimizer, clip_by_global_norm,
-                         make_optimizer)
+                         clip_by_global_norm_, make_optimizer)
 from .schedules import cosine_schedule, linear_warmup
 
 __all__ = [
     "AdamW", "Adafactor", "Optimizer", "clip_by_global_norm",
-    "make_optimizer", "cosine_schedule", "linear_warmup",
+    "clip_by_global_norm_", "make_optimizer", "cosine_schedule", "linear_warmup",
     "ErrorFeedbackState", "quantize_int8", "dequantize_int8",
     "compressed_psum",
 ]

@@ -1092,7 +1092,12 @@ def test_region_capture_on_a_one_card_mesh(dev, overlap, donate):
 
 # -- K6 and K7 with a gradient: their backward is the plain version's -------
 
-@pytest.mark.parametrize("case", ["causal_gqa", "window", "q_offset"])
+# the shapes the archs train at besides D = 128 causal GQA: head dim 256
+# with a window (GQA 16/8, MQA 16/1), head dim 64 with no mask and Sq !=
+# Skv (the cross-attention), MHA 20/20, GQA 32/2
+@pytest.mark.parametrize("case", ["causal_gqa", "window", "q_offset",
+                                  "window_d256_gqa8", "window_d256_mqa",
+                                  "cross_d64_full", "mha_20", "gqa_32_2"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_fn_gradient_is_the_plain_versions(dev, dtype, case):
     """``FlashAttentionFn``: the forward is K6 (one launch), and the input

@@ -150,10 +150,13 @@ def _jax_loss_and_grads(jc, jp, batch):
 
 
 # microbatching is the same code for every arch: the local-layer archs,
-# whose JAX side compiles slowest, take one microbatch
+# whose JAX side compiles slowest, take one microbatch, as do the archs
+# that phase 3f of chip_smoke.py trains besides these (arctic-480b with
+# its load-balance loss, through Adafactor)
 @pytest.mark.parametrize("arch,microbatches", [
     (arch, k) for arch in ARCHS for k in (1, 2)
-    if k == 1 or arch in ("qwen3-8b", "mamba2-130m")])
+    if k == 1 or arch in ("qwen3-8b", "mamba2-130m")] + [
+    (arch, 1) for arch in ("qwen1.5-4b", "chatglm3-6b", "arctic-480b")])
 def test_train_step_matches_reference(arch, microbatches):
     """``forward_loss`` and its parts, then one train step's loss, every
     gradient, the clipped norm and the step counter."""
@@ -162,9 +165,16 @@ def test_train_step_matches_reference(arch, microbatches):
     jloss, jaux, jgrads, jgnorm = _jax_loss_and_grads(jc, jp, _jbatch(b))
     if microbatches == 1:
         total, parts = tlm.forward_loss(tp, _tbatch(b), tc)
-        for got in (total, parts["loss"]):
-            np.testing.assert_allclose(got.item(), float(jloss), rtol=1e-5)
-        assert parts["aux"].item() == float(jaux) == 0.0
+        # jloss is the reference's objective: CE + 0.01 aux
+        np.testing.assert_allclose(total.item(), float(jloss), rtol=1e-5)
+        np.testing.assert_allclose(parts["loss"].item(),
+                                   float(jloss) - 0.01 * float(jaux),
+                                   rtol=1e-5)
+        if tc.n_experts:
+            np.testing.assert_allclose(parts["aux"].item(), float(jaux),
+                                       rtol=1e-5)
+        else:
+            assert parts["aux"].item() == float(jaux) == 0.0
     loss, grads = tsteps.loss_and_grads(tp, _tbatch(b), tc)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert set(grads) == {n for n, _ in tp.named_parameters()}
@@ -275,6 +285,104 @@ def test_clip_by_global_norm_matches_reference():
         for k in g:
             np.testing.assert_allclose(got[k].numpy(), _np(want[k]),
                                        rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor", "clip"])
+def test_optimizers_in_row_blocks_match_reference(name, monkeypatch):
+    """A tensor above ``_BLOCK`` elements is updated in blocks of leading
+    rows (what keeps arctic-480b's float32 temporaries to one expert):
+    with ``_BLOCK`` at 30 the (5, 4, 6), (9, 5) and per-group (3, 4, 5)
+    parameters go in blocks, and the updates, the state and the clipped
+    gradients (scaled in place, a tensor under two names once) still
+    match the reference's whole-tensor formulas, over its tree with the
+    groups stacked (``groups.1.s`` is row 1 of its ``groups.s``)."""
+    monkeypatch.setattr(topt, "_BLOCK", 30)
+    rng = np.random.default_rng(5)
+    shapes = {"t": (5, 4, 6), "w": (9, 5), "b": (7,),
+              "groups.0.s": (3, 4, 5), "groups.1.s": (3, 4, 5),
+              "groups.0.v": (7,), "groups.1.v": (7,)}
+
+    def draw():
+        return {k: rng.standard_normal(sh).astype(np.float32)
+                for k, sh in shapes.items()}
+
+    def jax_tree(d):
+        tree = {k: jnp.asarray(v) for k, v in d.items() if "." not in k}
+        tree["groups"] = {k: jnp.stack([jnp.asarray(d[f"groups.{i}.{k}"])
+                                        for i in range(2)])
+                          for k in ("s", "v")}
+        return tree
+
+    p0, grads = draw(), [draw() for _ in range(3)]
+    if name == "clip":
+        g = {k: torch.from_numpy(v.copy()) for k, v in grads[0].items()}
+        g["t_again"] = g["t"]
+        want, jgn = jopt.clip_by_global_norm(
+            {**jax_tree(grads[0]), "t_again": jnp.asarray(grads[0]["t"])},
+            0.5)
+        got, gn = topt.clip_by_global_norm_(g, 0.5)
+        np.testing.assert_allclose(float(gn), float(jgn), rtol=1e-6)
+        for k in g:
+            assert got[k] is g[k]
+            np.testing.assert_allclose(got[k].numpy(),
+                                       _np(_jax_leaf(want, k)), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
+        return
+    jp = jax_tree(p0)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    jo = jopt.make_optimizer(name, 1e-2, weight_decay=0.1)
+    to = topt.make_optimizer(name, 1e-2, weight_decay=0.1)
+    js, ts = jo.init(jp), to.init(tp)
+    for i, g in enumerate(grads):
+        jp, js = jo.update(jax_tree(g), js, jp, jnp.asarray(i, jnp.int32))
+        to.update({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp,
+                  torch.tensor(i, dtype=torch.int32))
+    for k in p0:
+        np.testing.assert_allclose(tp[k].numpy(), _np(_jax_leaf(jp, k)),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    # AdamW's moments by parameter; Adafactor's state by the reference's
+    # leaf (the groups stacked)
+    pairs = ([(ts[m][k], _jax_leaf(js[m], k)) for m in ("m", "v")
+              for k in p0] if name == "adamw" else
+             [(t, _jax_leaf(js, leaf)[key]) for leaf, st in ts.items()
+              for key, t in st.items()])
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5,
+                                   atol=1e-12)
+
+
+def test_adafactor_train_step_matches_reference():
+    """arctic-480b's step (Adafactor, one microbatch, the load-balance
+    loss): the parameters and the factored moments after two steps
+    against the reference's train step on the same batch.  The
+    reference's leaves stack the two layer groups, so a norm's scale is
+    a (2, 64) matrix to its Adafactor (factored, one RMS over both
+    groups), which the port's per-group (64,) vectors must follow."""
+    jc, tc, jp, tp = _models("arctic-480b")
+    assert tc.optimizer == "adafactor" and tc.microbatches == 1
+    b = _batch(tc, seed=6)
+    step, opt = tsteps.make_train_step(tc, lr=1e-2, device="cpu")
+    state = {"params": tp, "opt": opt.init(tp),
+             "step": torch.zeros((), dtype=torch.int32)}
+    jstep, jo = jsteps.make_train_step(jc, None, lr=1e-2)
+    jstep = jax.jit(jstep)
+    jstate = {"params": jp, "opt": jo.init(jp),
+              "step": jnp.zeros((), jnp.int32)}
+    for _ in range(2):
+        state, m = step(state, b)
+        jstate, jm = jstep(jstate, _jbatch(b))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    for name, p in tp.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   _np(_jax_leaf(jstate["params"], name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    # the state is keyed by the reference's leaves: groups stacked
+    for leaf, st in state["opt"].items():
+        for key, got in st.items():
+            np.testing.assert_allclose(
+                got.numpy(), _np(_jax_leaf(jstate["opt"], leaf)[key]),
+                rtol=1e-4, atol=1e-12, err_msg=f"{leaf} {key}")
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 17, 99, 150])

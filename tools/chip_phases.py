@@ -17,7 +17,10 @@ phi3.5-moe and arctic-480b cut in depth through the ``Batcher``),
 four graphs), ``serve``
 (phase 3b's two served models), ``async`` (phase 3c), ``mesh`` (phase
 3d), ``examples`` (phase 3e: tuning on a mesh and the examples),
-``train`` (phase 3f: training, the gradient gate, the supervisor) or
+``train`` (phase 3f: training, the gradient gates, the supervisor, and
+the other archs' cases), ``trainarchs`` (phase 3f's table of the other
+archs' training cases, ``TRAIN_ARCH_CASES``, and the card-against-CPU
+gradients of the layers that have no kernel) or
 ``parallel`` (phase 3i: the MoE all-to-all, phi3.5-moe's prefill through
 the hook, sequence parallelism, ``compressed_psum``).  Each
 phase runs as ``chip_smoke.py`` runs it, with its checks, ``--repeat``
@@ -37,7 +40,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "src"))
 
 PHASES = ("out", "lm", "local", "archs", "moe", "regions", "serve",
-          "async", "mesh", "examples", "train", "parallel")
+          "async", "mesh", "examples", "train", "trainarchs", "parallel")
 
 
 def main() -> int:
@@ -120,6 +123,8 @@ def main() -> int:
         "examples": lambda: cs.examples_phase(card, zero_counts,
                                               counts_now),
         "train": lambda: cs.train_phase(card, zero_counts, counts_now),
+        "trainarchs": lambda: [cs.train_archs(card, zero_counts, counts_now),
+                               cs.layer_grads_card_cpu(card)],
         "parallel": lambda: cs.parallel_phase(card, zero_counts,
                                               counts_now)}
 
