@@ -1,0 +1,13 @@
+"""Mean device microseconds, in the profiled stretch of a solve cell,
+from a launch's ``done`` to the next launch's ``go`` in the same call,
+over the port's timed launches (one in ``trace.EVERY``): the device
+waiting on the predicate's read, ``Converging`` and the loop.  None on
+the CPU, which has no events."""
+
+from bench import spans
+
+
+def read(run):
+    if run.cell.unit != "solve":
+        return None
+    return spans.launch_gap_us(run)

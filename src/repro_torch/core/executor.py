@@ -153,6 +153,27 @@ slot until it returns, and the executor stays usable.  Results equal
 ``async_regions=False``'s bit for bit; the flag is not in the plan
 signature (both modes replay the same graphs).
 
+**Tracing** (``core/trace.py``).  While a ``torch.profiler`` session
+records, the executor records spans where the work happens, each a
+user range in the profiler's trace (the device's clock) and a record
+that ``trace.session()`` returns: ``ripple.call`` (one
+``run()``; its id is the call id every span of the call carries),
+``ripple.predicate`` (a loop's check, its device-to-host read included)
+and ``ripple.iteration`` (one pass of a loop's body) at every
+while-loop, ``ripple.launch`` (a built piece's staging and replay, on the
+CPU its eager run; its label and the bytes staged; on the card one
+launch in ``trace.EVERY`` gets ``gap_us``, the device's wait for the
+host before it, from a timing event after the previous replay and one
+before its own),
+``ripple.build`` (a piece's eager run and capture), ``ripple.submit`` (a
+callback's snapshots and event), ``ripple.callback`` (the callback on the
+pool thread, with its submit's id) and ``ripple.wait`` (``kind``: the
+in-flight ``cap``, a ``drain`` or a ``barrier``).  Off, each site reads
+the profiler's flag and allocates nothing; on, a timed launch's ``go``
+record and the spans between the predicate's read and the replay lie in
+the device's wait that ``gap_us`` measures.  On or off, the results are the
+same bit for bit.
+
 **Fault sites and the degradation ladder.**  ``executor.dispatch`` trips
 at a callback's submission, ``executor.region`` before each device region
 (``region{i}``) or eager device segment (``segment{i}``), and
@@ -234,6 +255,7 @@ from ..runtime.faults import (HostTimeoutError, TransientError,
 from ..tuning.tiles import note_tile_uses, record_tile_use, tile_scope
 from . import halo as halo_lib
 from . import schedule as schedule_lib
+from . import trace
 from .device import resolve_device
 from .graph import AccessMode, Graph, Node, TensorArg
 from .layout import (Layout, RecordArray, _as_tensor, relayout,
@@ -458,27 +480,31 @@ class _AsyncRun:
             # step per finished callback, which starts exactly when the
             # next callback starts and takes the interpreter lock from it
             self._wait_until(len(self.tasks) - self.max_inflight // 2)
-        storages = self._storages()
-        snapped = []
-        for v in vals:
-            v, nbytes = _snapshot_for_host(v, storages)
-            snapped.append(v)
-            self.stats["snapshot_bytes"] += nbytes
-        event = None
-        if self.device.type == "cuda":
-            if self._side is None:
-                self._side = torch.cuda.Stream(self.device)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            for v in snapped:
-                data = _tensor_of(v)
-                if data is not None and data.is_cuda:
-                    # the allocator must not reuse the block before the
-                    # side stream's reads of it are done
-                    data.record_stream(self._side)
+        # the span ends before the enqueue: the callback's queue time
+        # starts where it ends
+        with trace.span("ripple.submit") as origin:
+            storages = self._storages()
+            snapped = []
+            for v in vals:
+                v, nbytes = _snapshot_for_host(v, storages)
+                snapped.append(v)
+                self.stats["snapshot_bytes"] += nbytes
+            event = None
+            if self.device.type == "cuda":
+                if self._side is None:
+                    self._side = torch.cuda.Stream(self.device)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                for v in snapped:
+                    data = _tensor_of(v)
+                    if data is not None and data.is_cuda:
+                        # the allocator must not reuse the block before
+                        # the side stream's reads of it are done
+                        data.record_stream(self._side)
         fut: Future = Future()
         with self._lock:
-            self._queue.append((region_index, fn, snapped, event, fut))
+            self._queue.append((region_index, fn, snapped, event, origin,
+                                fut))
             start = not self._running
             self._running = True
         if start:
@@ -501,17 +527,25 @@ class _AsyncRun:
                 item = self._queue.popleft()
             self._run_one(*item)
 
-    def _run_one(self, region_index: int, fn, vals, event, fut) -> None:
+    def _run_one(self, region_index: int, fn, vals, event, origin,
+                 fut) -> None:
+        """One callback, in a ``ripple.callback`` span beside its submit
+        (``origin``: the same parent and call), which ends before the
+        future does, and so before the call."""
         try:
-            if self._failed or self._cancelled.is_set():
-                raise _HostTaskCancelled()
-            _fault_trip("executor.host", detail=f"region{region_index}")
-            if self._cancelled.is_set():   # the watchdog gave up meanwhile
-                raise _HostTaskCancelled()
-            if event is not None:
-                self._side.wait_event(event)
-            if fn is not None:
-                fn(*vals)
+            with trace.span("ripple.callback",
+                            None if origin is None else origin.up) as sp:
+                if sp is not None and origin is not None:
+                    sp.attrs["submit"] = origin.id
+                if self._failed or self._cancelled.is_set():
+                    raise _HostTaskCancelled()
+                _fault_trip("executor.host", detail=f"region{region_index}")
+                if self._cancelled.is_set():   # the watchdog gave up
+                    raise _HostTaskCancelled()
+                if event is not None:
+                    self._side.wait_event(event)
+                if fn is not None:
+                    fn(*vals)
         except BaseException as exc:
             if not isinstance(exc, _HostTaskCancelled):
                 self._failed = True
@@ -556,18 +590,21 @@ class _AsyncRun:
         still bounds each callback: a wait in which the oldest unfinished
         one does not end within ``host_timeout`` raises for it."""
         t0 = time.perf_counter()
-        try:
-            last = self.tasks[n - 1][1]
-            while not last.done():
-                region_index, fut = next(
-                    t for t in self.tasks if not t[1].done())
-                try:
-                    last.exception(timeout=self.host_timeout)
-                except FuturesTimeout:
-                    if not fut.done():
-                        self._give_up(region_index, fut)
-        finally:
-            self.stats["wait_s"] += time.perf_counter() - t0
+        with trace.span("ripple.wait") as sp:
+            if sp is not None:
+                sp.attrs["kind"] = "cap"
+            try:
+                last = self.tasks[n - 1][1]
+                while not last.done():
+                    region_index, fut = next(
+                        t for t in self.tasks if not t[1].done())
+                    try:
+                        last.exception(timeout=self.host_timeout)
+                    except FuturesTimeout:
+                        if not fut.done():
+                            self._give_up(region_index, fut)
+            finally:
+                self.stats["wait_s"] += time.perf_counter() - t0
         for _ in range(n):
             exc = self.tasks[0][1].exception()
             if exc is not None and not isinstance(exc, _HostTaskCancelled):
@@ -596,14 +633,17 @@ class _AsyncRun:
             self.stats["barrier_drains"] += 1
         first = None
         t0 = time.perf_counter()
-        for region_index, fut in self.tasks:
-            try:
-                self._timed_result(region_index, fut)
-            except _HostTaskCancelled:
-                pass
-            except BaseException as exc:
-                if first is None:
-                    first = exc
+        with trace.span("ripple.wait") as sp:
+            if sp is not None:
+                sp.attrs["kind"] = "barrier" if barrier else "drain"
+            for region_index, fut in self.tasks:
+                try:
+                    self._timed_result(region_index, fut)
+                except _HostTaskCancelled:
+                    pass
+                except BaseException as exc:
+                    if first is None:
+                        first = exc
         self.stats["wait_s"] += time.perf_counter() - t0
         self.tasks.clear()
         if first is not None:
@@ -1566,24 +1606,32 @@ class _Piece:
                 # a capture fails on another thread's device-to-host
                 # read: no callback of this call runs while it builds
                 st.ctx.drain(barrier=True)
-            self._build(ex, entry, st)
+            with trace.span("ripple.build") as sp:
+                if sp is not None:
+                    sp.attrs["label"] = self.label
+                self._build(ex, entry, st)
         else:
-            self._stage(entry, st, self.in_bufs)
-            if self.graph is not None:
-                self.graph.replay()
-                if self.tile_uses:
-                    note_tile_uses(self.tile_uses)
-            else:
-                self._execute(ex, entry, dict(st.state))
+            with trace.span("ripple.launch") as sp:
+                staged = self._stage(entry, st, self.in_bufs)
+                if self.graph is None:
+                    self._execute(ex, entry, dict(st.state))
+                elif sp is None:
+                    self.graph.replay()
+                else:
+                    sp.replay(self.graph, ex.device)
+            if sp is not None:   # after the span: not in its time
+                sp.attrs.update(label=self.label, staged_bytes=staged)
+            if self.graph is not None and self.tile_uses:
+                note_tile_uses(self.tile_uses)
         for k, buf in self.out_bufs.items():
             st.state[k] = buf
             st.buffers.add(id(buf))
         st.written.update(self.out_bufs)
 
-    def _stage(self, entry, st: _CallState, bufs) -> None:
+    def _stage(self, entry, st: _CallState, bufs) -> int:
         """Copy every key this piece reads into its static buffer, unless
         the state already holds that buffer; every value is read before
-        any buffer it lies in is written."""
+        any buffer it lies in is written.  Returns the bytes copied."""
         srcs, dsts = {}, {}
         for name in self.reads:
             x = st.state[name]
@@ -1603,10 +1651,11 @@ class _Piece:
             if id(x) not in st.buffers:
                 st.origin[name] = x
             srcs[name], dsts[name] = x, buf
-        _copy_back(srcs, dsts)
+        nbytes = _copy_back(srcs, dsts)[1]
         for name, buf in dsts.items():
             st.state[name] = buf
             st.buffers.add(id(buf))
+        return nbytes
 
     def _body(self, ex: "Executor", state: dict) -> dict:
         for si, conv, layouts in self.chain:
@@ -1708,11 +1757,26 @@ class _Loop:
             st: _CallState) -> None:
         sub = ex._sub_executor(self.segment)
         condition = ex._segments[self.segment][1].condition
-        # while semantics: the predicate gates the first iteration too;
-        # bool() of a CUDA tensor is one device-to-host read per check
-        while bool(condition(st.state)):
+
+        def body():
             for step in self.body:
                 step.run(sub, entry, st)
+
+        _while(lambda: bool(condition(st.state)), body)
+
+
+def _while(predicate, body) -> None:
+    """``while predicate(): body()``, a loop segment's while semantics:
+    the predicate gates the first iteration too (``bool()`` of a CUDA
+    tensor is one device-to-host read per check).  Each check is a
+    ``ripple.predicate`` span and each pass a ``ripple.iteration``."""
+    while True:
+        with trace.span("ripple.predicate"):
+            go = predicate()
+        if not go:
+            return
+        with trace.span("ripple.iteration"):
+            body()
 
 
 def _pieces(steps):
@@ -3100,7 +3164,8 @@ class Executor:
                     ctx.drain(barrier=True)   # the predicate reads state
                 sub = self._sub_executor(i)
                 before = sub.eager_relayouts
-                while bool(payload.condition(st.state)):
+
+                def body():
                     st.ctx = sub._async_ctx(self.async_regions)
                     try:
                         with sub._layout_epoch():
@@ -3114,6 +3179,8 @@ class Executor:
                         raise
                     finally:
                         st.ctx = ctx
+
+                _while(lambda: bool(payload.condition(st.state)), body)
                 self.eager_relayouts += sub.eager_relayouts - before
 
     def _finish(self, st: _CallState) -> dict:
@@ -3156,13 +3223,15 @@ class Executor:
                         node, state, self._state_layouts) \
                         if node.args else []
                     node.fn(*vals)
-            else:   # loop / host_loop: while semantics, the predicate
-                # gates the first iteration too; bool() of a CUDA tensor
-                # is one device-to-host read per check
+            else:   # loop / host_loop
                 sub = self._sub_executor(i)
                 before = sub.eager_relayouts
-                while bool(payload.condition(state)):
+
+                def body():
+                    nonlocal state
                     state = sub(state)
+
+                _while(lambda: bool(payload.condition(state)), body)
                 self.eager_relayouts += sub.eager_relayouts - before
         return state
 
@@ -3193,7 +3262,7 @@ class Executor:
         as a clean pass."""
         if steps <= 0:
             return state
-        with self._layout_epoch():
+        with trace.span("ripple.call"), self._layout_epoch():
             ctx = self._async_ctx()
             try:
                 if not self.regions:
