@@ -334,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import fnmatch
+import functools
 import gc
 import json
 import os
@@ -363,6 +364,10 @@ EIK_N, EIK_INNER, EIK_BLOCK, EIK_WARM = 4096, 4, (8, 128), 50
 # phase 3d: the Euler solver's grid and steps (paper §8's shock-bubble at
 # a size that keeps the phase short)
 EULER_NX, EULER_NY, EULER_STEPS = 1024, 512, 20
+# the NaN-ignoring max/min timed at the benchmark's views: the particle
+# cells' ions' AoS v (records of 6 floats, the field at offset 3: a
+# 6.44 GB span) and the eikonal cell's change (8192^2)
+REDUCE_IONS_N, REDUCE_GRID_N = 1 << 28, 8192
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # eikonal, as (atol, rtol): float32 uncontracted, so equal to the plain
 # version; bfloat16 a few bfloat16 steps at the fronts' magnitude (the
@@ -2125,12 +2130,15 @@ class Stamped:
 
 
 # the kernels of a main-path graph's step (the eikonal solve's:
-# iteration), by wrapper; the profiler's name of each, and the piece of
-# its mangled name in a captured graph's kernel node
+# iteration), by wrapper; the profiler's names of each, and the pieces of
+# its mangled names in a captured graph's kernel nodes (the max/min's
+# read, span or row by row; its one-block fold is not counted)
 REGION_KERNELS = {"saxpy_probe": {"saxpy": 2},
-                  "particle_step": {"saxpy_record": 1, "particle_update": 2},
+                  "particle_step": {"saxpy_record": 1, "particle_update": 2,
+                                    "nan_ignoring_extremum": 1},
                   "flux": {"flux_difference": 1},
-                  "eikonal_solve": {"eikonal_fim": 1}}
+                  "eikonal_solve": {"eikonal_fim": 1,
+                                    "nan_ignoring_extremum": 1}}
 KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", ("12saxpy_kernelI",)),
                   "saxpy_record": ("::saxpy_record_kernel<",
                                    ("19saxpy_record_kernelI",)),
@@ -2142,7 +2150,10 @@ KERNEL_SYMBOLS = {"saxpy": ("::saxpy_kernel<", ("12saxpy_kernelI",)),
                   "flash_attention": ("::attn_", ("15attn_f32_kernelI",
                                                   "17attn_wgmma_kernelI")),
                   "ssd_intra_chunk": ("::ssd_", ("16ssd_chunk_kernelI",
-                                                 "16ssd_wgmma_kernelI"))}
+                                                 "16ssd_wgmma_kernelI")),
+                  "nan_ignoring_extremum": (
+                      ("::extremum_span_kernel<", "::extremum_rows_kernel<"),
+                      ("20extremum_span_kernelI", "20extremum_rows_kernelI"))}
 GRAPH_DUMPS = os.path.join("build", "graph-dumps")
 # a memcpy node of CUDA's DOT print (cudaGraphDebugDotFlagsVerbose), with
 # its extent in bytes, and the mangled name of PyTorch's copy kernel (a
@@ -2162,15 +2173,12 @@ def forced_copies(name: str) -> list:
     K5's output, so phi_prev takes a copy of it), the padded phi's
     contiguous pieces: each row halo made from its edge row and placed,
     each corner made from its row's end and placed (the column halos and
-    the interior are strided: copy kernels), and the NaN-ignoring max's
-    ``masked_fill``, which clones ``change`` before it fills (ROADMAP 1,
-    "the particle step's NaN-ignoring max"; over the ions' strided ``v``
-    that clone is a copy kernel)."""
+    the interior are strided: copy kernels).  The NaN-ignoring max reads
+    ``change`` where it lies (``csrc/reduce.cu``): it copies nothing."""
     if name != "eikonal_solve":
         return []
     row, cell, grid = 4 * EIK_N, 4, 4 * EIK_N * EIK_N
-    return ([("phi_prev <- phi, the body's own copy", grid),
-             ("res <- max(change): masked_fill's clone of change", grid)]
+    return ([("phi_prev <- phi, the body's own copy", grid)]
             + [("padded phi: a row halo filled from its edge row", row)] * 2
             + [("padded phi: a corner filled from its row's end", cell)] * 4
             + [("padded phi: a row halo placed", row)] * 2
@@ -2184,6 +2192,70 @@ def forced_summary(name: str) -> str:
         seen.setdefault(f"{why} ({nbytes} B)", 0)
         seen[f"{why} ({nbytes} B)"] += 1
     return "; ".join(f"{n} x {w}" for w, n in seen.items()) or "none"
+
+
+def span_bytes(view) -> int:
+    """Bytes from a view's first element to one past its last."""
+    last = sum((n - 1) * s for n, s in zip(view.shape, view.stride()))
+    return (last + 1) * view.element_size()
+
+
+def extremum_parity(views: dict) -> float:
+    """The NaN-ignoring max and min kernel against the torch route
+    (``kernels/reduce/ref.py``) at the main path's views (``views``: name
+    -> a 2-d float32 view on the card, filled here in place), each filled
+    four ways in turn: drawn N(0, 1); NaN planted at its first and last
+    element and at 1 % of the others; +inf and -inf planted beside the
+    NaN; all NaN.  The max goes into a 0-d ``out``, as in the executor's
+    pieces.  Limit 0: equal, NaN to NaN.  Returns the largest difference
+    (0.0)."""
+    import torch
+
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+    from repro_torch.kernels.reduce.ref import nan_ignoring_extremum_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    nan, inf = float("nan"), float("inf")
+    for what, view in views.items():
+        rows, cols = view.shape
+        k = max(1, view.numel() // 100)
+        at = (torch.randint(rows, (k,), generator=gen, device=view.device),
+              torch.randint(cols, (k,), generator=gen, device=view.device))
+        out = torch.empty((), device=view.device)
+
+        def check(pattern):
+            got = {}
+            for largest in (True, False):
+                m = got["max" if largest else "min"] = \
+                    nan_ignoring_extremum_cuda(view, largest=largest,
+                                               out=out if largest else None)
+                want = nan_ignoring_extremum_ref(view, largest=largest)
+                if largest and m is not out:
+                    raise AssertionError(f"nan_ignoring_extremum {what}: "
+                                         f"the max did not land in out")
+                if not (torch.equal(m, want)
+                        or bool(m.isnan() & want.isnan())):
+                    raise AssertionError(
+                        f"nan_ignoring_extremum {what} ({pattern}) "
+                        f"{'max' if largest else 'min'}: {float(m)}, the "
+                        f"torch route {float(want)}")
+            log(f"nan_ignoring_extremum {what} {tuple(view.shape)} strides "
+                f"{view.stride()} offset {view.storage_offset()} "
+                f"({pattern}): max {float(got['max'])}, min "
+                f"{float(got['min'])}, the torch route's")
+
+        view.normal_(generator=gen)
+        check("drawn N(0, 1)")
+        view[0, 0] = nan
+        view[-1, -1] = nan
+        view[at] = nan
+        check("NaN at both ends and at 1 % of the elements")
+        view[rows // 3, cols // 2] = inf
+        view[2 * rows // 3, cols - 1] = -inf
+        check("+inf and -inf beside the NaN")
+        view.fill_(nan)
+        check("all NaN")
+    return 0.0
 
 
 def check_memcpys(what: str, got: list, want: list) -> None:
@@ -2204,8 +2276,11 @@ def check_counts(what: str, counts: dict, want: dict) -> None:
 
 def traced_counts(by_kernel: dict) -> dict:
     """Launches of each kernel of ``KERNEL_SYMBOLS`` in a profiler trace."""
-    return {k: sum(n for name, (_, n) in by_kernel.items() if sym in name)
-            for k, (sym, _) in KERNEL_SYMBOLS.items()}
+    names = {k: (sym,) if isinstance(sym, str) else sym
+             for k, (sym, _) in KERNEL_SYMBOLS.items()}
+    return {k: sum(n for name, (_, n) in by_kernel.items()
+                   if any(sym in name for sym in syms))
+            for k, syms in names.items()}
 
 
 class GraphNodes:
@@ -2768,7 +2843,8 @@ def async_phase(card: str, zero_counts, counts_now) -> dict:
     g, _, _ = workloads.build_particle_diagnostic_graph(PARTICLE_N, diag)
     _, inp, _, _ = regions_graph("particle_step", 0)
     steps = PARTICLE_STEPS
-    per_step = {"particle_update": 2, "saxpy_record": 1}
+    per_step = {"particle_update": 2, "saxpy_record": 1,
+                "nan_ignoring_extremum": 1}
     regions = [r.kind for r in Executor(g, regions=True).plan.regions]
     if regions != ["device", "host", "device"]:
         raise AssertionError(f"async: the plan's regions are {regions}")
@@ -3044,7 +3120,8 @@ def mesh_regions(what: str, make_ex, init: dict, steps: int, read_out,
 def eikonal_mesh_regions(card: str, mesh, eik: dict, want, iters: int,
                          zero_counts, counts_now) -> dict:
     """The eikonal solve on ``mesh`` under ``regions=True``, both
-    ``donate``s: the loop body is one capture holding K5 once per shard;
+    ``donate``s: the loop body is one capture holding K5 and the max's
+    read once per shard;
     the solve takes ``iters`` iterations and ends at the eager mesh run's
     phi (``want``) bit for bit; a second solve and a second executor over
     the same graph capture nothing.  Returns solve seconds and device ms
@@ -3086,7 +3163,8 @@ def eikonal_mesh_regions(card: str, mesh, eik: dict, want, iters: int,
         if n_graphs != 1 or caps != 1:
             raise AssertionError(f"{tag}: {n_graphs} graphs, {caps} "
                                  f"captures, expected the loop body's 1")
-        per_iter = {"eikonal_fim": mesh.size}
+        per_iter = {"eikonal_fim": mesh.size,
+                    "nan_ignoring_extremum": mesh.size}
         check_counts(f"{tag} kernel nodes", in_graphs, per_iter)
         check_counts(f"{tag} wrapper calls at the build", counts_now(),
                      {k: 2 * n for k, n in per_iter.items()})
@@ -3125,7 +3203,7 @@ def eikonal_mesh_regions(card: str, mesh, eik: dict, want, iters: int,
 def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
     """Phase 3d: the flux graph, the eikonal solve and the Euler solver on
     a mesh of shards on cuda:0, against their unsharded runs.  Returns the
-    numbers and the K4/K5 launches of the mesh runs."""
+    numbers and the K4/K5 and max launches of the mesh runs."""
     import torch
 
     from repro_torch import workloads
@@ -3135,7 +3213,8 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
     dev = torch.device("cuda")
     mesh22 = make_mesh((2, 2), ("gx", "gy"), devices=["cuda:0"] * 4)
     mesh4 = make_mesh((4,), ("gy",), devices=["cuda:0"] * 4)
-    out = {"launches": {"flux_difference": 0, "eikonal_fim": 0}}
+    out = {"launches": {"flux_difference": 0, "eikonal_fim": 0,
+                        "nan_ignoring_extremum": 0}}
 
     copied = []
     transfer = halo_lib._transfer
@@ -3244,9 +3323,11 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
         iters = conv.iterations
         per_iter = 1 if mesh is None else 4
         check_counts(f"mesh eikonal {tag} launches", counts_now(),
-                     {"eikonal_fim": per_iter * iters})
+                     {"eikonal_fim": per_iter * iters,
+                      "nan_ignoring_extremum": per_iter * iters})
         if mesh is not None:
             out["launches"]["eikonal_fim"] += per_iter * iters
+            out["launches"]["nan_ignoring_extremum"] += per_iter * iters
         eik_runs[tag] = (ex.read(state, phi_t), iters, secs)
         log(f"mesh eikonal {tag}: {iters} iterations, {secs:.3f} s "
             f"({1e3 * secs / iters:.3f} ms per iteration) ({card})")
@@ -3327,7 +3408,8 @@ def mesh_phase(card: str, zero_counts, counts_now, eik: dict) -> dict:
                 {"u": U0}, EULER_STEPS,
                 lambda e, st: {"u": e.read(st, e.tensors["u"]).data,
                                "smax": st["smax"]},
-                euler_check, {}, card, zero_counts, counts_now)
+                euler_check, {"nan_ignoring_extremum": mesh.size}, card,
+                zero_counts, counts_now)
         for tag in ("(4,) gy", "(2, 2) overlap"):
             U, smax, mass, ms = runs[tag]
             err = max_err(U, U_ref, 1e-6, f"euler {tag} vs unsharded",
@@ -5054,7 +5136,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import (Boundary, Executor, Layout, RecordArray,
-                                  pad_boundary_only, relayout)
+                                  Reducer, pad_boundary_only, relayout)
     from repro_torch.kernels import _build
     from repro_torch.kernels.particle.kernel import particle_update_cuda
     from repro_torch.kernels.particle.ops import (PARTICLE_SPEC,
@@ -5075,6 +5157,8 @@ def main() -> int:
     from repro_torch.kernels.attention.ref import mha_ref
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+    from repro_torch.kernels.reduce.ref import nan_ignoring_extremum_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5122,13 +5206,18 @@ def main() -> int:
         "ssd_intra_chunk": {
             "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:72"},
+        # no Pallas kernel: the JAX package's max/min reduce with jnp
+        "nan_ignoring_extremum": {
+            "source": "src/repro_torch/csrc/reduce.cu",
+            "replaces": "src/repro/core/graph.py:186"},
     }
     wrappers = {"saxpy": saxpy_cuda, "saxpy_record": saxpy_record_cuda,
                 "particle_update": particle_update_cuda,
                 "flux_difference": flux_difference_cuda,
                 "eikonal_fim": eikonal_fim_cuda,
                 "flash_attention": flash_attention_cuda,
-                "ssd_intra_chunk": ssd_intra_chunk_cuda}
+                "ssd_intra_chunk": ssd_intra_chunk_cuda,
+                "nan_ignoring_extremum": nan_ignoring_extremum_cuda}
     errs = {k: 0.0 for k in kernels}
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -5324,6 +5413,24 @@ def main() -> int:
                                      f"two")
         del x, dts, A, Bm, C, got, want, y_128, s_128, half
         torch.cuda.empty_cache()
+    # the NaN-ignoring max/min at the main path's views: the ions' AoS v
+    # (a 6-float record's field at offset 3) and the eikonal solve's change
+    # (x, between the records' v, holds +-1e30: the read must skip it)
+    ions = RecordArray(torch.empty(6, PARTICLE_N, device=dev),
+                       PARTICLE_SPEC, Layout.SOA).with_layout(Layout.AOS)
+    x_of = ions.field("x")
+    x_of[0::2], x_of[1::2] = 1e30, -1e30
+    aos_v = ions.field("v")
+    if aos_v.stride() != (6, 1) or aos_v.storage_offset() != 3 \
+            or x_of.data_ptr() != aos_v.data_ptr() - 12:
+        raise AssertionError(f"the ions' AoS v is {aos_v.stride()} at "
+                             f"{aos_v.storage_offset()}, not (6, 1) at 3 "
+                             f"beside x")
+    errs["nan_ignoring_extremum"] = extremum_parity({
+        "ions' AoS v": aos_v,
+        "eikonal change": torch.empty(EIK_N, EIK_N, device=dev)})
+    del ions, x_of, aos_v
+    torch.cuda.empty_cache()
     # K6 at head dim 256: gemma3-12b's and recurrentgemma-9b's prefills
     errs["flash_attention"] = max(errs["flash_attention"],
                                   local_attention_parity())
@@ -5444,6 +5551,11 @@ def main() -> int:
             EIK_N, inner=EIK_INNER, block=EIK_BLOCK, max_iters=4 * EIK_N,
             use_kernel=use_kernel)
         body = g.levels[0][0].subgraph
+        if not use_kernel:   # the plain loop's max: the torch route
+            for node in body.nodes():
+                if node.kind == "reduce":
+                    node.reducer = Reducer("max", functools.partial(
+                        nan_ignoring_extremum_ref, largest=True), "max")
         stamps = []
 
         def timed(state):
@@ -5470,7 +5582,8 @@ def main() -> int:
     zero_counts()
     got, d_iters, d_solve_s, d_iter_ms = solve_eikonal(True)
     read_counts("eikonal_solve (defaults)")
-    expect["eikonal_solve (defaults)"] = {"eikonal_fim": 2}
+    expect["eikonal_solve (defaults)"] = {
+        k: 2 * n for k, n in REGION_KERNELS["eikonal_solve"].items()}
     if d_iters != iters:
         raise AssertionError(f"eikonal solve at the defaults: {d_iters} "
                              f"iterations, {iters} with regions=False")
@@ -5508,9 +5621,11 @@ def main() -> int:
     expect.update({
         "saxpy_probe": {"saxpy": 2 * SAXPY_STEPS},
         "particle_step": {"saxpy_record": PARTICLE_STEPS,
-                          "particle_update": 2 * PARTICLE_STEPS},
+                          "particle_update": 2 * PARTICLE_STEPS,
+                          "nan_ignoring_extremum": PARTICLE_STEPS},
         "flux": {"flux_difference": FLUX_STEPS},
-        "eikonal_solve": {"eikonal_fim": iters}})
+        "eikonal_solve": {"eikonal_fim": iters,
+                          "nan_ignoring_extremum": iters}})
     launches = {k: 0 for k in wrappers}
     for path, counts in list(path_launches.items()):
         log(f"main path launches {path}: {json.dumps(counts)}")
@@ -5796,6 +5911,29 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
                 f"({card})")
         del q, k, v
+    # the NaN-ignoring max at the benchmark's views, its bound the bytes of
+    # the view's span; torch.amax (which propagates NaN) as the yardstick
+    out0 = torch.empty((), device=dev)
+    for what, make in (
+            ("the ions' AoS v", lambda: randn(REDUCE_IONS_N, 6)[:, 3:6]),
+            ("the eikonal change", lambda: randn(REDUCE_GRID_N,
+                                                 REDUCE_GRID_N))):
+        view = make()
+        r = dict(
+            ms=time_ms(lambda: nan_ignoring_extremum_cuda(
+                view, largest=True, out=out0)),
+            plain_ms=time_ms(lambda: nan_ignoring_extremum_ref(
+                view, largest=True, out=out0), iters=10),
+            library_ms=time_ms(lambda: torch.amax(view)),
+            nbytes=span_bytes(view), ops=view.numel())
+        log(f"time nan_ignoring_extremum {what} {tuple(view.shape)} "
+            f"strides {view.stride()}: kernel {r['ms']:.4f} ms, bound "
+            f"{bound(r['nbytes'], r['ops'])[0]:.4f} ms ({r['nbytes']} bytes "
+            f"of span), torch route {r['plain_ms']:.4f} ms, torch.amax "
+            f"{r['library_ms']:.4f} ms ({card})")
+        results.setdefault("nan_ignoring_extremum", r)
+        del view
+        torch.cuda.empty_cache()
     local_attention_times(card)
     serving_attention_times(card)
     x, dts, A, Bm, C = ssd_inputs(torch.bfloat16)

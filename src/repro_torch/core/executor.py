@@ -1570,14 +1570,16 @@ def _takes_out(fn) -> bool:
 
 class _InPlace:
     """What a piece's lowering may write in place: the entry whose static
-    buffers a node may take as ``out=``, and the keys whose output landed
-    in their buffer (``wrote``)."""
+    buffers a node may take as ``out=``, the keys whose output landed in
+    their buffer (``wrote``), and its reductions by route (``routes``:
+    a hand-written kernel's, then torch's; ``Reducer.route``)."""
 
-    __slots__ = ("entry", "wrote")
+    __slots__ = ("entry", "wrote", "routes")
 
     def __init__(self, entry: ExecutableCacheEntry):
         self.entry = entry
         self.wrote: set = set()
+        self.routes = [0, 0]
 
 
 class _Piece:
@@ -1587,7 +1589,9 @@ class _Piece:
     against the entry's static buffers.  The first run builds it (see
     the module docstring); ``in_bufs``/``out_bufs`` are then the buffers
     it reads and writes, ``copies`` the copies (and their bytes) that
-    its end makes into ``out_bufs`` for outputs not written in place."""
+    its end makes into ``out_bufs`` for outputs not written in place,
+    ``routes`` its reductions that launched a hand-written kernel and
+    those that ran torch ops."""
 
     def __init__(self, label: str, chain: list, reads: tuple):
         self.label = label
@@ -1596,6 +1600,7 @@ class _Piece:
         self.in_bufs: Optional[dict] = None
         self.out_bufs: Optional[dict] = None
         self.copies = (0, 0)
+        self.routes = (0, 0)
         self.graph = None
         self.tile_uses: dict = {}
 
@@ -1691,6 +1696,7 @@ class _Piece:
         self.copies = _copy_back(
             {k: out[k] for k in written if not _is_buffer(out[k], dsts[k])},
             dsts)
+        self.routes = tuple(ip.routes)
         return dsts
 
     def _build(self, ex, entry, st: _CallState) -> None:
@@ -2306,7 +2312,12 @@ class Executor:
         make at their ends into the static buffers, each piece run once
         (one step of a device-only graph; one iteration of a loop body):
         the outputs not written in place, which aliasing forces.  A
-        capture replays its build's copies.  ``moved_out`` and
+        capture replays its build's copies.  ``reduce_kernel`` and
+        ``reduce_torch`` count the built pieces' local reductions the same
+        way, by route (``Reducer.route``): those that launched a
+        hand-written kernel (the NaN-ignoring max/min's,
+        ``kernels/reduce``) and those that ran torch ops (another reducer,
+        or a tensor the kernel does not take: on the CPU, every one).  ``moved_out`` and
         ``moved_out_bytes`` count, over the entry's life, the returned
         aliases moved onto clones because a call did not take them back
         (``donate=True``: a switch between states)."""
@@ -2318,6 +2329,8 @@ class Executor:
                 "hits": c.hits, "trace_events": c.trace_events,
                 "copy_backs": sum(p.copies[0] for p in pieces),
                 "copy_back_bytes": sum(p.copies[1] for p in pieces),
+                "reduce_kernel": sum(p.routes[0] for p in pieces),
+                "reduce_torch": sum(p.routes[1] for p in pieces),
                 "moved_out": c.moved_out,
                 "moved_out_bytes": c.moved_out_bytes}
 
@@ -2910,10 +2923,13 @@ class Executor:
         data = state[t.name]
         eff = self._eff_in(t, layouts)
         name = node.result.name
+        routes = None if self._inplace is None else self._inplace.routes
 
         def local(x, dst=None):
             if t.is_record and field is not None:
                 x = eff.wrap(x).field(field)
+            if routes is not None:   # [kernel, torch]
+                routes[node.reducer.route(x) != "kernel"] += 1
             if dst is not None and x.dtype == dst.dtype \
                     and x.device == dst.device:
                 return node.reducer.local(x, out=dst)

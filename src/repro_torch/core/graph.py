@@ -4,7 +4,9 @@ reduce / then_reduce / conditional / sync / subgraphs + access modifiers.
 A :class:`Graph` records *levels* of :class:`Node` s — the paper's DAG where
 a level holds nodes that may execute in parallel and each level depends on
 the previous one.  The builder is pure Python and identical in structure to
-the JAX package's; only the reducer library computes with torch.
+the JAX package's; only the reducer library computes (with torch, and
+the max and min of a float32 view on the card with a hand-written
+kernel).
 
 Access modifiers say how a kernel touches halo data:
 
@@ -156,14 +158,21 @@ def exclusive_padded_access_in_shared(t: DistTensor) -> TensorArg:
     return TensorArg(t, AccessMode.EXCLUSIVE_PADDED_SHARED)
 
 
+def _torch_route(x) -> str:
+    return "torch"
+
+
 @dataclass(frozen=True)
 class Reducer:
-    """Local reduction + cross-partition combiner name."""
+    """Local reduction + cross-partition combiner name.  ``route(x)``
+    says how ``local`` reduces ``x``: ``"kernel"`` where it launches a
+    hand-written kernel, ``"torch"`` where it runs torch ops."""
 
     name: str
     local: Callable  # tensor -> 0-d tensor
     combine: str     # 'add'|'mul'|'max'|'min'|'and'|'or'|'xor'|
                      # 'minimum'|'maximum'
+    route: Callable = _torch_route  # tensor -> 'kernel' | 'torch'
 
 
 def SumReducer() -> Reducer:  # noqa: N802 - mirrors paper naming
@@ -171,23 +180,28 @@ def SumReducer() -> Reducer:  # noqa: N802 - mirrors paper naming
     return Reducer("sum", torch.sum, "add")
 
 
-def _nan_ignoring(reduce_all, fill: float):
-    """Ripple's ``min``/``max``: a quiet NaN operand is ignored (the
-    all-NaN tensor still reduces to NaN).  ``out`` (a 0-d tensor of the
-    input's dtype) receives the result, as the executor's regions write a
-    result into its static buffer."""
+def _nan_ignoring(largest: bool):
+    """Ripple's ``max`` (``largest``) / ``min``: a quiet NaN operand is
+    ignored (the all-NaN tensor still reduces to NaN).  ``out`` (a 0-d
+    tensor of the input's dtype) receives the result, as the executor's
+    regions write a result into its static buffer.  A CUDA float32 view
+    goes to the hand-written kernel, read where it lies; everything else
+    to the plain PyTorch version (``kernels/reduce``)."""
 
     def local(x, out=None):
-        x = torch.as_tensor(x)
-        if not x.is_floating_point():
-            m = reduce_all(x)
-            return m if out is None else out.copy_(m)
-        nan = torch.isnan(x)
-        m = reduce_all(x.masked_fill(nan, fill))
-        return torch.where(nan.all(), torch.full_like(m, float("nan")), m,
-                           out=out)
+        # imported at the call: the kernels' package imports core
+        from ..kernels.reduce.ops import nan_ignoring_extremum
+
+        return nan_ignoring_extremum(x, largest=largest, out=out)
 
     return local
+
+
+def _nan_ignoring_route(x) -> str:
+    """How :func:`_nan_ignoring`'s ``local`` reduces ``x``."""
+    from ..kernels.reduce.ops import route
+
+    return route(x)
 
 
 def _nan_propagating(reduce_all):
@@ -226,13 +240,13 @@ def _bitwise_fold(op, identity: int):
 def MaxReducer() -> Reducer:  # noqa: N802
     """NaN-ignoring max (spec: NUM vs qNaN -> NUM).  For the
     NaN-propagating variant use :func:`MaximumReducer`."""
-    return Reducer("max", _nan_ignoring(torch.amax, float("-inf")), "max")
+    return Reducer("max", _nan_ignoring(True), "max", _nan_ignoring_route)
 
 
 def MinReducer() -> Reducer:  # noqa: N802
     """NaN-ignoring min.  For the NaN-propagating variant use
     :func:`MinimumReducer`."""
-    return Reducer("min", _nan_ignoring(torch.amin, float("inf")), "min")
+    return Reducer("min", _nan_ignoring(False), "min", _nan_ignoring_route)
 
 
 def MulReducer() -> Reducer:  # noqa: N802

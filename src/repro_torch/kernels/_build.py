@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "build", "load", "check", "BUILD_DIR", "CSRC"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/repro_torch (this file is src/repro_torch/kernels/_build.py)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("saxpy", "particle", "stencil", "eikonal", "attention", "ssd")
+SOURCES = ("saxpy", "particle", "stencil", "eikonal", "attention", "ssd",
+           "reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

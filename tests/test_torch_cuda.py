@@ -1303,3 +1303,223 @@ def test_moe_smoke_decode_is_captured_once(dev):
     assert bc.executor.regions and bc.executor.donate
     assert bc.cache_stats()["decode"]["trace_events"] == 1
     assert got == eager
+
+
+# -- the NaN-ignoring max and min (csrc/reduce.cu) ----------------------------
+
+def _extremum_views(dev, name):
+    """A float32 view on the card by name, in a storage whose elements
+    outside the view are +-1e30 (a kernel that read them would return
+    one)."""
+    kind, n = name.rsplit("-", 1)
+    n = int(n)
+    shapes = {"1d": (n,), "offset": (n + 1,), "2d": (n, 257),
+              "aos_x": (n, 6), "aos_v": (n, 6), "soa_v": (6, n),
+              "pair_y": (n, 2), "interior": (n + 2, n + 2),
+              "rows": (n, 256), "column": (n, 64)}
+    g = torch.Generator(device=dev).manual_seed(n)
+    store = torch.where(torch.rand(shapes[kind], generator=g, device=dev)
+                        < 0.5, -1e30, 1e30)
+    view = {"1d": lambda s: s, "offset": lambda s: s[1:],
+            "2d": lambda s: s, "aos_x": lambda s: s[:, 0:3],
+            "aos_v": lambda s: s[:, 3:6],
+            "soa_v": lambda s: s[3:6].movedim(0, -1),
+            "pair_y": lambda s: s[:, 1],
+            "interior": lambda s: s[1:-1, 1:-1],
+            "rows": lambda s: s[:, :4], "column": lambda s: s[:, 5]}[kind](
+                store)
+    view.copy_(torch.randn(view.shape, generator=g, device=dev))
+    return view
+
+
+_EXTREMUM_VIEWS = ["1d-1", "1d-3", "1d-4095", "1d-4097", "1d-1048583",
+                   "offset-4097", "2d-513", "aos_x-4097", "aos_v-4097",
+                   "aos_v-1048583", "soa_v-4097", "pair_y-4099",
+                   "interior-130", "rows-300", "column-5000"]
+
+
+def _plant(view, pattern, dev):
+    """Put NaN, +-inf or +-0 into ``view`` by ``pattern``."""
+    first = (0,) * view.dim()
+    last = tuple(s - 1 for s in view.shape)
+    nan = float("nan")
+    if pattern == "nan_first":
+        view[first] = nan
+    elif pattern == "nan_last":
+        view[last] = nan
+    elif pattern == "nan_all":
+        view.fill_(nan)
+    elif pattern == "nan_some":
+        g = torch.Generator(device=dev).manual_seed(7)
+        view.masked_fill_(torch.rand(view.shape, generator=g, device=dev)
+                          < 0.2, nan)
+    elif pattern == "infs":
+        view[first] = float("inf")
+        view[last] = float("-inf")
+    elif pattern == "signed_zeros":
+        g = torch.Generator(device=dev).manual_seed(8)
+        view.copy_(torch.where(torch.rand(view.shape, generator=g,
+                                          device=dev) < 0.5, -0.0, 0.0))
+    elif pattern == "minus_inf_and_nan":
+        view.fill_(float("-inf"))
+        view[last] = nan
+
+
+def _same_extremum(got, want):
+    """The torch route's value (``torch.equal``; NaN by ``isnan``)."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == () and got.dtype == torch.float32
+    if bool(torch.isnan(want)):
+        assert bool(torch.isnan(got)), got
+    else:
+        assert torch.equal(got, want), (got, want)
+
+
+@pytest.mark.parametrize("largest", [True, False], ids=["max", "min"])
+@pytest.mark.parametrize("pattern", ["none", "nan_first", "nan_last",
+                                     "nan_all", "nan_some", "infs",
+                                     "signed_zeros", "minus_inf_and_nan"])
+@pytest.mark.parametrize("name", _EXTREMUM_VIEWS)
+def test_nan_ignoring_extremum_kernel_is_the_torch_route(dev, name, pattern,
+                                                         largest):
+    """The kernel's max and min of contiguous tensors, AoS fields at
+    record offsets 0 and 3, a SoA field, a padded interior and views read
+    row by row equal the torch route's, NaN, +-inf and +-0 included, and
+    leave the view as it was."""
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+    from repro_torch.kernels.reduce.ops import nan_ignoring_extremum_ref
+
+    view = _extremum_views(dev, name)
+    _plant(view, pattern, dev)
+    before = view.clone()
+    launches = nan_ignoring_extremum_cuda.launches
+    got = nan_ignoring_extremum_cuda(view, largest=largest)
+    torch.cuda.synchronize()
+    assert nan_ignoring_extremum_cuda.launches == launches + 1
+    _same_extremum(got, nan_ignoring_extremum_ref(view, largest=largest))
+    assert torch.equal(view.isnan(), before.isnan())
+    assert torch.equal(view.nan_to_num(), before.nan_to_num())
+
+
+def test_nan_ignoring_extremum_over_a_span_past_2_to_the_31(dev):
+    """64-bit offsets: a contiguous tensor of 2^31 + 4101 float32 (8.6 GB)
+    and the AoS field of the same storage read as six-float records, with
+    the extremes (and larger values outside the field) past element
+    2^31."""
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+
+    n = 2**31 + 4101
+    store = torch.full((n,), -1.0, device=dev)
+    m = n // 6
+    aos = store[:6 * m].view(m, 6)
+    field = aos[:, 3:6]
+    store[n - 2], store[n - 1] = 9.0, -9.0      # past the field's span
+    store[n - 3] = float("nan")
+    aos[m - 1, 0], aos[m - 4, 1] = 8.0, -8.0    # in x, beside the field
+    aos[m - 2, 4], aos[m - 3, 5] = 7.0, -6.0    # in v, the field
+    aos[m - 5, 3] = float("nan")
+    got = {"whole max": nan_ignoring_extremum_cuda(store, largest=True),
+           "whole min": nan_ignoring_extremum_cuda(store, largest=False),
+           "field max": nan_ignoring_extremum_cuda(field, largest=True),
+           "field min": nan_ignoring_extremum_cuda(field, largest=False)}
+    assert {k: float(v) for k, v in got.items()} == {
+        "whole max": 9.0, "whole min": -9.0, "field max": 7.0,
+        "field min": -6.0}
+    del store, aos, field
+    torch.cuda.empty_cache()
+
+
+def test_nan_ignoring_extremum_writes_out_and_is_captured(dev):
+    """``out=`` (a 0-d float32 tensor) receives the result; the launch is
+    captured into a CUDA graph, whose replay after the input changed
+    gives the new input's extreme with no call of the wrapper."""
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+    from repro_torch.kernels.reduce.ops import nan_ignoring_extremum_ref
+
+    view = _extremum_views(dev, "aos_v-1048583")
+    flat = _extremum_views(dev, "1d-1048583")
+    outs = [torch.empty((), device=dev) for _ in range(2)]
+    with pytest.raises(ValueError):
+        nan_ignoring_extremum_cuda(view, largest=True,
+                                   out=torch.empty((), device=dev,
+                                                   dtype=torch.float64))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up, then capture
+        assert nan_ignoring_extremum_cuda(view, largest=True,
+                                          out=outs[0]) is outs[0]
+        nan_ignoring_extremum_cuda(flat, largest=False, out=outs[1])
+    torch.cuda.current_stream().wait_stream(side)
+    _same_extremum(outs[0], nan_ignoring_extremum_ref(view, largest=True))
+    _same_extremum(outs[1], nan_ignoring_extremum_ref(flat, largest=False))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        nan_ignoring_extremum_cuda(view, largest=True, out=outs[0])
+        nan_ignoring_extremum_cuda(flat, largest=False, out=outs[1])
+    launches = nan_ignoring_extremum_cuda.launches
+    for scale in (3.0, -0.5):
+        view.mul_(scale)
+        flat.mul_(scale)
+        view[5, 1] = float("nan")
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_extremum(outs[0], nan_ignoring_extremum_ref(view,
+                                                          largest=True))
+        _same_extremum(outs[1], nan_ignoring_extremum_ref(flat,
+                                                          largest=False))
+    assert nan_ignoring_extremum_cuda.launches == launches
+
+
+def test_nan_ignoring_extremum_leaves_a_gradient_to_torch(dev):
+    """A tensor that requires grad under grad mode takes the torch route,
+    whose max carries the gradient; under ``no_grad`` the kernel runs."""
+    from repro_torch.core import MaxReducer
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+
+    x = _extremum_views(dev, "1d-4097").clone().requires_grad_(True)
+    launches = nan_ignoring_extremum_cuda.launches
+    m = MaxReducer().local(x)
+    m.backward()
+    assert nan_ignoring_extremum_cuda.launches == launches
+    assert float(x.grad.sum()) == 1.0 and float(x.grad[x.argmax()]) == 1.0
+    with torch.no_grad():
+        assert torch.equal(MaxReducer().local(x), m.detach())
+    assert nan_ignoring_extremum_cuda.launches == launches + 1
+
+
+@pytest.mark.parametrize("graph", ["particle", "particle_diagnostic",
+                                   "eikonal"])
+def test_main_path_max_takes_the_kernel_on_the_card(dev, graph):
+    """At the executor's defaults the particle graphs' max of the ions'
+    AoS ``v`` and the eikonal body's max of ``change`` launch the kernel
+    (``cache_stats()``: one reduction a piece that holds it, none by
+    torch), with the state of ``regions=False``."""
+    if graph == "eikonal":
+        g, _, converging = workloads.build_eikonal_graph(256,
+                                                         max_iters=1024)
+        inp = {k: torch.from_numpy(v) for k, v in
+               workloads.eikonal_inputs(256).items()}
+        steps = 1
+    else:
+        converging, steps = None, 3
+        inp = _particle_inputs(dev, 2**16)
+        if graph == "particle":
+            g, _, _ = workloads.build_particle_graph(2**16)
+        else:
+            g, _, _ = workloads.build_particle_diagnostic_graph(
+                2**16, lambda t, v: None)
+    def raw(v):
+        return (v.data if isinstance(v, RecordArray)
+                else torch.as_tensor(v)).cpu()
+
+    eager = Executor(g, regions=False)
+    want = {k: raw(v) for k, v in
+            eager.run(eager.init_state(**inp), steps).items()}
+    iters = converging.iterations if converging else None
+    ex = Executor(g)
+    got = ex.run(ex.init_state(**inp), steps)
+    stats = ex.cache_stats()
+    assert (stats["reduce_kernel"], stats["reduce_torch"]) == (1, 0)
+    assert (converging.iterations if converging else None) == iters
+    for k in want:
+        assert torch.equal(raw(got[k]), want[k]), k

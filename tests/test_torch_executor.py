@@ -6,6 +6,8 @@ The slice end to end: the particle step graph (the JAX package's
 ``Executor`` and under ``repro_torch``'s ``Executor(device="cpu")`` from
 the same initial state, carried across by ``repro_torch.interop``."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -319,6 +321,127 @@ def test_reducers_match_reference(reducer, data):
     got = getattr(port, f"{reducer}Reducer")().local(torch.from_numpy(x))
     np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
                                rtol=1e-5, equal_nan=True)
+
+
+def _record_field(layout, name, n=1024):
+    from repro_torch.kernels.particle.ops import PARTICLE_SPEC
+
+    return port.RecordArray.create(PARTICLE_SPEC, (n,), layout=layout,
+                                   device="cpu").field(name)
+
+
+# name -> (the view, the device type it is routed for, the kernel's
+# (rows, cols, row_stride, span read) or None for the torch route)
+_ROUTE_CASES = {
+    "aos_field_v": (lambda: _record_field(port.Layout.AOS, "v"), "cuda",
+                    (1024, 3, 6, True)),
+    "aos_field_x": (lambda: _record_field(port.Layout.AOS, "x"), "cuda",
+                    (1024, 3, 6, True)),
+    "soa_field": (lambda: _record_field(port.Layout.SOA, "v"), "cuda",
+                  (1, 3072, 3072, True)),
+    "aosoa_field": (lambda: _record_field(port.Layout.AOSOA, "v"), "cuda",
+                    (1, 3072, 3072, True)),
+    "contiguous_1d": (lambda: torch.zeros(4097), "cuda",
+                      (1, 4097, 4097, True)),
+    "contiguous_2d": (lambda: torch.zeros(64, 48), "cuda",
+                      (1, 3072, 3072, True)),
+    "zero_d": (lambda: torch.zeros(()), "cuda", (1, 1, 1, True)),
+    "one_of_two_columns": (lambda: torch.zeros(100, 2)[:, 1], "cuda",
+                           (100, 1, 2, True)),
+    "padded_interior": (lambda: torch.zeros(66, 66)[1:-1, 1:-1], "cuda",
+                        (64, 64, 66, True)),
+    "rows_a_sector_apart": (lambda: torch.zeros(64, 256)[:, :4], "cuda",
+                            (64, 4, 256, False)),
+    "cpu": (lambda: torch.zeros(4097), "cpu", None),
+    "int32": (lambda: torch.zeros(64, dtype=torch.int32), "cuda", None),
+    "bool": (lambda: torch.zeros(64, dtype=torch.bool), "cuda", None),
+    "bfloat16": (lambda: torch.zeros(64, dtype=torch.bfloat16), "cuda",
+                 None),
+    "float64": (lambda: torch.zeros(64, dtype=torch.float64), "cuda", None),
+    "empty": (lambda: torch.zeros(0, 3), "cuda", None),
+    "every_other_element": (lambda: torch.zeros(8, 6)[:, ::2], "cuda",
+                            (24, 1, 2, True)),
+    "strided_rows": (lambda: torch.zeros(8, 7)[:, ::2], "cuda", None),
+    "three_dims_two_gaps": (lambda: torch.zeros(4, 6, 8)[:, :3, :5], "cuda",
+                            None),
+    "broadcast": (lambda: torch.zeros(4, 1).expand(4, 5), "cuda", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_max_min_route_follows_what_the_input_shows(case):
+    """The NaN-ignoring max/min takes the hand-written kernel for a CUDA
+    float32 view whose strides merge into rows of contiguous elements,
+    read as one span where the gaps are under a 32-byte sector, and the
+    torch route for everything else: a pure function of device type,
+    dtype, shape and strides."""
+    from repro_torch.kernels.reduce.kernel import kernel_geometry
+
+    make, device_type, want = _ROUTE_CASES[case]
+    x = make()
+    assert kernel_geometry(device_type, x.dtype, tuple(x.shape),
+                           x.stride()) == want
+
+
+def test_max_min_kernel_wrapper_refuses_what_it_does_not_take():
+    """The kernel's wrapper raises on a tensor off the card, of another
+    dtype or with no elements; it never falls back to torch."""
+    from repro_torch.kernels.reduce.kernel import nan_ignoring_extremum_cuda
+
+    for x in (torch.zeros(8), torch.zeros(8, dtype=torch.int32),
+              torch.zeros(0)):
+        with pytest.raises(ValueError, match="CUDA float32 view"):
+            nan_ignoring_extremum_cuda(x, largest=True)
+    assert nan_ignoring_extremum_cuda.launches == 0
+
+
+def test_max_min_reducers_report_their_route(monkeypatch):
+    """``Reducer.route`` says how ``local`` reduces a tensor: on the CPU
+    the max and min take torch, as every other reducer does; where the
+    kernel takes the view (``kernel_geometry``), the max and min report
+    the kernel, unless the tensor requires grad under grad mode."""
+    from repro_torch.kernels.reduce import ops
+
+    x = torch.zeros(64)
+    for reducer in (port.MaxReducer(), port.MinReducer(), port.SumReducer(),
+                    port.MaximumReducer()):
+        assert reducer.route(x) == "torch"
+    monkeypatch.setattr(ops, "kernel_geometry",
+                        lambda *a: (1, 64, 64, True))
+    for reducer in (port.MaxReducer(), port.MinReducer()):
+        assert reducer.route(x) == "kernel"
+        assert reducer.route(x.requires_grad_()) == "torch"
+        with torch.no_grad():
+            assert reducer.route(x) == "kernel"
+        x = x.detach()
+    assert port.SumReducer().route(x) == "torch"
+
+
+@pytest.mark.parametrize("graph", ["particle", "particle_diagnostic",
+                                   "eikonal", "eikonal_route_kernel"])
+def test_cache_stats_count_reductions_by_route(graph):
+    """``cache_stats()`` counts the built pieces' reductions by the
+    reducer's route: on the CPU the particle graphs' and the eikonal
+    body's max each take torch, once a piece that holds it; a reducer
+    that reports the kernel is counted as the kernel's."""
+    if graph == "particle":
+        g, _, _ = workloads.build_particle_graph(1024)
+    elif graph == "particle_diagnostic":
+        g, _, _ = workloads.build_particle_diagnostic_graph(
+            1024, lambda t, v: None)
+    else:
+        g, _, _ = workloads.build_eikonal_graph(32, block=(8, 32))
+    want = (0, 1)
+    if graph == "eikonal_route_kernel":
+        (node,) = [n for n in g.levels[0][0].subgraph.nodes()
+                   if n.kind == "reduce"]
+        node.reducer = dataclasses.replace(node.reducer,
+                                           route=lambda x: "kernel")
+        want = (1, 0)
+    ex = port.Executor(g, device="cpu")
+    ex.run(ex.init_state(), 2)
+    stats = ex.cache_stats()
+    assert (stats["reduce_kernel"], stats["reduce_torch"]) == want
 
 
 def test_default_device_is_the_gpu():
