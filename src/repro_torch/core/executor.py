@@ -165,7 +165,11 @@ CPU its eager run; its label and the bytes staged; on the card one
 launch in ``trace.EVERY`` gets ``gap_us``, the device's wait for the
 host before it, from a timing event after the previous replay and one
 before its own),
-``ripple.build`` (a piece's eager run and capture), ``ripple.submit`` (a
+``ripple.build`` (a piece's eager run and capture), ``ripple.halo`` (a
+padded copy's assembly, with its ``bytes`` and the record's ``fields``,
+where it runs on the host: in a build, with ``regions=False``, and in
+the CPU's launches; a replay's copies are nodes of its graph),
+``ripple.submit`` (a
 callback's snapshots and event), ``ripple.callback`` (the callback on the
 pool thread, with its submit's id) and ``ripple.wait`` (``kind``: the
 in-flight ``cap``, a ``drain`` or a ``barrier``).  Off, each site reads
@@ -299,18 +303,6 @@ def _halo_plan(t: DistTensor, mesh: Optional[Mesh]) -> list[_HaloEntry]:
 def _halo_axes(entries: list[_HaloEntry]) -> list[halo_lib.HaloAxis]:
     return [halo_lib.HaloAxis(e.storage_axis, e.width, e.mesh_axis)
             for e in entries]
-
-
-def _apply_halo(data, t: DistTensor, mesh: Optional[Mesh] = None):
-    """Extend ``data`` (a tensor, or on a mesh the shards of every mesh
-    coordinate) by all of ``t``'s halos through the transfer schedule,
-    corners included: each result one new contiguous tensor."""
-    entries = _halo_plan(t, mesh)
-    if not entries:
-        return data
-    return halo_lib.exchange_multi(data, _halo_axes(entries),
-                                   boundary=t.boundary,
-                                   constant=t.boundary_constant, mesh=mesh)
 
 
 def _tensor_arg(a) -> tuple[Optional[DistTensor], AccessMode]:
@@ -1571,15 +1563,17 @@ def _takes_out(fn) -> bool:
 class _InPlace:
     """What a piece's lowering may write in place: the entry whose static
     buffers a node may take as ``out=``, the keys whose output landed in
-    their buffer (``wrote``), and its reductions by route (``routes``:
-    a hand-written kernel's, then torch's; ``Reducer.route``)."""
+    their buffer (``wrote``), its reductions by route (``routes``: a
+    hand-written kernel's, then torch's; ``Reducer.route``) and the
+    bytes its halo assembly wrote (``halo``)."""
 
-    __slots__ = ("entry", "wrote", "routes")
+    __slots__ = ("entry", "wrote", "routes", "halo")
 
     def __init__(self, entry: ExecutableCacheEntry):
         self.entry = entry
         self.wrote: set = set()
         self.routes = [0, 0]
+        self.halo = 0
 
 
 class _Piece:
@@ -1591,7 +1585,8 @@ class _Piece:
     it reads and writes, ``copies`` the copies (and their bytes) that
     its end makes into ``out_bufs`` for outputs not written in place,
     ``routes`` its reductions that launched a hand-written kernel and
-    those that ran torch ops."""
+    those that ran torch ops, ``halo`` the bytes its halo assembly
+    writes."""
 
     def __init__(self, label: str, chain: list, reads: tuple):
         self.label = label
@@ -1601,6 +1596,7 @@ class _Piece:
         self.out_bufs: Optional[dict] = None
         self.copies = (0, 0)
         self.routes = (0, 0)
+        self.halo = 0
         self.graph = None
         self.tile_uses: dict = {}
 
@@ -1697,6 +1693,7 @@ class _Piece:
             {k: out[k] for k in written if not _is_buffer(out[k], dsts[k])},
             dsts)
         self.routes = tuple(ip.routes)
+        self.halo = ip.halo
         return dsts
 
     def _build(self, ex, entry, st: _CallState) -> None:
@@ -2317,7 +2314,12 @@ class Executor:
         way, by route (``Reducer.route``): those that launched a
         hand-written kernel (the NaN-ignoring max/min's,
         ``kernels/reduce``) and those that ran torch ops (another reducer,
-        or a tensor the kernel does not take: on the CPU, every one).  ``moved_out`` and
+        or a tensor the kernel does not take: on the CPU, every one).
+        ``halo_bytes`` counts the same way the bytes that the built
+        pieces' halo assembly writes: every padded copy a node reads,
+        each cell once (the interior's placement and the halo cells'
+        fills), the overlapped lowering's blocks left out (its transfers
+        are ``plan.halo_transfers``).  ``moved_out`` and
         ``moved_out_bytes`` count, over the entry's life, the returned
         aliases moved onto clones because a call did not take them back
         (``donate=True``: a switch between states)."""
@@ -2331,6 +2333,7 @@ class Executor:
                 "copy_back_bytes": sum(p.copies[1] for p in pieces),
                 "reduce_kernel": sum(p.routes[0] for p in pieces),
                 "reduce_torch": sum(p.routes[1] for p in pieces),
+                "halo_bytes": sum(p.halo for p in pieces),
                 "moved_out": c.moved_out,
                 "moved_out_bytes": c.moved_out_bytes}
 
@@ -2513,9 +2516,36 @@ class Executor:
             if isinstance(data, ShardedArray):
                 data = data.to_global()
             if mode.padded:
-                data = _apply_halo(data, t)
+                data = self._padded(data, t)
             vals.append(t.wrap(data) if t.is_record else data)
         return vals
+
+    def _padded(self, data, t: DistTensor, mesh: Optional[Mesh] = None):
+        """A segment's halo assembly: ``data`` (a tensor, or on a mesh the
+        shards of every mesh coordinate) extended by all of ``t``'s halos
+        through the transfer schedule, corners included, each result one
+        new contiguous tensor.  Its bytes count towards the piece being
+        lowered (``cache_stats()["halo_bytes"]``); a ``ripple.halo`` span
+        records it, with its ``bytes`` and the record's ``fields`` (a
+        replay, which never comes here, records none)."""
+        entries = _halo_plan(t, mesh)
+        if not entries:
+            return data
+        ip = self._inplace
+        with trace.span("ripple.halo") as sp:
+            out = halo_lib.exchange_multi(
+                data, _halo_axes(entries), boundary=t.boundary,
+                constant=t.boundary_constant, mesh=mesh)
+        if ip is not None or sp is not None:
+            nbytes = sum(x.numel() * x.element_size()
+                         for x in ((out,) if isinstance(out, torch.Tensor)
+                                   else out))
+            if ip is not None:
+                ip.halo += nbytes
+            if sp is not None:   # after the span: not in its time
+                sp.attrs.update(bytes=nbytes, fields=t.spec.num_components
+                                if t.is_record else 1)
+        return out
 
     def _per_shard(self, node: Node) -> bool:
         """True when ``node`` runs once per shard: on a mesh, one of its
@@ -2547,10 +2577,10 @@ class Executor:
             if isinstance(data, ShardedArray):
                 shards = list(data.shards)
                 if mode.padded:
-                    shards = _apply_halo(shards, t, self.mesh)
+                    shards = self._padded(shards, t, self.mesh)
             else:
                 if mode.padded:
-                    data = _apply_halo(data, t)
+                    data = self._padded(data, t)
                 shards = [data.to(dev) for dev in devices]
             for vals, x in zip(per, shards):
                 vals.append(t.wrap(x) if t.is_record else x)

@@ -13,6 +13,8 @@
 * :func:`build_flux_graph` — the Table 4 FORCE flux difference on a
   haloed 2-D Euler record (transmissive boundary), whole or partitioned
   over a mesh.
+* :func:`build_force_march_graph` — that flux difference marched: each
+  step's conservative update feeds the next step.
 * :func:`build_eikonal_graph` — the Table 5 eikonal solve: the paper's
   conditional MapReduce around the FIM sweep, repeated until no cell
   changes, reinitialising the distance to a circle of sources; whole or
@@ -35,7 +37,7 @@ import torch
 from .core import (Boundary, DistTensor, ExecutionKind, Executor, Graph,
                    Layout, MaxReducer, Mesh, RecordArray, ReductionResult,
                    SumReducer, exclusive_padded_access, in_place,
-                   make_reduction_result)
+                   make_reduction_result, relayout)
 from .kernels.eikonal.ops import make_eikonal_graph
 from .kernels.particle.ops import PARTICLE_SPEC, particle_update
 from .kernels.saxpy.ops import SAXPY_SPEC, saxpy, saxpy_record
@@ -43,7 +45,9 @@ from .kernels.stencil.ops import make_flux_difference_graph
 from .physics.euler import EULER_SPEC, sound_speed, update_dim, update_full
 
 __all__ = ["DT", "build_saxpy_graph", "build_particle_graph",
-           "build_particle_diagnostic_graph", "particle_fields", "build_flux_graph", "Converging",
+           "build_particle_diagnostic_graph", "particle_fields",
+           "build_flux_graph", "conservative_update",
+           "build_force_march_graph", "Converging",
            "build_eikonal_graph", "eikonal_inputs", "eikonal_distance",
            "build_euler_solver"]
 
@@ -165,6 +169,24 @@ def _partition(mesh, partition) -> tuple:
     return mesh.axis_names if mesh is not None else ()
 
 
+def _flux_graph(out_name: str, nx: int, ny: int, lam_x, lam_y, layout,
+                block, use_kernel, mesh, partition, overlap, graph=None):
+    """The flux difference of ``u`` into the record ``out_name``, on
+    ``graph`` when given: ``(graph, (u, out))``."""
+    partition = _partition(mesh, partition)
+    u = DistTensor("u", (nx, ny), spec=EULER_SPEC, layout=layout,
+                   partition=partition, halo=(1, 1),
+                   boundary=Boundary.TRANSMISSIVE)
+    out = DistTensor(out_name, (nx, ny), spec=EULER_SPEC, layout=layout,
+                     partition=partition)
+    if mesh is not None:
+        u.validate_mesh(mesh)
+    g = make_flux_difference_graph(u, out, lam_x, lam_y, overlap=overlap,
+                                   use_kernel=use_kernel, block=block,
+                                   graph=graph)
+    return g, (u, out)
+
+
 def build_flux_graph(nx: int, ny: int, *, lam_x: float = 0.1,
                      lam_y: float = 0.1, layout: Layout = Layout.SOA,
                      block=None, use_kernel: bool = True,
@@ -174,18 +196,56 @@ def build_flux_graph(nx: int, ny: int, *, lam_x: float = 0.1,
     ``flux``; returns ``(graph, (u, flux))``.  Both are partitioned by
     ``partition`` (default: ``mesh``'s axes over (x, y)), checked against
     ``mesh`` when given; ``overlap=True`` asks for the interior/boundary
-    lowering."""
-    partition = _partition(mesh, partition)
-    u = DistTensor("u", (nx, ny), spec=EULER_SPEC, layout=layout,
-                   partition=partition, halo=(1, 1),
-                   boundary=Boundary.TRANSMISSIVE)
-    out = DistTensor("flux", (nx, ny), spec=EULER_SPEC, layout=layout,
-                     partition=partition)
-    if mesh is not None:
-        u.validate_mesh(mesh)
-    g = make_flux_difference_graph(u, out, lam_x, lam_y, overlap=overlap,
-                                   use_kernel=use_kernel, block=block)
-    return g, (u, out)
+    lowering.  A step leaves ``u`` as it was, so every step computes the
+    same ``flux``: to march the scheme, build
+    :func:`build_force_march_graph`."""
+    return _flux_graph("flux", nx, ny, lam_x, lam_y, layout, block,
+                       use_kernel, mesh, partition, overlap)
+
+
+@in_place                       # reads each element of u before writing it
+def conservative_update(u: RecordArray, du: RecordArray,
+                        out=None) -> RecordArray:
+    """The marched FORCE scheme's update ``u - du / 2`` of two Euler
+    records (``du`` K4's flux difference at twice the step's ``lam_x``
+    and ``lam_y``: see :func:`build_force_march_graph`), in ``u``'s
+    layout; written into ``out`` (a record in that layout, ``u``'s own
+    storage allowed) when given."""
+    if du.layout is not u.layout:
+        du = relayout(du, u.layout)
+    if out is None:
+        return RecordArray(u.data - du.data / 2, u.spec, u.layout)
+    torch.add(u.data, du.data, alpha=-0.5, out=out.data)
+    return out
+
+
+def build_force_march_graph(nx: int, ny: int, *, lam_x: float,
+                            lam_y: float, layout: Layout = Layout.SOA,
+                            block=None, use_kernel: bool = True,
+                            mesh: Mesh = None, partition=None,
+                            overlap: bool = False):
+    """The FORCE scheme marched (paper Table 4 and §8): a step fills
+    ``u``'s transmissive halo (1, 1), takes :func:`build_flux_graph`'s
+    flux difference ``du`` (K4 on the GPU) at ``2 lam_x`` and ``2
+    lam_y``, and then updates ``u <- u - du / 2`` in place
+    (:func:`conservative_update`), so that each step reads the last
+    one's ``u``.  ``lam_x`` and ``lam_y`` are the step's ``dt / dx`` and
+    ``dt / dy``.
+
+    The step is the mean of the x and the y one-dimensional FORCE steps
+    of ``2 dt``.  The plain sum ``u - lam_x dF - lam_y dG`` of fluxes at
+    ``lam_x`` and ``lam_y`` grows the grid's checkerboard mode at any
+    ``lam`` (by ``1 + C_x^2 + C_y^2`` a step under linear advection,
+    ``C`` the Courant numbers); the mean of two one-dimensional steps is stable
+    while each is, that is while ``2 lam_x max(|u| + c)`` and ``2 lam_y
+    max(|v| + c)`` stay at most 1, which the caller keeps.  ``layout``,
+    ``block``, ``use_kernel``, ``mesh``, ``partition`` and ``overlap``
+    are :func:`build_flux_graph`'s.  Returns ``(graph, (u, du))``."""
+    g, (u, du) = _flux_graph("du", nx, ny, 2 * lam_x, 2 * lam_y, layout,
+                             block, use_kernel, mesh, partition, overlap,
+                             graph=Graph(name="force_march"))
+    g.then_split(conservative_update, u, du, writes=(0,))
+    return g, (u, du)
 
 
 class Converging:

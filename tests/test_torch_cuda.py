@@ -707,6 +707,44 @@ def test_region_graphs_replay_the_kernels(dev, graph, donate):
     clear_executable_cache()
 
 
+def test_force_march_replays_without_halo_spans(dev):
+    """The marched FORCE scheme on the card: the captured steps equal the
+    eager ones bit for bit, K4 runs once a step inside the replays, the
+    update writes ``u`` in place, the halo bytes are the padded buffer's,
+    and a profiled replay records no ``ripple.halo`` span (its copies are
+    nodes of the graph) where an eager run records one a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import clear_executable_cache, trace
+    from repro_torch.kernels.stencil.kernel import flux_difference_cuda
+    from repro_torch.physics.euler import EULER_SPEC, shock_bubble_init
+
+    clear_executable_cache()
+    nx, ny = 128, 256
+    g, (u, _) = workloads.build_force_march_graph(nx, ny, lam_x=0.01,
+                                                  lam_y=0.02)
+    u0 = RecordArray(shock_bubble_init(nx, ny, device=dev), EULER_SPEC,
+                     Layout.SOA)
+    eager = Executor(g, regions=False)
+    ex = Executor(g)
+    want = eager.run(eager.init_state(u=u0), 5)
+    got = ex.run(ex.init_state(u=u0), 5)
+    _bitwise(got, want)
+    stats = ex.cache_stats()
+    assert stats["copy_backs"] == 0 and stats["trace_events"] == 1
+    assert stats["halo_bytes"] == 4 * (nx + 2) * (ny + 2) * 4
+    before = flux_difference_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = ex.run(got, 3)
+    assert trace.session().named("ripple.halo") == []
+    assert flux_difference_cuda.launches == before       # replays only
+    with profile(activities=[ProfilerActivity.CPU]):
+        want = eager.run(want, 3)
+    assert len(trace.session().named("ripple.halo")) == 3
+    _bitwise(got, want)
+    clear_executable_cache()
+
+
 def test_host_syncing_node_fails_at_capture_with_its_name(dev):
     from repro_torch.core import DistTensor, Graph, clear_executable_cache
 
